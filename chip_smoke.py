@@ -63,7 +63,7 @@ def k1_case(shape, dtype, seed, *, lengths=None, free_row=False):
     table entries past each slot's length FREE (-1), and optionally a last
     slot that is wholly unmapped, as an inactive engine slot is."""
     import torch
-    from repro_torch.kernels.paged_decode import pack_kv_pools
+    from repro_torch.kernels.ref import pack_kv_pools
     B, S, H, KVH, D, page = shape
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(B, H, D, generator=g).to(dtype)
@@ -95,7 +95,7 @@ def k1_args(c, cold_on_device=False):
 
 def check_kernels():
     """Phase 2: the kernel against its plain version on the card.  Returns
-    the full-width case and its max abs error."""
+    the full-width bf16 case and its max abs error."""
     import torch
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import ref
@@ -104,6 +104,7 @@ def check_kernels():
              for dt in (torch.float32, torch.bfloat16)]
     cases += [((2, 96, 4, 2, 32, 16), torch.float32, w, cap)
               for w, cap in WINDOW_SOFTCAP]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for i, (shape, dt, window, cap) in enumerate(cases):
         c = k1_case(shape, dt, seed=i)
         out = pd.paged_decode_attention(*k1_args(c), window=window,
@@ -111,31 +112,55 @@ def check_kernels():
         want = ref.paged_decode_attention_ref(*k1_args(c, True),
                                               window=window, softcap_val=cap)
         torch.cuda.synchronize()
-        _assert_k1_close(out, want, dt, f"{shape} {dt} w{window} cap{cap}")
-    rng = np.random.default_rng(1)
-    full = k1_case(FULL_WIDTH, torch.bfloat16, seed=99, free_row=True,
-                   lengths=[int(n) for n in rng.integers(100, 1000, SLOTS)])
-    out = pd.paged_decode_attention(*k1_args(full))
-    want = ref.paged_decode_attention_ref(*k1_args(full, True))
-    torch.cuda.synchronize()
-    err = _assert_k1_close(out, want, torch.bfloat16, f"full width "
-                           f"{FULL_WIDTH}")
-    print(f"k1 check: {len(cases) + 1} cases match the plain version "
-          f"(f32 atol=rtol=1e-5, bf16 atol 2e-2); full-width max_abs_err "
-          f"{err:.3e}", flush=True)
-    return full, err
+        err = _assert_k1_close(out, want, f"{shape} {dt} w{window} cap{cap}")
+        worst[dt] = max(worst[dt], err)
+    # the main path's shape, lengths 100-1000 and a wholly unmapped slot, in
+    # both dtypes: f32 holds the kernel's arithmetic to the plain version's,
+    # bf16 its loads and its rounding of the output
+    lengths = [int(n) for n in np.random.default_rng(1).integers(
+        100, 1000, SLOTS)]
+    full = {}
+    for dt in (torch.float32, torch.bfloat16):
+        c = k1_case(FULL_WIDTH, dt, seed=99, free_row=True, lengths=lengths)
+        out = pd.paged_decode_attention(*k1_args(c))
+        want = ref.paged_decode_attention_ref(*k1_args(c, True))
+        torch.cuda.synchronize()
+        full[dt] = (c, _assert_k1_close(out, want,
+                                        f"full width {FULL_WIDTH} {dt}"))
+    print(f"k1 check: {len(cases) + 2} cases match the plain version; "
+          f"max_abs_err f32 {worst[torch.float32]:.3e} (sweep) "
+          f"{full[torch.float32][1]:.3e} (full width) within "
+          f"{_tol_text(torch.float32)}; bf16 {worst[torch.bfloat16]:.3e} "
+          f"(sweep) {full[torch.bfloat16][1]:.3e} (full width) within "
+          f"{_tol_text(torch.bfloat16)}", flush=True)
+    return full[torch.bfloat16]
 
 
-def _assert_k1_close(out, want, dtype, what):
+def _tol(dtype):
+    """f32: the same math summed in another order.  bf16: the output's
+    rounding may differ by one bf16 ulp, at most 2**-7 of the value, so
+    rtol 8e-3 at the output's own scale (atol for values near zero)."""
+    import torch
+    return dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 \
+        else dict(atol=2e-3, rtol=8e-3)
+
+
+def _tol_text(dtype) -> str:
+    t = _tol(dtype)
+    return f"atol {t['atol']:g} + rtol {t['rtol']:g}"
+
+
+def _assert_k1_close(out, want, what):
     import torch
     if out.dtype != want.dtype or out.shape != want.shape:
         raise AssertionError(f"k1 {what}: {out.dtype}{tuple(out.shape)} vs "
                              f"{want.dtype}{tuple(want.shape)}")
-    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 \
-        else dict(atol=2e-2, rtol=0.0)
-    torch.testing.assert_close(out.float(), want.float(), **tol,
-                               msg=lambda m: f"k1 {what}: {m}")
-    return float((out.float() - want.float()).abs().max())
+    err = float((out.float() - want.float()).abs().max())
+    torch.testing.assert_close(
+        out.float(), want.float(), **_tol(out.dtype),
+        msg=lambda m: f"k1 {what}: max_abs_err {err:.3e}, limit "
+                      f"{_tol_text(out.dtype)}: {m}")
+    return err
 
 
 # --------------------------------------------------------------- serving ----
@@ -162,7 +187,7 @@ def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device):
     import torch
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.serve.engine import ContinuousBatcher
-    b = ContinuousBatcher(params, cfg, slots, max_seq, plan=plan, paged=True,
+    b = ContinuousBatcher(params, cfg, slots, max_seq, plan=plan,
                           device=device)
     for toks, key in reqs:
         b.submit(torch.as_tensor(toks), decode, prefix_key=key)
@@ -199,8 +224,7 @@ def check_serving():
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     from repro_torch.serve.plan import ServingPlan
-    cfg = dataclasses.replace(get_config("smollm-360m"),
-                              use_paged_decode=True)
+    cfg = get_config("smollm-360m")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0)
     reqs = requests(cfg.vocab_size)
@@ -251,8 +275,7 @@ def check_small_against_cpu():
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     from repro_torch.serve.plan import ServingPlan
-    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
-                              use_paged_decode=True)
+    cfg = get_config("smollm-360m").reduced()
     params_cpu = init_params(cfg, seed=0, device="cpu")
     params_gpu = copy.deepcopy(params_cpu).to("cuda")
     rng = np.random.default_rng(3)
@@ -316,7 +339,7 @@ def profile_decode(params, cfg, plan, reqs, card, steps=8):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import ContinuousBatcher
-    b = ContinuousBatcher(params, cfg, SLOTS, MAX_SEQ, plan=plan, paged=True)
+    b = ContinuousBatcher(params, cfg, SLOTS, MAX_SEQ, plan=plan)
     for toks, key in reqs[:SLOTS]:
         b.submit(torch.as_tensor(toks), DECODE, prefix_key=key)
     for _ in range(100):
@@ -364,15 +387,24 @@ def k1_record(full, err, launches, card):
     lengths = full["lengths"].tolist()
     esize = full["q"].element_size()
     page_bytes = page * KVH * D * 2 * esize          # K and V, all heads
-    # pages this run visits, by the pool the kernel reads them from (tier 0
-    # hot; cold and FREE entries from the pinned pool)
-    tier = full["page_tier"].cpu()
-    visited = [(b, i) for b, n in enumerate(lengths)
-               for i in range(-(-n // page))]
-    hot_pages = sum(1 for b, i in visited if tier[b, i] == 0)
-    cold_pages = len(visited) - hot_pages
-    tokens = len(visited) * page
-    io_bytes = 2 * full["q"].numel() * esize + 3 * B * S // page * 4
+    # distinct physical pages this run's lengths make the kernel read, by
+    # the pool it reads them from (tier 0 hot; cold and FREE entries, clipped
+    # as the kernel clips them, from the pinned pool): each is input the
+    # function must move once.  The unmapped slot visits clipped cold page 0
+    # for every page of its length; that page counts once.  The arithmetic
+    # counts every visit.
+    table, tier = full["page_table"].cpu(), full["page_tier"].cpu()
+    n_pool = {True: full["k_hot"].shape[0], False: full["k_cold"].shape[0]}
+    read = set()
+    for b, n in enumerate(lengths):
+        for i in range(-(-n // page)):
+            hot = int(tier[b, i]) == 0
+            read.add((hot, min(max(int(table[b, i]), 0), n_pool[hot] - 1)))
+    hot_pages = sum(1 for hot, _ in read if hot)
+    cold_pages = len(read) - hot_pages
+    tokens = sum(-(-n // page) for n in lengths) * page
+    # q in, out back, and the int32 table, tier and lengths
+    io_bytes = 2 * full["q"].numel() * esize + (2 * B * (S // page) + B) * 4
     h2d = h2d_bytes_per_s()
     bytes_s = max((hot_pages * page_bytes + io_bytes) / HBM_BYTES_PER_S,
                   cold_pages * page_bytes / h2d)
@@ -393,7 +425,8 @@ def k1_record(full, err, launches, card):
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qq, k, v, attn_mask=mask))
     print(f"k1 time: {ms:.4f} ms at B{B} H{H} KVH{KVH} D{D} page{page} bf16 "
-          f"({hot_pages} hot + {cold_pages} cold pages of {page_bytes} B); "
+          f"({hot_pages} hot + {cold_pages} cold distinct pages of "
+          f"{page_bytes} B, {tokens // page} page visits); "
           f"bound {bound_ms:.4f} ms (hot at {HBM_BYTES_PER_S / 1e12} TB/s, "
           f"cold at measured pinned H2D {h2d / 1e9:.2f} GB/s); plain "
           f"{plain_ms:.4f} ms; sdpa {library_ms:.4f} ms [{card}]", flush=True)
@@ -415,10 +448,13 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
-    for name, (secs, log) in build.build_all().items():
+    built = build.build("paged_decode")
+    if built is not None:
+        secs, log = built
         info = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
-        print(f"build {name}: {secs:.2f} s; " + " | ".join(info), flush=True)
+        print(f"build paged_decode: {secs:.2f} s; " + " | ".join(info),
+              flush=True)
 
     full, err = check_kernels()
     (out, cnt, launches, cold_steps, wall, step_s), served = check_serving()

@@ -1,5 +1,7 @@
 """Model configs and the arch registry (the port's own copy of
-``repro/configs/base.py``, cut to the fields a dense ATTN/LOCAL stack reads).
+``repro/configs/base.py``, cut to the fields a dense ATTN/LOCAL stack reads;
+the gemma extras -- final softcap, embedding scale, QK-norm, a global RoPE
+theta -- come with the slice that ports gemma).
 
 An arch is a repeating *period* of layer kinds; the port runs the stack as a
 plain loop over ``num_layers`` layers, layer ``l`` having kind
@@ -29,20 +31,14 @@ class ModelConfig:
 
     period: Sequence[str] = (ATTN,)
 
-    # attention details
-    use_paged_decode: bool = False  # decode attention reads the tiered page
-                                    # pools via ops.paged_decode_attention
-    sliding_window: int = 0
+    # attention details (the window and the softcap reach the decode kernel)
+    sliding_window: int = 0       # LOCAL layers' window
     attn_softcap: float = 0.0
-    final_softcap: float = 0.0
-    qk_norm: bool = False
     rope_theta: float = 10_000.0
-    rope_theta_global: float = 0.0   # global layers' theta when set
 
     act: str = "silu"             # silu | gelu
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
-    scale_embed: bool = False     # scale embeddings by sqrt(d)
     vocab_pad_to: int = 256       # embedding table padded to this multiple
     dtype: str = "bfloat16"
 

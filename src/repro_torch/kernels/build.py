@@ -3,8 +3,7 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``_build/<name>-<digest>.so`` (a plain C interface, loaded with ``ctypes``),
 at first use and from the sources in the checkout only.  The digest covers
-the source and the flags, so an edited source builds anew.  ``build_all``
-starts one ``nvcc`` per source, all at once.
+the source and the flags, so an edited source builds anew.
 """
 from __future__ import annotations
 
@@ -15,10 +14,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("paged_decode",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,36 +43,29 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def build_all(names=SOURCES) -> dict:
-    """Compile every source in ``names`` that has no up-to-date library,
-    one ``nvcc`` each, all started together.  Returns ``{name: (seconds,
-    compiler log)}`` for the sources it compiled."""
+def build(name: str) -> Optional[tuple]:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
+    Returns ``(seconds, compiler log)`` when it compiled, else None."""
+    out = _target(name)
+    if out.exists():
+        return None
     BUILD_DIR.mkdir(exist_ok=True)
-    procs = {}
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    for name in names:
-        out = _target(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    done = {}
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
-        os.replace(tmp, out)
-        done[name] = (time.perf_counter() - t0, log)
-    return done
+    res = subprocess.run([nvcc(), *FLAGS, "-o", str(tmp),
+                          str(CSRC / f"{name}.cu")],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{res.stdout}")
+    os.replace(tmp, out)
+    return time.perf_counter() - t0, res.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all((name,))
+        build(name)
         lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
     return lib

@@ -41,17 +41,26 @@ def _lib():
     return lib
 
 
+_mapped: dict = {}          # pinned storage's host address -> device address
+
+
 def _mapped_address(lib, t: torch.Tensor) -> int:
     """Device address of pinned host tensor ``t``: the mapped address of its
-    allocation (cudaHostGetDevicePointer, return code checked) plus the
-    tensor's offset into it."""
+    storage plus the tensor's offset into it.  The mapped address comes from
+    cudaHostGetDevicePointer (return code checked), asked once per storage
+    address: the pools ask it every layer of every step, and a pinned host
+    address maps to one device address for as long as the process runs
+    (unified addressing, which every sm_90 card has)."""
     base = t.untyped_storage().data_ptr()
-    dev = _P()
-    rc = lib.host_device_pointer(_P(base), ctypes.byref(dev))
-    if rc != 0 or not dev.value:
-        raise RuntimeError(
-            f"cudaHostGetDevicePointer failed (error {rc}) on a cold pool")
-    return dev.value + (t.data_ptr() - base)
+    dev = _mapped.get(base)
+    if dev is None:
+        out = _P()
+        rc = lib.host_device_pointer(_P(base), ctypes.byref(out))
+        if rc != 0 or not out.value:
+            raise RuntimeError(
+                f"cudaHostGetDevicePointer failed (error {rc}) on a cold pool")
+        dev = _mapped[base] = out.value
+    return dev + (t.data_ptr() - base)
 
 
 def _check(cond: bool, msg: str):
@@ -119,40 +128,3 @@ def paged_decode_attention(q, k_hot, v_hot, k_cold, v_cold, page_table,
 
 
 paged_decode_attention.launches = 0
-
-
-def pack_kv_pools(k_cache, v_cache, cold_tokens, page_tokens: int):
-    """Pack dense caches (B, S, KVH, D) into the paged pool layout, as the
-    reference's ``pack_kv_pools``: pages fully below slot b's
-    ``cold_tokens[b]`` go to the cold pool, physical pages interleave slots
-    (slot-major over logical pages).  Returns (k_hot, v_hot, k_cold, v_cold,
-    page_table, page_tier) on the caches' device; an empty pool holds one
-    zero page."""
-    B, S, KVH, D = k_cache.shape
-    if S % page_tokens:
-        raise ValueError(f"{S} tokens are not whole {page_tokens}-token pages")
-    NP = S // page_tokens
-    cold_pages = [int(c) // page_tokens for c in cold_tokens]
-    idx = ([], [])                       # (slot, page) per physical page
-    table = [[0] * NP for _ in range(B)]
-    tier = [[0] * NP for _ in range(B)]
-    for i in range(NP):
-        for b in range(B):
-            t = 1 if i < cold_pages[b] else 0
-            table[b][i], tier[b][i] = len(idx[t]), t
-            idx[t].append((b, i))
-    dev = k_cache.device
-
-    def gather(cache, pages):
-        if not pages:
-            return torch.zeros((1, page_tokens, KVH, D), dtype=cache.dtype,
-                               device=dev)
-        paged = cache.reshape(B, NP, page_tokens, KVH, D)
-        bs = torch.tensor([b for b, _ in pages], device=dev)
-        ps = torch.tensor([i for _, i in pages], device=dev)
-        return paged[bs, ps]
-
-    return (gather(k_cache, idx[0]), gather(v_cache, idx[0]),
-            gather(k_cache, idx[1]), gather(v_cache, idx[1]),
-            torch.tensor(table, dtype=torch.int32, device=dev),
-            torch.tensor(tier, dtype=torch.int32, device=dev))

@@ -4,7 +4,9 @@ each CUDA kernel is held against on the card).
 Ports of ``repro/kernels/decode_attention.py::masked_scores`` /
 ``online_softmax_update`` and ``repro/kernels/ref.py::
 paged_decode_attention_ref``, with the same op order, the same ``NEG_INF``
-and the same clipping of physical page indices.
+and the same clipping of physical page indices; and of
+``repro/kernels/paged_decode.py::pack_kv_pools``, which lays dense caches out
+as pools.
 """
 from __future__ import annotations
 
@@ -80,3 +82,40 @@ def paged_decode_attention_ref(q, k_hot, v_hot, k_cold, v_cold, page_table,
                                           acc, m, l)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype).reshape(B, H, D)
+
+
+def pack_kv_pools(k_cache, v_cache, cold_tokens, page_tokens: int):
+    """Pack dense caches (B, S, KVH, D) into the paged pool layout, as the
+    reference's ``pack_kv_pools``: pages fully below slot b's
+    ``cold_tokens[b]`` go to the cold pool, physical pages interleave slots
+    (slot-major over logical pages).  Returns (k_hot, v_hot, k_cold, v_cold,
+    page_table, page_tier) on the caches' device; an empty pool holds one
+    zero page.  The kernel checks build their inputs with it."""
+    B, S, KVH, D = k_cache.shape
+    if S % page_tokens:
+        raise ValueError(f"{S} tokens are not whole {page_tokens}-token pages")
+    NP = S // page_tokens
+    cold_pages = [int(c) // page_tokens for c in cold_tokens]
+    idx = ([], [])                       # (slot, page) per physical page
+    table = [[0] * NP for _ in range(B)]
+    tier = [[0] * NP for _ in range(B)]
+    for i in range(NP):
+        for b in range(B):
+            t = 1 if i < cold_pages[b] else 0
+            table[b][i], tier[b][i] = len(idx[t]), t
+            idx[t].append((b, i))
+    dev = k_cache.device
+
+    def gather(cache, pages):
+        if not pages:
+            return torch.zeros((1, page_tokens, KVH, D), dtype=cache.dtype,
+                               device=dev)
+        paged = cache.reshape(B, NP, page_tokens, KVH, D)
+        bs = torch.tensor([b for b, _ in pages], device=dev)
+        ps = torch.tensor([i for _, i in pages], device=dev)
+        return paged[bs, ps]
+
+    return (gather(k_cache, idx[0]), gather(v_cache, idx[0]),
+            gather(k_cache, idx[1]), gather(v_cache, idx[1]),
+            torch.tensor(table, dtype=torch.int32, device=dev),
+            torch.tensor(tier, dtype=torch.int32, device=dev))

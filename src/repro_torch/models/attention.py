@@ -1,5 +1,5 @@
-"""GQA attention with causal / sliding-window masks, logit softcap, QK-norm,
-RoPE, and the persistent page pools as the KV cache (port of the GQA half of
+"""GQA attention with causal / sliding-window masks, logit softcap, RoPE, and
+the persistent page pools as the KV cache (port of the GQA half of
 ``repro/models/attention.py``).
 
 Three forms: no cache (a full-sequence forward), pool prefill (one admitted
@@ -14,7 +14,7 @@ from torch import nn
 
 from repro_torch.configs.base import ATTN, LOCAL
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.layers import apply_rope, frozen, rmsnorm, softcap
+from repro_torch.models.layers import apply_rope, frozen, softcap
 
 NEG_INF = -2.0 ** 20
 
@@ -50,8 +50,6 @@ class Attention(nn.Module):
 
         self.wq, self.wk, self.wv = w(d, H * hd), w(d, KV * hd), w(d, KV * hd)
         self.wo = w(H * hd, d)
-        if cfg.qk_norm:
-            self.q_norm, self.k_norm = w(hd), w(hd)
 
     def forward(self, cfg, x, positions, *, kind: str = ATTN, cache=None,
                 cache_index=None, paged_view=None):
@@ -62,17 +60,12 @@ class Attention(nn.Module):
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         G = H // KV
         window = cfg.sliding_window if kind == LOCAL else 0
-        theta = cfg.rope_theta if (kind == LOCAL or not cfg.rope_theta_global) \
-            else cfg.rope_theta_global
 
         q = (x @ self.wq).reshape(B, Sq, H, hd)
         k = (x @ self.wk).reshape(B, Sq, KV, hd)
         v = (x @ self.wv).reshape(B, Sq, KV, hd)
-        if cfg.qk_norm:
-            q = rmsnorm(q, self.q_norm, cfg.norm_eps)
-            k = rmsnorm(k, self.k_norm, cfg.norm_eps)
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
         q = q.reshape(B, Sq, KV, G, hd)
 
         if cache is not None:

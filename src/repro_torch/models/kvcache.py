@@ -47,14 +47,11 @@ class PageTable:
 
     FREE = -1
 
-    def __init__(self, slots: int, pages_per_slot: int, page_tokens: int,
-                 hot_pages: Optional[int] = None,
-                 cold_pages: Optional[int] = None):
+    def __init__(self, slots: int, pages_per_slot: int, page_tokens: int):
         self.slots, self.pages_per_slot = slots, pages_per_slot
         self.page_tokens = page_tokens
-        n = slots * pages_per_slot
-        self.n_hot = hot_pages or n
-        self.n_cold = cold_pages or n
+        # each pool can hold every slot's every page
+        self.n_hot = self.n_cold = slots * pages_per_slot
         self.hot_free = list(range(self.n_hot - 1, -1, -1))
         self.cold_free = list(range(self.n_cold - 1, -1, -1))
         self.hot_ref = [0] * self.n_hot
@@ -268,8 +265,7 @@ class PagedKVPools:
     """
 
     def __init__(self, cfg, slots: int, max_seq: int, page_tokens: int,
-                 dtype, device, hot_pages: Optional[int] = None,
-                 cold_pages: Optional[int] = None):
+                 dtype, device):
         if max_seq % page_tokens:
             raise ValueError(f"max_seq {max_seq} is not a whole number of "
                              f"{page_tokens}-token pages")
@@ -277,8 +273,7 @@ class PagedKVPools:
         self.device = torch.device(device)
         self.max_seq, self.page_tokens = max_seq, page_tokens
         self.num_pages = max_seq // page_tokens
-        self.table = PageTable(slots, self.num_pages, page_tokens,
-                               hot_pages, cold_pages)
+        self.table = PageTable(slots, self.num_pages, page_tokens)
         self.garbage = self.table.n_hot          # scratch page, never mapped
         L, D = cfg.num_layers, cfg.num_kv_heads * cfg.head_dim
         hot = (L, self.table.n_hot + 1, page_tokens, D)

@@ -18,14 +18,14 @@ def frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def rmsnorm(x, w, eps: float = 1e-6, plus_one: bool = False):
+def rmsnorm(x, w, eps: float = 1e-6):
+    """RMS norm with the weight stored as its offset from one (the
+    reference's ``plus_one=True``, the form of every norm the port has)."""
     dt = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
-    w = w.float()
-    y = y * (1.0 + w) if plus_one else y * w
-    return y.to(dt)
+    return (y * (1.0 + w.float())).to(dt)
 
 
 def softcap(x, cap: float):
@@ -71,37 +71,30 @@ class MLP(nn.Module):
 
 # ------------------------------------------------------------- embedding ----
 
-def embed(table, cfg, tokens):
+def embed(table, tokens):
     """tokens: (B, S) integer ids -> (B, S, d)."""
-    x = F.embedding(tokens, table)
-    if cfg.scale_embed:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-    return x
+    return F.embedding(tokens, table)
 
 
-def unembed(table, cfg, x):
+def unembed(table, x):
     """x: (B, S, d) -> logits (B, S, padded_vocab)."""
-    return softcap(x @ table.T, cfg.final_softcap)
+    return x @ table.T
 
 
 # ------------------------------------------------------------------ init ----
 
-_ZERO_INIT = ("ln1", "ln2", "final_norm")     # rmsnorm(plus_one=True) weights
-_ONE_INIT = ("q_norm", "k_norm")
+_ZERO_INIT = ("ln1", "ln2", "final_norm")     # rmsnorm weights (offset from 1)
 
 
 @torch.no_grad()
 def init_weights(module: nn.Module, cfg, generator: torch.Generator):
     """Fill every parameter in registration order from ``generator``, with
-    the reference's initialisers: norms 0 (or 1 for QK-norm), embedding
-    tables N(0, d^-1), projections N(0, 1/fan_in)."""
+    the reference's initialisers: norms 0, embedding tables N(0, d^-1),
+    projections N(0, 1/fan_in)."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in _ZERO_INIT:
             p.zero_()
-            continue
-        if leaf in _ONE_INIT:
-            p.fill_(1.0)
             continue
         scale = cfg.d_model ** -0.5 if leaf in ("table", "head") \
             else 1.0 / math.sqrt(p.shape[0])

@@ -42,12 +42,12 @@ class Model(nn.Module):
 
     def forward(self, cfg, tokens, positions, *, caches=None,
                 cache_index=None, paged_view=None):
-        x = embed(self.table, cfg, tokens)
+        x = embed(self.table, tokens)
         x = transformer.stack_forward(self.layers, cfg, x, positions,
                                       caches=caches, cache_index=cache_index,
                                       paged_view=paged_view)
-        x = rmsnorm(x, self.final_norm, cfg.norm_eps, plus_one=True)
-        return unembed(self.table if self.head is None else self.head, cfg, x)
+        x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+        return unembed(self.table if self.head is None else self.head, x)
 
 
 def init_params(cfg, seed: int = 0, device=None) -> Model:

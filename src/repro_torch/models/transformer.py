@@ -24,10 +24,10 @@ class Block(nn.Module):
 
     def forward(self, cfg, x, positions, *, cache=None, cache_index=None,
                 paged_view=None):
-        h = rmsnorm(x, self.ln1, cfg.norm_eps, plus_one=True)
+        h = rmsnorm(x, self.ln1, cfg.norm_eps)
         x = x + self.attn(cfg, h, positions, kind=self.kind, cache=cache,
                           cache_index=cache_index, paged_view=paged_view)
-        h = rmsnorm(x, self.ln2, cfg.norm_eps, plus_one=True)
+        h = rmsnorm(x, self.ln2, cfg.norm_eps)
         return x + self.mlp(h, cfg.act)
 
 

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine on the persistent-pools layout (port
 of ``repro/serve/engine.py::ContinuousBatcher`` with ``paged=True`` and
-``cfg.use_paged_decode``).
+``cfg.use_paged_decode``, the one layout ported: here it is unconditional).
 
 The physical page pools (models/kvcache.PagedKVPools) ARE the cache: hot
 pages in device memory, cold pages in pinned host memory, one refcounted
@@ -21,17 +21,12 @@ from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any
 
 import torch
 
 from repro_torch.device import resolve
 from repro_torch.models import kvcache, model
-
-
-@dataclass
-class ServeConfig:
-    eos_id: int = -1             # -1: never stop early
 
 
 @dataclass
@@ -50,23 +45,15 @@ class _PrefillJob:
     last: Any = None             # last computed row's logits (1, vocab)
 
 
-_NOT_PORTED = ("only the persistent-pools layout (paged=True, "
-               "cfg.use_paged_decode=True, with a plan) is ported; the dense, "
-               "concat and paged-merged layouts wait for ROADMAP, modules to "
-               "port: item 7")
-
-
 class ContinuousBatcher:
     """Slot-based continuous batching over a fixed B-slot decode batch: all
     slots decode in lockstep against per-slot lengths, and finished or
-    empty slots are refilled from per-tenant request queues."""
+    empty slots are refilled from per-tenant request queues.  ``plan`` (a
+    serve/plan.ServingPlan) sets the page size, every slot's hot window,
+    the per-step prefill budget and the slots' tenants."""
 
-    def __init__(self, params, cfg, batch_slots: int, max_seq: int,
-                 scfg: Optional[ServeConfig] = None, plan=None,
-                 paged: bool = False, slot_tenants=None,
-                 prefill_chunk_tokens: Optional[int] = None, device=None):
-        if not paged or plan is None or not cfg.use_paged_decode:
-            raise NotImplementedError(_NOT_PORTED)
+    def __init__(self, params, cfg, batch_slots: int, max_seq: int, plan,
+                 device=None):
         self.device = resolve(device)
         p_dev = next(params.parameters()).device
         if p_dev != self.device:
@@ -74,15 +61,11 @@ class ContinuousBatcher:
                              f"{self.device}")
         self.params, self.cfg = params, cfg
         self.B, self.max_seq = batch_slots, max_seq
-        self.scfg = scfg or ServeConfig()
         self.plan = plan
-        if prefill_chunk_tokens is None:
-            prefill_chunk_tokens = plan.prefill_chunk_tokens
-        self.prefill_chunk_tokens = int(prefill_chunk_tokens)
+        self.prefill_chunk_tokens = int(plan.prefill_chunk_tokens)
         # a tenant's requests admit only into the tenant's own slots
-        if slot_tenants is None:
-            slot_tenants = plan.slot_tenants
-        self.slot_tenants = list(slot_tenants) if slot_tenants else None
+        self.slot_tenants = list(plan.slot_tenants) if plan.slot_tenants \
+            else None
         if self.slot_tenants and len(self.slot_tenants) != batch_slots:
             raise ValueError(
                 f"slot_tenants has {len(self.slot_tenants)} entries for "
@@ -371,7 +354,7 @@ class ContinuousBatcher:
             self._host_len[slot] += 1
             self.outputs[slot].append(tok_host[slot])
             self.budget[slot] -= 1
-            if self.budget[slot] <= 0 or tok_host[slot] == self.scfg.eos_id:
+            if self.budget[slot] <= 0:
                 self.active[slot] = False
         if self.active != was_active:
             self._refresh_active()

@@ -9,14 +9,14 @@ from repro_torch.models.model import Model, param_dtype
 
 
 @torch.no_grad()
-def params_from_jax(cfg, tree, device=None, dtype=None) -> Model:
+def params_from_jax(cfg, tree, device=None) -> Model:
     """The port's parameters from the reference's
     ``split_params(model.init_params(...))[0]`` given as nested dicts of
     numpy arrays.  Stacked slot leaves ``(num_periods, ...)`` unstack into
     layers: layer ``l`` is slot ``l % period_len`` at period
     ``l // period_len``.  Copied to ``device`` (default: the CUDA card) in
-    ``dtype`` (default: the config's)."""
-    params = Model(cfg, device=resolve(device), dtype=dtype or param_dtype(cfg))
+    the config's dtype."""
+    params = Model(cfg, device=resolve(device), dtype=param_dtype(cfg))
     slots = tree["stack"]["slots"]
     for name, p in params.named_parameters():
         path = name.split(".")

@@ -88,8 +88,7 @@ def setup(r1_patch):
                                 use_paged_decode=True)
     params_j, _ = split_params(ref_model.init_params(jax.random.PRNGKey(0),
                                                      cfg_j))
-    cfg_t = dataclasses.replace(get_config("smollm-360m").reduced(),
-                                use_paged_decode=True)
+    cfg_t = get_config("smollm-360m").reduced()
     params_t = params_from_jax(cfg_t, jax.tree.map(np.asarray, params_j),
                                device="cpu")
     trace = ref_engine.serve_trace_for(ref_config("smollm-360m"),
@@ -140,6 +139,7 @@ def runs(setup):
         plan_j = dataclasses.replace(base_plan, hot_window=MAX_SEQ // 2,
                                      slot_hot_windows=list(case["windows"]),
                                      page_tokens=PAGE,
+                                     prefill_chunk_tokens=case["chunk"],
                                      slot_tenants=case.get("tenants"))
         plan_t = ServingPlan.from_dict(plan_j.to_dict())
         all_hot = dataclasses.replace(plan_t,
@@ -149,8 +149,7 @@ def runs(setup):
             mp.setattr(ref_model, "forward",
                        _recording(ref_model, log_j, lambda r: r[0]))
             b_j = ref_engine.ContinuousBatcher(
-                params_j, cfg_j, SLOTS, MAX_SEQ, plan=plan_j, paged=True,
-                prefill_chunk_tokens=case["chunk"])
+                params_j, cfg_j, SLOTS, MAX_SEQ, plan=plan_j, paged=True)
             for toks, d, key, tn in case["reqs"]:
                 b_j.submit(jnp.asarray(toks, jnp.int32), d, prefix_key=key,
                            tenant=tn)
@@ -158,15 +157,12 @@ def runs(setup):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(model, "forward", _recording(model, log_t, lambda r: r))
             b_t = ContinuousBatcher(params_t, cfg_t, SLOTS, MAX_SEQ,
-                                    plan=plan_t, paged=True,
-                                    prefill_chunk_tokens=case["chunk"],
-                                    device="cpu")
+                                    plan=plan_t, device="cpu")
             for toks, d, key, tn in case["reqs"]:
                 b_t.submit(torch.from_numpy(toks), d, prefix_key=key,
                            tenant=tn)
             out_t = _drive(b_t)
         b_h = ContinuousBatcher(params_t, cfg_t, SLOTS, MAX_SEQ, plan=all_hot,
-                                paged=True, prefill_chunk_tokens=case["chunk"],
                                 device="cpu")
         for toks, d, key, tn in case["reqs"]:
             b_h.submit(torch.from_numpy(toks), d, prefix_key=key, tenant=tn)

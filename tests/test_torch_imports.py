@@ -2,12 +2,12 @@
 chip_smoke.py loads JAX or the reference package, and the entry points
 refuse to fall back to the CPU when no card is present."""
 import ast
-import dataclasses
 import json
 import os
 import pkgutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -61,19 +61,25 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init_params(cfg)
     params = model.init_params(cfg, device="cpu")
-    cfg_k = dataclasses.replace(cfg, use_paged_decode=True)
     plan = ServingPlan(hot_window=16, page_tokens=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        ContinuousBatcher(params, cfg_k, 2, 32, plan=plan, paged=True)
-    ContinuousBatcher(params, cfg_k, 2, 32, plan=plan, paged=True,
-                      device="cpu")
+        ContinuousBatcher(params, cfg, 2, 32, plan=plan)
+    ContinuousBatcher(params, cfg, 2, 32, plan=plan, device="cpu")
 
 
 def test_unported_layouts_raise():
+    """The pools are the one cache layout ported: a dense per-slot cache and
+    an incremental re-plan raise, naming the ROADMAP item that ports them."""
     cfg = get_config("smollm-360m").reduced()
     params = model.init_params(cfg, device="cpu")
+    dense = {"k": torch.zeros(1, 8, cfg.num_kv_heads, cfg.head_dim),
+             "v": torch.zeros(1, 8, cfg.num_kv_heads, cfg.head_dim)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(params, cfg, 2, 32, device="cpu")
+        model.forward(params, cfg, {"tokens": torch.zeros(1, 1, dtype=int)},
+                      caches=[dense] * cfg.num_layers,
+                      cache_index=torch.zeros(1, dtype=torch.int32),
+                      decode=True)
+    b = ContinuousBatcher(params, cfg, 2, 32, plan=ServingPlan(page_tokens=4),
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(params, cfg, 2, 32, plan=ServingPlan(page_tokens=4),
-                          paged=True, device="cpu")
+        b.apply_plan(types.SimpleNamespace(changes={}, page_tokens=4))

@@ -2,8 +2,9 @@
 fp32, with the reference's parameters carried across by params_from_jax:
 a full forward without a cache, suffix prefill into the page pools forking
 at a page edge and mid-page (with a cold page below the fork), and three
-decode steps through the pools (hot and cold pages).  Logits agree at
-atol 1e-4."""
+decode steps through the pools (hot and cold pages).  Each also runs on the
+same config with a sliding-window layer, an attention softcap and gelu.
+Logits agree at atol 1e-4."""
 import dataclasses
 
 import jax
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from repro.configs.base import get_config as ref_config
+from repro_torch.configs.base import ATTN, LOCAL
 from repro.models import kvcache as ref_kvcache
 from repro.models import model as ref_model
 from repro.models.layers import split_params
@@ -34,15 +36,30 @@ def r1_patch():
         yield
 
 
-@pytest.fixture(scope="module")
-def setup():
-    cfg_j = ref_config("smollm-360m").reduced()
+def _both(**fields):
+    """The reduced config in both packages (with ``fields`` replaced) and
+    the reference's parameters carried across."""
+    cfg_j = dataclasses.replace(ref_config("smollm-360m").reduced(), **fields)
     params_j, _ = split_params(ref_model.init_params(jax.random.PRNGKey(0),
                                                      cfg_j))
-    cfg_t = get_config("smollm-360m").reduced()
+    cfg_t = dataclasses.replace(get_config("smollm-360m").reduced(), **fields)
     params_t = params_from_jax(cfg_t, jax.tree.map(np.asarray, params_j),
                                device="cpu")
     return cfg_j, params_j, cfg_t, params_t
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _both()
+
+
+@pytest.fixture(scope="module")
+def setup_local():
+    """A sliding-window layer before a global one, with an attention softcap
+    and gelu: the window and the softcap reach the decode kernel, and the
+    window skips whole cold pages there."""
+    return _both(period=(LOCAL, ATTN), sliding_window=5, attn_softcap=2.0,
+                 act="gelu")
 
 
 def _toks(seed, shape, cfg):
@@ -64,13 +81,20 @@ def test_config_copy_matches_reference():
                 assert getattr(cfg_j, f) == getattr(cfg_t, f), f
 
 
-def test_full_forward_matches_reference(setup):
-    cfg_j, params_j, cfg_t, params_t = setup
+def _full_forward(cfg_j, params_j, cfg_t, params_t):
     toks = _toks(1, (2, 13), cfg_t)
     want, _, _ = ref_model.forward(params_j, cfg_j,
                                    {"tokens": jnp.asarray(toks, jnp.int32)})
     got = model.forward(params_t, cfg_t, {"tokens": torch.from_numpy(toks)})
     _close(got, want)
+
+
+def test_full_forward_matches_reference(setup):
+    _full_forward(*setup)
+
+
+def test_local_layers_full_forward_matches_reference(setup_local):
+    _full_forward(*setup_local)
 
 
 def _pool_chunk(pool, params, cfg, slot, toks, start, end):
@@ -87,12 +111,10 @@ def _pool_chunk(pool, params, cfg, slot, toks, start, end):
         caches=pool.tree, start=start, paged_view=view)
 
 
-@pytest.mark.parametrize("fork", [PAGE, 2 * PAGE, PAGE + 2, 2 * PAGE + 3])
-def test_prefill_suffix_into_pools_matches_reference(setup, fork):
+def _prefill_fork(cfg_j, params_j, cfg_t, params_t, fork):
     """Prefix then suffix into the pools (the first page demoted to the
     cold pool in between) gives the reference full prefill's logits: the
     prefix chunk's last row and the suffix's last row."""
-    cfg_j, params_j, cfg_t, params_t = setup
     S = 3 * PAGE + 1
     toks = _toks(3, (S,), cfg_t)
     full, _, _ = ref_model.forward(params_j, cfg_j,
@@ -107,6 +129,16 @@ def test_prefill_suffix_into_pools_matches_reference(setup, fork):
     _close(last, full[:, -1])
     assert pool.stats["page_copies"] == 1
     pool.table.check()
+
+
+@pytest.mark.parametrize("fork", [PAGE, 2 * PAGE, PAGE + 2, 2 * PAGE + 3])
+def test_prefill_suffix_into_pools_matches_reference(setup, fork):
+    _prefill_fork(*setup, fork)
+
+
+@pytest.mark.parametrize("fork", [PAGE, 2 * PAGE + 3])
+def test_local_layers_prefill_suffix_matches_reference(setup_local, fork):
+    _prefill_fork(*setup_local, fork)
 
 
 def test_pools_copy_on_write_and_shared_demotion_move_page_data(setup):
@@ -173,20 +205,18 @@ def _ref_decode(cfg_j, params_j, prompts, demote, steps):
     return out
 
 
-def test_pool_decode_matches_reference(setup, r1_patch):
+def _pool_decode(cfg_j, params_j, cfg_t, params_t):
     """Three decode steps through the pools, two slots of different
     lengths with cold prefixes, fed the same tokens in both packages."""
-    cfg_j, params_j, cfg_t, params_t = setup
-    cfg = dataclasses.replace(cfg_t, use_paged_decode=True)
     prompts = [_toks(4, (6,), cfg_t), _toks(5, (11,), cfg_t)]
     demote = [1, 2]
     steps = [_toks(6 + i, (SLOTS,), cfg_t) for i in range(3)]
     want = _ref_decode(cfg_j, params_j, prompts, demote, steps)
 
-    pool = kvcache.PagedKVPools(cfg, SLOTS, MAX_SEQ, PAGE, torch.float32,
+    pool = kvcache.PagedKVPools(cfg_t, SLOTS, MAX_SEQ, PAGE, torch.float32,
                                 "cpu")
     for slot, toks in enumerate(prompts):
-        _pool_chunk(pool, params_t, cfg, slot, toks, 0, len(toks))
+        _pool_chunk(pool, params_t, cfg_t, slot, toks, 0, len(toks))
         for _ in range(demote[slot]):
             pool.demote_boundary(slot)
     lengths = torch.tensor([len(t) for t in prompts], dtype=torch.int32)
@@ -194,10 +224,18 @@ def test_pool_decode_matches_reference(setup, r1_patch):
         for s in range(SLOTS):
             pool.ensure_write_page(s, int(lengths[s]))
         view = pool.paged_view(torch.ones(SLOTS, dtype=torch.bool))
-        logits = model.forward(params_t, cfg,
+        logits = model.forward(params_t, cfg_t,
                                {"tokens": torch.from_numpy(tok)[:, None]},
                                caches=pool.tree, cache_index=lengths,
                                decode=True, paged_view=view)
         _close(logits, ref_logits)
         lengths = lengths + 1
     assert any(t == 1 for row in pool.table.tier for t in row)
+
+
+def test_pool_decode_matches_reference(setup, r1_patch):
+    _pool_decode(*setup)
+
+
+def test_local_layers_pool_decode_matches_reference(setup_local, r1_patch):
+    _pool_decode(*setup_local)
