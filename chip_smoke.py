@@ -5,19 +5,29 @@
 
 Phases, each printing its own lines:
   1. the card (name and power limit, as nvidia-smi gives them) and the
-     build of every CUDA kernel from the sources in this checkout;
-  2. every kernel against its plain PyTorch version on the card, over the
-     reference's shape sweep, window/softcap cases and the full-width shape,
-     with hot pages on the card, cold pages in pinned host memory and
-     unmapped (FREE) table entries;
+     build of every CUDA kernel from the sources in this checkout, one
+     nvcc per source, all started together;
+  2. every kernel against its plain PyTorch version on the card:
+     - K1 (paged decode) over the reference's shape sweep, window/softcap
+       cases and the full-width shape, with hot pages on the card, cold
+       pages in pinned host memory and unmapped (FREE) table entries;
+     - K4 (Mamba2 SSD scan) over the reference's SSD sweep, a start state,
+       S < chunk and the full-width zamba2-7b layer (S 4096, H 112, P = N =
+       64), in f32 and bf16;
   3. serving smollm-360m at full width (bf16, random weights from seed 0)
      through the paged-pool ContinuousBatcher: tiered hot windows against
-     an all-hot run (tokens must be identical), the kernel's launch count
-     against decode steps x layers, and a small fp32 run on the card
-     against the same run on the CPU (plain path);
-  4. timings: decode tokens/s and step time, each kernel's time beside its
-     bound, its plain version's time and one PyTorch library call's, and a
-     profile of a few decode steps (device-busy share, top device ops).
+     an all-hot run (tokens must be identical), K1's launch count against
+     decode steps x layers, and a small fp32 run on the card against the
+     same run on the CPU (plain path); then K1's time beside its bound, its
+     plain version's and one PyTorch library call's, decode tokens/s and a
+     profile of a few decode steps (device-busy share, top device kernels);
+  4. zamba2-7b: its reduced fp32 variant on the card against the CPU
+     (logits and loss), then the full width in bf16 (random weights from
+     seed 0, B 2 x S 4096): the loss and the forward (finite), K4's
+     launches against 65 MAMBA layers x forwards, the first Mamba layer's
+     K4 output against the plain version on the same activations, the
+     forward's time and tokens/s, a profile of one forward, and K4's time
+     beside its bound and its plain version's.
 
 Then one JSON line with the kernels' record, the card line again, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -46,6 +56,15 @@ SWEEP = [(2, 64, 4, 2, 16, 8), (3, 128, 8, 4, 32, 16), (1, 32, 2, 1, 128, 8),
          (2, 96, 6, 2, 64, 16)]
 WINDOW_SOFTCAP = [(0, 0.0), (24, 0.0), (0, 30.0), (16, 50.0)]
 FULL_WIDTH = (SLOTS, MAX_SEQ, 15, 5, 64, PAGE)   # B, S, H, KVH, D, page
+KERNELS = ("paged_decode", "ssd")                # csrc/<name>.cu
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count to 0, just before a path runs."""
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ssd as k4
+    pd.paged_decode_attention.launches = 0
+    k4.ssd.launches = 0
 
 
 def card_line() -> str:
@@ -194,7 +213,7 @@ def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device):
     results, cold_steps, step_s = [], 0, []
     if device == "cuda":
         torch.cuda.synchronize()
-    pd.paged_decode_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     while b.queue or b._jobs or any(b.active):
         cold_mapped = any(b.ptable.tier[s][i] == 1 for s in range(b.B)
@@ -331,13 +350,49 @@ def h2d_bytes_per_s(nbytes=256 << 20):
     return nbytes / (ms * 1e-3)
 
 
+def device_profile(run, steps):
+    """torch.profiler over ``steps`` calls of ``run``.  Returns (wall us
+    under the profiler, rows of (device us, launches, kernel name), largest
+    first).  Only device-side events count: a CPU op's device time is the
+    time of kernels that are listed on their own too."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return wall_us, sorted(rows, reverse=True)
+
+
+def print_profile(what, wall_us, rows, steps, card, unit="step", top=6):
+    if not rows:
+        print(f"{what} profile: no device time in the trace (not measured)",
+              flush=True)
+        return 0.0
+    busy = sum(r[0] for r in rows)
+    top = "; ".join(f"{k[:60]} {us / steps / 1e3:.3f} ms x{n // steps}"
+                    for us, n, k in rows[:top])
+    print(f"{what} profile: {wall_us / steps / 1e3:.3f} ms per {unit} under "
+          f"the profiler, device busy {100 * busy / wall_us:.1f}% "
+          f"({busy / steps / 1e3:.3f} ms device time per {unit}); top device "
+          f"ops per {unit}: {top} [{card}]", flush=True)
+    return busy
+
+
 def profile_decode(params, cfg, plan, reqs, card, steps=8):
     """Where a decode step's time goes: torch.profiler over ``steps`` pure
     decode steps of the tiered engine once all slots decode.  Prints the
-    device-busy share (device time summed over all device ops / wall time,
-    profiler on) and the ops that take the most device time."""
+    device-busy share (device time summed over all device kernels / wall
+    time, profiler on) and the kernels that take the most device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import ContinuousBatcher
     b = ContinuousBatcher(params, cfg, SLOTS, MAX_SEQ, plan=plan)
     for toks, key in reqs[:SLOTS]:
@@ -348,33 +403,8 @@ def profile_decode(params, cfg, plan, reqs, card, steps=8):
         b.step()
     else:
         raise AssertionError("profile window: the slots never all decoded")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            b.step()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
-    if not rows:
-        print("decode profile: no device time in the trace (not measured)",
-              flush=True)
-        return
-    busy = sum(r[0] for r in rows)
-    top = "; ".join(f"{k[:60]} {us / steps / 1e3:.3f} ms x{n // steps}"
-                    for us, n, k in rows[:6])
-    print(f"decode profile: {wall_us / steps / 1e3:.3f} ms per step under the "
-          f"profiler, device busy {100 * busy / wall_us:.1f}% "
-          f"({busy / steps / 1e3:.3f} ms device time per step); top device "
-          f"ops per step: {top} [{card}]", flush=True)
+    wall_us, rows = device_profile(b.step, steps)
+    print_profile("decode", wall_us, rows, steps, card)
 
 
 def k1_record(full, err, launches, card):
@@ -439,6 +469,328 @@ def k1_record(full, err, launches, card):
             "library_ms": library_ms}
 
 
+# ------------------------------------------------------------------ K4 ----
+
+# B, S, H, P, N, chunk: tests/test_kernels.py's SSD sweep, then one
+# zamba2-7b layer at train_4k's sequence of 4096
+K4_SWEEP = [(2, 64, 4, 16, 16, 16), (1, 128, 8, 32, 64, 32),
+            (2, 96, 2, 8, 32, 32)]
+K4_FULL = (1, 4096, 112, 64, 64, 256)
+ZAMBA_B, ZAMBA_S, ZAMBA_RUNS = 2, 4096, 3
+
+
+def _k4_tol(dtype):
+    """f32: the reference kernel test's own limit, atol 1e-3
+    (tests/test_kernels.py:77-80).  bf16 output: both versions compute in
+    f32 from the same bf16 inputs, so their roundings may differ by one bf16
+    ulp, at most 2**-7 of the value: K1's limit.  The f32 state is held to
+    the f32 limit whatever the inputs' dtype."""
+    import torch
+    return dict(atol=1e-3, rtol=0.0) if dtype == torch.float32 \
+        else dict(atol=2e-3, rtol=8e-3)
+
+
+def _k4_close(got, want, what):
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"k4 {what}: {got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    err = float((got.float() - want.float()).abs().max())
+    tol = _k4_tol(got.dtype)
+    torch.testing.assert_close(
+        got.float(), want.float(), **tol,
+        msg=lambda m: f"k4 {what}: max_abs_err {err:.3e}, limit atol "
+                      f"{tol['atol']:g} + rtol {tol['rtol']:g}: {m}")
+    return err
+
+
+def k4_case(shape, dtype, seed, *, with_h0=False, model_layout=False):
+    """SSD inputs on the card, drawn as the reference kernel test draws
+    them.  ``model_layout``: x, B and C are column slices of one
+    (B, S, H*P + 2N) tensor, as MambaBlock hands them to the kernel."""
+    import torch
+    import torch.nn.functional as F
+    B, S, H, P, N, chunk = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*sh):
+        return torch.randn(*sh, generator=g, device="cuda")
+
+    if model_layout:
+        xbc = (randn(B, S, H * P + 2 * N) * 0.5).to(dtype)
+        x = xbc[..., :H * P].reshape(B, S, H, P)
+        Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    else:
+        x = (randn(B, S, H, P) * 0.5).to(dtype)
+        Bm = (randn(B, S, N) * 0.5).to(dtype)
+        Cm = (randn(B, S, N) * 0.5).to(dtype)
+    dt = F.softplus(randn(B, S, H)).to(dtype)
+    A = -torch.exp(randn(H) * 0.3)
+    h0 = randn(B, H, P, N) * 0.5 if with_h0 else None
+    return (x, dt, A, Bm, Cm), dict(chunk=chunk, h0=h0)
+
+
+def check_k4():
+    """Phase (a): K4 against its plain version on the card over the
+    reference's SSD sweep (f32 and bf16, one and two heads per CTA), a start
+    state h0, S < chunk, and the full-width shape in the model's layout.
+    Returns the full-width bf16 case."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as k4
+    torch.backends.cuda.matmul.allow_tf32 = False     # plain version in fp32
+    cases = [(s, dt, {"block_heads": bh}) for s in K4_SWEEP
+             for dt, bh in ((torch.float32, None), (torch.bfloat16, 2))]
+    cases += [((2, 64, 4, 16, 16, 16), dt, {"with_h0": True})
+              for dt in (torch.float32, torch.bfloat16)]
+    cases += [((1, 40, 4, 16, 32, 256), torch.float32, {}),      # S < chunk
+              ((2, 192, 4, 64, 64, 64), torch.float32,
+               {"block_heads": 2, "with_h0": True})]
+    cases += [(K4_FULL, dt, {"model_layout": True})
+              for dt in (torch.float32, torch.bfloat16)]
+    worst = {}
+    full = None
+    for i, (shape, dt, opt) in enumerate(cases):
+        bh = opt.get("block_heads")
+        args, kw = k4_case(shape, dt, seed=100 + i,
+                           with_h0=opt.get("with_h0", False),
+                           model_layout=opt.get("model_layout", False))
+        y, h = k4.ssd(*args, **kw) if bh is None else \
+            k4._launch(*args, **kw, block_heads=bh)
+        y_ref, h_ref = ref.ssd_chunked_ref(*args, **kw)
+        torch.cuda.synchronize()
+        what = f"{shape} {dt} {opt}"
+        ey = _k4_close(y, y_ref, what + " y")
+        eh = _k4_close(h, h_ref, what + " h")
+        key = (dt, "full" if shape == K4_FULL else "sweep")
+        wy, wh = worst.get(key, (0.0, 0.0))
+        worst[key] = (max(wy, ey), max(wh, eh))
+        if shape == K4_FULL and dt == torch.bfloat16:
+            full = (args, kw, ey)
+    t32, t16 = _k4_tol(torch.float32), _k4_tol(torch.bfloat16)
+    f32 = "; ".join(f"{k} y {worst[(torch.float32, k)][0]:.3e} h "
+                    f"{worst[(torch.float32, k)][1]:.3e}"
+                    for k in ("sweep", "full"))
+    b16 = "; ".join(f"{k} y {worst[(torch.bfloat16, k)][0]:.3e} h "
+                    f"{worst[(torch.bfloat16, k)][1]:.3e}"
+                    for k in ("sweep", "full"))
+    print(f"k4 check: {len(cases)} cases match the plain version "
+          f"(ssd_chunked_ref); max_abs_err f32 {f32} within atol "
+          f"{t32['atol']:g}; bf16 {b16} (y within atol {t16['atol']:g} + "
+          f"rtol {t16['rtol']:g}, h within atol {t32['atol']:g})",
+          flush=True)
+    return full
+
+
+def _n_mamba(cfg):
+    from repro_torch.configs.base import MAMBA
+    return sum(cfg.layer_kind(l) == MAMBA for l in range(cfg.num_layers))
+
+
+def check_zamba_small():
+    """Phase (b): zamba2-7b.reduced() in fp32 on the card (K4) against the
+    same parameters on the CPU (plain version): logits and loss."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd as k4
+    from repro_torch.models.model import forward, init_params, loss_fn
+    cfg = get_config("zamba2-7b").reduced()
+    params_cpu = init_params(cfg, seed=0, device="cpu")
+    params_gpu = copy.deepcopy(params_cpu).to("cuda")
+    if params_gpu.layers[cfg.period_len - 1] is not params_gpu.shared:
+        raise AssertionError("the shared block was copied")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 41))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    gpu_batch = {k: v.cuda() for k, v in batch.items()}
+    reset_counts()
+    logits_g = forward(params_gpu, cfg, gpu_batch)
+    loss_g = loss_fn(params_gpu, cfg, gpu_batch)
+    torch.cuda.synchronize()
+    launches = k4.ssd.launches
+    if launches != 2 * _n_mamba(cfg):
+        raise AssertionError(f"reduced zamba2: {launches} K4 launches for 2 "
+                             f"forwards x {_n_mamba(cfg)} MAMBA layers")
+    logits_c = forward(params_cpu, cfg, batch)
+    loss_c = loss_fn(params_cpu, cfg, batch)
+    tol = dict(atol=1e-4, rtol=0.0)
+    err = float((logits_g.cpu() - logits_c).abs().max())
+    torch.testing.assert_close(logits_g.cpu(), logits_c, **tol)
+    torch.testing.assert_close(loss_g.cpu(), loss_c, **tol)
+    print(f"small zamba2 check: reduced fp32 logits on the card (K4, "
+          f"{launches} launches) == on the CPU (plain): max_abs_err "
+          f"{err:.3e}, loss {float(loss_g):.6f} vs {float(loss_c):.6f}, "
+          f"within atol {tol['atol']:g}", flush=True)
+
+
+def run_zamba_full(card):
+    """Phase (c): zamba2-7b at full width, bf16, random weights from seed 0,
+    on B 2 x S 4096 tokens: the loss and the forward, K4's launches against
+    65 MAMBA layers x forwards, the first Mamba layer's K4 output against
+    the plain version on the same tensors, the forward's time and a
+    profile.  Returns what phase (d) needs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as k4
+    from repro_torch.models.model import forward, init_params, loss_fn
+    cfg = get_config("zamba2-7b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (ZAMBA_B, ZAMBA_S + 1),
+                         generator=g, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    torch.cuda.synchronize()
+    print(f"zamba2-7b: {sum(p.numel() for p in params.parameters()) / 1e9:.3f}"
+          f" B parameters on the card, {torch.cuda.memory_allocated() / 1e9:.1f}"
+          f" GB, init {time.perf_counter() - t0:.1f} s", flush=True)
+
+    first = params.prologue[0].mamba
+    captured = {}
+
+    def capture(module, args, out):     # the first Mamba layer, once
+        if not captured:
+            captured.update(x=args[1], h=out[1])
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hook = first.register_forward_hook(capture)
+    try:
+        loss = loss_fn(params, cfg, batch)
+    finally:
+        hook.remove()
+    logits = forward(params, cfg, batch)
+    times = []
+    for _ in range(ZAMBA_RUNS):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+    launches = k4.ssd.launches
+    forwards = 2 + ZAMBA_RUNS
+    n_mamba = _n_mamba(cfg)
+    if launches != n_mamba * forwards:
+        raise AssertionError(f"zamba2-7b: {launches} K4 launches for "
+                             f"{forwards} forwards x {n_mamba} MAMBA layers")
+    if not (torch.isfinite(loss) and bool(torch.isfinite(logits).all())):
+        raise AssertionError("zamba2-7b: non-finite loss or logits")
+    if tuple(logits.shape) != (ZAMBA_B, ZAMBA_S, cfg.padded_vocab):
+        raise AssertionError(f"zamba2-7b: logits {tuple(logits.shape)}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del logits
+    med = float(np.median(times))
+    print(f"zamba2-7b forward: loss {float(loss):.4f} (finite, ln V = "
+          f"{np.log(cfg.vocab_size):.4f}), logits finite; {launches} K4 "
+          f"launches = {forwards} forwards x {n_mamba} MAMBA layers; forward "
+          f"{med * 1e3:.1f} ms (median of {ZAMBA_RUNS} after the loss and a "
+          f"warm-up: {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+          f"{ZAMBA_B * ZAMBA_S / med:.0f} tokens/s at B {ZAMBA_B} x S "
+          f"{ZAMBA_S}; peak memory {peak:.1f} GB [{card}]", flush=True)
+
+    # the first layer's scan again on its captured input (a check launch,
+    # after the count was read): it must give the main path's state, and
+    # agree with the plain version
+    _, args = first.ssd_inputs(cfg, captured["x"])
+    kw = dict(chunk=cfg.ssm.chunk, h0=None)
+    y, h = k4.ssd(*args, **kw)
+    if not torch.equal(h, captured["h"]):
+        raise AssertionError("zamba2-7b: K4 gave another state on the same "
+                             "first-layer input than in the forward")
+    y_ref, h_ref = ref.ssd_chunked_ref(*args, **kw)
+    torch.cuda.synchronize()
+    ey = _k4_close(y, y_ref, "first Mamba layer y")
+    eh = _k4_close(h, h_ref, "first Mamba layer h")
+    del y_ref, h_ref
+    t16, t32 = _k4_tol(torch.bfloat16), _k4_tol(torch.float32)
+    print(f"zamba2-7b first Mamba layer: K4 on the real activations "
+          f"{tuple(args[0].shape)} {args[0].dtype} == plain version: "
+          f"max_abs_err y {ey:.3e} (atol {t16['atol']:g} + rtol "
+          f"{t16['rtol']:g}), h {eh:.3e} (atol {t32['atol']:g}); max |y| "
+          f"{float(y.float().abs().max()):.3e}, max |h| "
+          f"{float(h.abs().max()):.3e}", flush=True)
+
+    wall_us, rows = device_profile(lambda: forward(params, cfg, batch), 1)
+    busy = print_profile("zamba2-7b forward", wall_us, rows, 1, card,
+                         unit="forward", top=12)
+    k4_us = sum(us for us, _, k in rows if "ssd_kernel" in k)
+    if busy:
+        print(f"zamba2-7b forward: K4 {k4_us / 1e3:.3f} ms of "
+              f"{busy / 1e3:.3f} ms device time ({100 * k4_us / busy:.1f}%), "
+              f"{k4_us / 1e3 / n_mamba:.3f} ms per launch [{card}]",
+              flush=True)
+    del params
+    return {"args": args, "kw": kw, "err": ey, "launches": launches,
+            "forwards": forwards, "n_mamba": n_mamba}
+
+
+def k4_bound(B, S, H, P, N, esize):
+    """(seconds by bytes, seconds by operations) of one SSD call.  Bytes: x
+    and y, dt, B and C read or written once, the f32 state written once.
+    Operations: the fewest f32 flops over the formulations the function
+    allows, the chunked form at any chunk q dividing S (q = 1 is the
+    token-by-token recurrence), counting per chunk the causal half, q(q+1)/2
+    pairs, of C B^T (N per pair, shared by the heads) and of the masked G x
+    (P per pair and head), C h^T and the state update B^T x (q N P each per
+    head) and the state's decay (N P per head); the f32 CUDA-core rate,
+    since the function's products are f32 (the reference kernel upcasts)."""
+    nbytes = 2 * B * S * H * P * esize + B * S * H * esize + \
+        2 * B * S * N * esize + B * H * P * N * 4
+
+    def flops(q):
+        pairs = q * (q + 1) // 2
+        return (S // q) * B * (2 * pairs * N + H * (
+            2 * pairs * P + 4 * q * N * P + N * P))
+
+    q = min((q for q in range(1, S + 1) if S % q == 0), key=flops)
+    return nbytes / HBM_BYTES_PER_S, flops(q) / FP32_FLOP_PER_S, q
+
+
+def k4_record(main, full, card):
+    """Phase (d): K4's time at the main path's shape (the captured first
+    zamba2 layer, B 2) and at the full-width B 1 shape, each launch after an
+    L2 flush, beside its bound and its plain version's time; and at both
+    shapes one against two heads per CTA, in turns (1, 2, 2, 1)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as k4
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, (args, kw) in (("main", (main["args"], main["kw"])),
+                             ("b1", full[:2])):
+        x, Bm = args[0], args[3]
+        B, S, H, P = x.shape
+        N = Bm.shape[-1]
+        ms = time_ms(lambda: k4.ssd(*args, **kw))
+        plain_ms = time_ms(lambda: ref.ssd_chunked_ref(*args, **kw), reps=5)
+        by_bytes, by_ops, q = k4_bound(B, S, H, P, N, x.element_size())
+        out[name] = (ms, plain_ms, by_bytes, by_ops)
+        print(f"k4 time ({name}): {ms:.4f} ms at B{B} S{S} H{H} P{P} N{N} "
+              f"{x.dtype}; bound {1e3 * max(by_bytes, by_ops):.4f} ms "
+              f"(bytes {1e3 * by_bytes:.4f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s, f32 operations "
+              f"{1e3 * by_ops:.4f} ms at {FP32_FLOP_PER_S / 1e12} TFLOP/s, "
+              f"fewest at chunk {q}); plain {plain_ms:.4f} ms; library: "
+              f"none [{card}]", flush=True)
+        turns = [(bh, time_ms(lambda: k4._launch(*args, **kw,
+                                                 block_heads=bh)))
+                 for bh in (1, 2, 2, 1)]
+        print(f"k4 heads per CTA ({name}): " + ", ".join(
+            f"{bh}: {t:.4f} ms" for bh, t in turns) + f" (ssd takes "
+            f"{k4._block_heads(B, H, n_sm)}) [{card}]", flush=True)
+    ms, plain_ms, by_bytes, by_ops = out["main"]
+    return {"name": "ssd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/mamba2.py:75",
+            "launches": main["launches"], "max_abs_err": main["err"],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the SSD scan"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -448,26 +800,30 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
-    built = build.build("paged_decode")
-    if built is not None:
-        secs, log = built
+    for name, (secs, log) in build.build_all(KERNELS).items():
         info = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
-        print(f"build paged_decode: {secs:.2f} s; " + " | ".join(info),
-              flush=True)
+        print(f"build {name}: {secs:.2f} s; " + " | ".join(info), flush=True)
 
     full, err = check_kernels()
+    k4_full = check_k4()
     (out, cnt, launches, cold_steps, wall, step_s), served = check_serving()
-
     decode_tokens = sum(len(o) - 1 for o in out)
     print(f"serve time: {decode_tokens / wall:.1f} decode tokens/s over the "
           f"whole tiered run ({wall:.3f} s, prefill included); mean pure "
           f"decode step {1e3 * float(np.mean(step_s)):.3f} ms over "
           f"{len(step_s)} steps of {SLOTS} slots [{card}]", flush=True)
-    record = k1_record(full, err, launches, card)
+    records = [k1_record(full, err, launches, card)]
     profile_decode(*served, card)
+    del served
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_zamba_small()
+    main_k4 = run_zamba_full(card)
+    records.append(k4_record(main_k4, k4_full, card))
+    print(f"zamba2 phases took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

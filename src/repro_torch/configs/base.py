@@ -1,26 +1,40 @@
 """Model configs and the arch registry (the port's own copy of
-``repro/configs/base.py``, cut to the fields a dense ATTN/LOCAL stack reads;
-the gemma extras -- final softcap, embedding scale, QK-norm, a global RoPE
+``repro/configs/base.py``, cut to the fields the ported layer kinds read:
+ATTN/LOCAL stacks and the zamba2 hybrid's MAMBA and SHARED_ATTN layers; the
+gemma extras -- final softcap, embedding scale, QK-norm, a global RoPE
 theta -- come with the slice that ports gemma).
 
-An arch is a repeating *period* of layer kinds; the port runs the stack as a
-plain loop over ``num_layers`` layers, layer ``l`` having kind
-``period[l % len(period)]``.
+An arch is ``prologue`` (leading layers) followed by a repeating *period* of
+layer kinds; the port runs the stack as a plain loop over ``num_layers``
+layers, layer ``l`` having kind ``layer_kind(l)``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 ATTN = "attn"            # full causal attention + MLP
 LOCAL = "local"          # sliding-window attention + MLP
+MAMBA = "mamba"          # mamba2 SSD block
+SHARED_ATTN = "shared_attn"  # zamba2 shared transformer block (one weight copy)
+PORTED_KINDS = (ATTN, LOCAL, MAMBA, SHARED_ATTN)
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 64           # N
+    head_dim: int = 64            # P
+    num_heads: int = 0            # filled from d_inner // head_dim if 0
+    expand: int = 2               # d_inner = expand * d_model
+    conv_kernel: int = 4
+    chunk: int = 256              # SSD chunk length
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense (the only family this port runs yet)
+    family: str                   # dense | hybrid (the families ported yet)
     num_layers: int
     d_model: int
     num_heads: int
@@ -30,11 +44,15 @@ class ModelConfig:
     head_dim: int = 0             # 0 -> d_model // num_heads
 
     period: Sequence[str] = (ATTN,)
+    prologue: Sequence[str] = ()  # leading layers outside the period
+    prologue_d_ff: int = 0        # a dense prologue layer's MLP (unported)
 
     # attention details (the window and the softcap reach the decode kernel)
     sliding_window: int = 0       # LOCAL layers' window
     attn_softcap: float = 0.0
     rope_theta: float = 10_000.0
+
+    ssm: Optional[SSMConfig] = None
 
     act: str = "silu"             # silu | gelu
     norm_eps: float = 1e-6
@@ -45,13 +63,20 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
-        unknown = set(self.period) - {ATTN, LOCAL}
+        unknown = (set(self.period) | set(self.prologue)) - set(PORTED_KINDS)
         if unknown:
             raise NotImplementedError(
                 f"{self.name}: layer kinds {sorted(unknown)} are not ported "
                 "yet (ROADMAP, modules to port: item 9)")
-        assert self.num_layers % len(self.period) == 0, (
-            f"{self.name}: {self.num_layers} layers not divisible by period "
+        if set(self.prologue) - {MAMBA}:
+            raise NotImplementedError(
+                f"{self.name}: only MAMBA prologue layers are ported; a dense "
+                "prologue layer with its prologue_d_ff MLP is not (ROADMAP, "
+                "modules to port: item 9)")
+        assert self.num_layers >= len(self.prologue)
+        n = self.num_layers - len(self.prologue)
+        assert n % len(self.period) == 0, (
+            f"{self.name}: {n} layers not divisible by period "
             f"{len(self.period)}")
 
     @property
@@ -60,7 +85,7 @@ class ModelConfig:
 
     @property
     def num_periods(self) -> int:
-        return self.num_layers // len(self.period)
+        return (self.num_layers - len(self.prologue)) // len(self.period)
 
     @property
     def padded_vocab(self) -> int:
@@ -68,7 +93,11 @@ class ModelConfig:
         return (self.vocab_size + p - 1) // p * p
 
     def layer_kind(self, layer: int) -> str:
-        return self.period[layer % len(self.period)]
+        """Kind of layer ``layer`` of the whole stack, prologue first."""
+        n = len(self.prologue)
+        if layer < n:
+            return self.prologue[layer]
+        return self.period[(layer - n) % len(self.period)]
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU tests (the reference's
@@ -76,15 +105,19 @@ class ModelConfig:
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
-            num_layers=2 * self.period_len,
+            num_layers=len(self.prologue) + 2 * self.period_len,
             d_model=64,
             num_heads=4,
             num_kv_heads=max(1, min(self.num_kv_heads, 2)),
             d_ff=128,
             vocab_size=512,
             head_dim=16,
+            prologue_d_ff=128 if self.prologue else 0,
             sliding_window=min(self.sliding_window, 8)
             if self.sliding_window else 0,
+            ssm=dataclasses.replace(self.ssm, state_dim=16, head_dim=8,
+                                    num_heads=0, chunk=8)
+            if self.ssm else None,
             dtype="float32",
         )
 
@@ -107,4 +140,4 @@ def get_config(name: str) -> ModelConfig:
 
 def _load_all():
     # import the per-arch modules for their registration side effect
-    from repro_torch.configs import smollm_360m  # noqa: F401
+    from repro_torch.configs import smollm_360m, zamba2_7b  # noqa: F401

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``_build/<name>-<digest>.so`` (a plain C interface, loaded with ``ctypes``),
-at first use and from the sources in the checkout only.  The digest covers
+at first use and from the sources in the checkout only; ``build_all`` runs
+one ``nvcc`` per source in parallel.  The digest covers
 the source and the flags, so an edited source builds anew.
 """
 from __future__ import annotations
@@ -14,7 +15,6 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -43,29 +43,39 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> Optional[tuple]:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
-    Returns ``(seconds, compiler log)`` when it compiled, else None."""
-    out = _target(name)
-    if out.exists():
-        return None
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    res = subprocess.run([nvcc(), *FLAGS, "-o", str(tmp),
-                          str(CSRC / f"{name}.cu")],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                         text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{res.stdout}")
-    os.replace(tmp, out)
-    return time.perf_counter() - t0, res.stdout
+def build_all(names) -> dict:
+    """Compile each ``csrc/<name>.cu`` that has no up-to-date library, one
+    ``nvcc`` per source, all started together.  Returns ``{name: (seconds,
+    compiler log)}`` for the sources it compiled; raises on any failure."""
+    started = {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc(), *FLAGS, "-o", str(tmp),
+                                 str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, tmp, out, time.perf_counter())
+    done, failed = {}, []
+    for name, (proc, tmp, out, t0) in started.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+        done[name] = (time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build(name)
+        build_all([name])
         lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
     return lib

@@ -6,11 +6,13 @@ Ports of ``repro/kernels/decode_attention.py::masked_scores`` /
 paged_decode_attention_ref``, with the same op order, the same ``NEG_INF``
 and the same clipping of physical page indices; and of
 ``repro/kernels/paged_decode.py::pack_kv_pools``, which lays dense caches out
-as pools.
+as pools; and of the Mamba2 SSD oracles ``ssd_ref`` (sequential) and
+``ssd_chunked_ref`` (the chunked algorithm the SSD kernel computes).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -2.0 ** 20
 
@@ -119,3 +121,73 @@ def pack_kv_pools(k_cache, v_cache, cold_tokens, page_tokens: int):
             gather(k_cache, idx[1]), gather(v_cache, idx[1]),
             torch.tensor(table, dtype=torch.int32, device=dev),
             torch.tensor(tier, dtype=torch.int32, device=dev))
+
+
+# ------------------------------------------------------------ mamba2 SSD ----
+
+def ssd_ref(x, dt, A, Bm, Cm, *, h0=None):
+    """Sequential oracle.  x: (B,S,H,P); dt: (B,S,H); A: (H,) (negative);
+    Bm, Cm: (B,S,N).  Returns (y (B,S,H,P) in x's dtype, h_final (B,H,P,N)
+    in float32)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    h = torch.zeros(B, H, P, N, dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    A = A.float()
+    ys = []
+    for t in range(S):
+        xt, dtt = x[:, t].float(), dt[:, t].float()
+        bt, ct = Bm[:, t].float(), Cm[:, t].float()
+        a = torch.exp(dtt * A)                                  # (B,H)
+        h = h * a[..., None, None] + torch.einsum("bhp,bn,bh->bhpn", xt, bt,
+                                                  dtt)
+        ys.append(torch.einsum("bhpn,bn->bhp", h, ct))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def ssd_chunked_ref(x, dt, A, Bm, Cm, *, chunk: int = 64, h0=None):
+    """Chunked (SSD-algorithm) oracle, the matmul-heavy formulation: same
+    I/O as ``ssd_ref`` and equal to it to float tolerance.  A ragged tail is
+    padded with dt = 0, which is neutral (decay 1, no state contribution)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    K = (S + pad) // Q
+    xc = x.reshape(B, K, Q, H, P).float()
+    dtc = dt.reshape(B, K, Q, H).float()
+    Bc = Bm.reshape(B, K, Q, N).float()
+    Cc = Cm.reshape(B, K, Q, N).float()
+
+    l = torch.cumsum(dtc * A.float(), dim=2)            # inclusive, (B,K,Q,H)
+    total = l[:, :, -1, :]                              # (B,K,H)
+
+    # intra-chunk: G[t,s] = (C_t . B_s) exp(l_t - l_s) dt_s, s <= t.  The
+    # exponent is masked BEFORE the exp: for s > t it is positive and can
+    # overflow.
+    CB = torch.einsum("bktn,bksn->bkts", Cc, Bc)
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    diff = l[:, :, :, None, :] - l[:, :, None, :, :]    # (B,K,t,s,H)
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                  float("-inf")))
+    G = CB[..., None] * decay * dtc[:, :, None, :, :]
+    y = torch.einsum("bktsh,bkshp->bkthp", G, xc)
+
+    # inter-chunk: the state h (B,H,P,N) carried across chunks in order
+    h = torch.zeros(B, H, P, N, dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    y_inter = []
+    for k in range(K):
+        lk, tot = l[:, k], total[:, k]
+        y_inter.append(torch.einsum("btn,bhpn->bthp", Cc[:, k], h)
+                       * torch.exp(lk)[..., None])
+        w = torch.exp(tot[:, None, :] - lk) * dtc[:, k]       # (B,Q,H)
+        h = h * torch.exp(tot)[:, :, None, None] + \
+            torch.einsum("bthp,btn,bth->bhpn", xc[:, k], Bc[:, k], w)
+    y = (y + torch.stack(y_inter, dim=1)).reshape(B, K * Q, H, P)[:, :S]
+    return y.to(x.dtype), h

@@ -18,14 +18,16 @@ def frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def rmsnorm(x, w, eps: float = 1e-6):
-    """RMS norm with the weight stored as its offset from one (the
-    reference's ``plus_one=True``, the form of every norm the port has)."""
+def rmsnorm(x, w, eps: float = 1e-6, plus_one: bool = True):
+    """RMS norm.  ``plus_one`` (the layer norms): the weight is stored as
+    its offset from one; otherwise (the Mamba gate's norm) it scales
+    directly, as the reference's ``plus_one=False``."""
     dt = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
-    return (y * (1.0 + w.float())).to(dt)
+    w = w.float()
+    return (y * (1.0 + w) if plus_one else y * w).to(dt)
 
 
 def softcap(x, cap: float):
@@ -83,19 +85,28 @@ def unembed(table, x):
 
 # ------------------------------------------------------------------ init ----
 
-_ZERO_INIT = ("ln1", "ln2", "final_norm")     # rmsnorm weights (offset from 1)
+# constant leaves: the plus-one norms' offsets (0), and the Mamba block's
+# dt bias, conv bias, skip D and gate norm (reference models/ssm.py)
+_CONST_INIT = {"ln1": 0.0, "ln2": 0.0, "final_norm": 0.0, "dt_bias": 0.0,
+               "conv_b": 0.0, "D": 1.0, "norm": 1.0}
 
 
 @torch.no_grad()
 def init_weights(module: nn.Module, cfg, generator: torch.Generator):
     """Fill every parameter in registration order from ``generator``, with
-    the reference's initialisers: norms 0, embedding tables N(0, d^-1),
-    projections N(0, 1/fan_in)."""
+    the reference's initialisers: norms and biases constant, the Mamba
+    ``A_log = log(linspace(1, 16, H))``, embedding tables N(0, d^-1), the
+    Mamba conv N(0, 1/K) and projections N(0, 1/fan_in)."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in _ZERO_INIT:
-            p.zero_()
+        if leaf in _CONST_INIT:
+            p.fill_(_CONST_INIT[leaf])
             continue
+        if leaf == "A_log":
+            p.copy_(torch.linspace(1.0, 16.0, p.shape[0], device=p.device)
+                    .to(p.dtype).log())
+            continue
+        # conv_w is (K, channels): 1/fan_in is the reference's K^-0.5 too
         scale = cfg.d_model ** -0.5 if leaf in ("table", "head") \
             else 1.0 / math.sqrt(p.shape[0])
         p.copy_(torch.randn(p.shape, generator=generator, device=p.device,

@@ -1,6 +1,7 @@
-"""Top-level language model: embeddings -> layer stack -> head, and the
-forward / suffix-prefill entry points the serving engine calls (port of
-``repro/models/model.py`` for dense ATTN/LOCAL stacks).
+"""Top-level language model: embeddings -> layer stack -> head, the
+forward / suffix-prefill entry points the serving engine calls, and the
+causal LM loss (port of ``repro/models/model.py`` for dense ATTN/LOCAL
+stacks and the zamba2 hybrid).
 
 With pool caches (kvcache.PagedKVPools) the forward writes the new KV into
 the pools in place, so the entry points return logits only.
@@ -10,6 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.configs.base import SHARED_ATTN
 from repro_torch.device import resolve
 from repro_torch.models import transformer
 from repro_torch.models.layers import (embed, frozen, init_weights, rmsnorm,
@@ -22,18 +24,29 @@ def param_dtype(cfg):
 
 class Model(nn.Module):
     """Parameters of the whole model, named as the reference's tree:
-    ``table`` (embed/table), ``final_norm``, ``layers.<l>.*`` (slot
-    ``l % period_len`` of the stacked tree at period ``l // period_len``) and
-    ``head`` when embeddings are untied."""
+    ``table`` (embed/table), ``prologue.<i>.*`` (stack/prologue[i]),
+    ``shared.*`` (stack/shared, zamba2's one shared block), ``layers.<j>.*``
+    (slot ``j % period_len`` of the stacked tree at period
+    ``j // period_len``), ``final_norm``, and ``head`` when embeddings are
+    untied.  A SHARED_ATTN slot of ``layers`` is the ``shared`` module
+    itself, so ``named_parameters`` lists its weights once, as
+    ``shared.*``."""
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
         self.table = frozen(torch.empty(cfg.padded_vocab, cfg.d_model,
                                         device=device, dtype=dtype))
+        self.prologue = nn.ModuleList(
+            transformer.make_layer(cfg, kind, device=device, dtype=dtype)
+            for kind in cfg.prologue)
+        self.shared = transformer.make_layer(
+            cfg, SHARED_ATTN, device=device, dtype=dtype) \
+            if SHARED_ATTN in cfg.period else None
+        # every SHARED_ATTN slot is the one shared block itself
         self.layers = nn.ModuleList(
-            transformer.Block(cfg, cfg.layer_kind(l), device=device,
-                              dtype=dtype)
-            for l in range(cfg.num_layers))
+            self.shared if kind == SHARED_ATTN else
+            transformer.make_layer(cfg, kind, device=device, dtype=dtype)
+            for _ in range(cfg.num_periods) for kind in cfg.period)
         self.final_norm = frozen(torch.empty(cfg.d_model, device=device,
                                              dtype=dtype))
         self.head = None if cfg.tie_embeddings else frozen(
@@ -43,7 +56,8 @@ class Model(nn.Module):
     def forward(self, cfg, tokens, positions, *, caches=None,
                 cache_index=None, paged_view=None):
         x = embed(self.table, tokens)
-        x = transformer.stack_forward(self.layers, cfg, x, positions,
+        x = transformer.stack_forward([*self.prologue, *self.layers], cfg,
+                                      x, positions,
                                       caches=caches, cache_index=cache_index,
                                       paged_view=paged_view)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
@@ -80,6 +94,20 @@ def forward(params, cfg, batch, *, caches=None, cache_index=None,
             positions = torch.arange(S, device=tokens.device).expand(B, S)
     return params(cfg, tokens, positions, caches=caches,
                   cache_index=cache_index, paged_view=paged_view)
+
+
+@torch.no_grad()
+def loss_fn(params, cfg, batch):
+    """Causal LM loss: the mean NLL of ``batch["labels"]`` (B, S) under the
+    forward's logits, with the padded vocab entries masked out of the
+    softmax.  There is no MoE, so no auxiliary loss; no backward pass
+    either (the forward runs under ``no_grad``)."""
+    logits = forward(params, cfg, batch).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] += -1e9     # in place: a local tensor
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
+    return (logz - gold).mean()
 
 
 def prefill_suffix(params, cfg, batch, *, caches, start: int, paged_view):

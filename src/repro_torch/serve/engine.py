@@ -25,6 +25,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.configs.base import ATTN, LOCAL
 from repro_torch.device import resolve
 from repro_torch.models import kvcache, model
 
@@ -54,6 +55,12 @@ class ContinuousBatcher:
 
     def __init__(self, params, cfg, batch_slots: int, max_seq: int, plan,
                  device=None):
+        kinds = set(cfg.prologue) | set(cfg.period)
+        if not kinds <= {ATTN, LOCAL}:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves ATTN/LOCAL stacks only; the "
+                "cached path of other layer kinds is not ported yet "
+                "(ROADMAP, modules to port: items 7 and 9)")
         self.device = resolve(device)
         p_dev = next(params.parameters()).device
         if p_dev != self.device:

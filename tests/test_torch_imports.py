@@ -30,8 +30,9 @@ def _forbidden(name: str) -> bool:
 def test_port_modules_import_no_jax_and_no_reference():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
-    assert "repro_torch.serve.engine" in mods and \
-        "repro_torch.kernels.paged_decode" in mods
+    assert {"repro_torch.serve.engine", "repro_torch.kernels.paged_decode",
+            "repro_torch.kernels.ssd", "repro_torch.models.ssm",
+            "repro_torch.configs.zamba2_7b"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(sys.modules)))\n")
@@ -40,7 +41,7 @@ def test_port_modules_import_no_jax_and_no_reference():
                          text=True, env=env, check=True, timeout=300)
     loaded = json.loads(res.stdout.strip().splitlines()[-1])
     assert [m for m in loaded if _forbidden(m)] == []
-    assert "repro_torch.serve.engine" in loaded
+    assert set(mods) <= set(loaded)
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
@@ -65,6 +66,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ContinuousBatcher(params, cfg, 2, 32, plan=plan)
     ContinuousBatcher(params, cfg, 2, 32, plan=plan, device="cpu")
+    hybrid = get_config("zamba2-7b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_params(hybrid)
+    model.init_params(hybrid, device="cpu")
 
 
 def test_unported_layouts_raise():
@@ -83,3 +88,18 @@ def test_unported_layouts_raise():
                           device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         b.apply_plan(types.SimpleNamespace(changes={}, page_tokens=4))
+
+
+def test_cached_hybrid_path_raises():
+    """The zamba2 hybrid runs without a cache only: the engine refuses it,
+    and a MAMBA layer given a cache raises, naming the ROADMAP items."""
+    cfg = get_config("zamba2-7b").reduced()
+    params = model.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ContinuousBatcher(params, cfg, 2, 32, plan=ServingPlan(page_tokens=4),
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.forward(params, cfg, {"tokens": torch.zeros(1, 1, dtype=int)},
+                      caches=[{}] * cfg.num_layers,
+                      cache_index=torch.zeros(1, dtype=torch.int32),
+                      decode=True)
