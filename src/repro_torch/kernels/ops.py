@@ -1,12 +1,36 @@
 """Kernel dispatch by the device of the input (the query for attention, x
 for the SSD scan): the plain PyTorch version (kernels/ref.py) for a CPU
 tensor, the hand-written CUDA kernel for a CUDA tensor.  There is no switch
-and no fallback: a CUDA input runs the kernel or raises."""
+and no fallback: a CUDA input runs the kernel or raises.  The signatures
+are the reference's (``repro/kernels/ops.py``)."""
 from __future__ import annotations
 
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_decode as _pd
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd as _ssd
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap_val=0.0):
+    """Flash attention: q (B, Sq, H, D), k and v (B, Skv, KVH, D), queries
+    right-aligned to the end of the KV timeline; returns (B, Sq, H, D) in
+    q's dtype.  A CUDA q runs K2 (kernels/flash_attention.py), which
+    refuses k or v anywhere but on q's card."""
+    fn = _fa.flash_attention if q.is_cuda else _ref.attention_ref
+    return fn(q, k, v, causal=causal, window=window, softcap_val=softcap_val)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, window=0,
+                     softcap_val=0.0):
+    """Flash decode of one query token per slot: q (B, H, D) against
+    contiguous caches (B, S, KVH, D) holding ``lengths`` (B,) int32 valid
+    entries each; returns (B, H, D) in q's dtype.  A CUDA q runs K3
+    (kernels/decode_attention.py), which refuses caches or lengths anywhere
+    but on q's card."""
+    fn = _da.decode_attention if q.is_cuda else _ref.decode_attention_ref
+    return fn(q, k_cache, v_cache, lengths, window=window,
+              softcap_val=softcap_val)
 
 
 def paged_decode_attention(q, k_hot, v_hot, k_cold, v_cold, page_table,

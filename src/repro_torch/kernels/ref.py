@@ -1,7 +1,10 @@
 """Plain PyTorch versions of the kernels (the CPU execution path, and what
 each CUDA kernel is held against on the card).
 
-Ports of ``repro/kernels/decode_attention.py::masked_scores`` /
+Ports of the oracles ``repro/kernels/ref.py::attention_ref`` (flash
+attention) and ``decode_attention_ref`` (flash decode), with the same
+finite ``NEG_INF``, f32 scores and p cast to v's dtype before P.V; of
+``repro/kernels/decode_attention.py::masked_scores`` /
 ``online_softmax_update`` and ``repro/kernels/ref.py::
 paged_decode_attention_ref``, with the same op order, the same ``NEG_INF``
 and the same clipping of physical page indices; and of
@@ -15,6 +18,59 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -2.0 ** 20
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                  softcap_val: float = 0.0, scale: float | None = None):
+    """Plain softmax attention, the oracle of flash attention.  q: (B, Sq,
+    H, D); k, v: (B, Skv, KVH, D) with H % KVH == 0; queries right-aligned
+    to the end of the KV timeline.  Scores in f32; p is cast to v's dtype
+    before P.V.  A row with no visible key (causal, Sq > Skv) scores NEG_INF
+    everywhere, so its softmax is uniform: the mean of v over all Skv keys."""
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = D ** -0.5 if scale is None else scale
+    qg = q.reshape(B, Sq, KVH, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if softcap_val:
+        s = softcap_val * torch.tanh(s / softcap_val)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    ok = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= (qpos - kpos) < window
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    return o.reshape(B, Sq, H, D)
+
+
+def decode_attention_ref(q, k_cache, v_cache, lengths, *, window: int = 0,
+                         softcap_val: float = 0.0):
+    """Single-token decode, the oracle of flash decode.  q: (B, H, D);
+    caches (B, S, KVH, D); lengths (B,) int32, the valid cache entries per
+    slot.  A slot with no visible key (length 0) takes the mean of v over
+    all S rows, as the oracle's uniform softmax gives."""
+    B, H, D = q.shape
+    S, KVH = k_cache.shape[1], k_cache.shape[2]
+    G = H // KVH
+    qg = q.reshape(B, KVH, G, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) \
+        * (D ** -0.5)
+    if softcap_val:
+        s = softcap_val * torch.tanh(s / softcap_val)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    length = lengths[:, None]
+    ok = kpos < length
+    if window:
+        ok &= kpos >= (length - window)
+    s = torch.where(ok[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype), v_cache)
+    return o.reshape(B, H, D)
 
 
 def masked_scores(q, k, base, length, *, window: int, softcap_val: float):

@@ -51,6 +51,17 @@ class Attention(nn.Module):
         self.wq, self.wk, self.wv = w(d, H * hd), w(d, KV * hd), w(d, KV * hd)
         self.wo = w(H * hd, d)
 
+    def qkv(self, cfg, x, positions):
+        """q (B, Sq, H, hd) and k, v (B, Sq, KV, hd) of x (B, Sq, d), with
+        the rotary embedding applied to q and k."""
+        B, Sq, _ = x.shape
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = (x @ self.wq).reshape(B, Sq, H, hd)
+        k = (x @ self.wk).reshape(B, Sq, KV, hd)
+        v = (x @ self.wv).reshape(B, Sq, KV, hd)
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta), v)
+
     def forward(self, cfg, x, positions, *, kind: str = ATTN, cache=None,
                 cache_index=None, paged_view=None):
         """x: (B, Sq, d).  ``cache``: one layer's pools {"k_hot", "v_hot",
@@ -61,11 +72,7 @@ class Attention(nn.Module):
         G = H // KV
         window = cfg.sliding_window if kind == LOCAL else 0
 
-        q = (x @ self.wq).reshape(B, Sq, H, hd)
-        k = (x @ self.wk).reshape(B, Sq, KV, hd)
-        v = (x @ self.wv).reshape(B, Sq, KV, hd)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q, k, v = self.qkv(cfg, x, positions)
         q = q.reshape(B, Sq, KV, G, hd)
 
         if cache is not None:

@@ -32,9 +32,15 @@ def test_port_modules_import_no_jax_and_no_reference():
         repro_torch.__path__, "repro_torch."))
     assert {"repro_torch.serve.engine", "repro_torch.kernels.paged_decode",
             "repro_torch.kernels.ssd", "repro_torch.models.ssm",
-            "repro_torch.configs.zamba2_7b"} <= set(mods)
+            "repro_torch.configs.zamba2_7b",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.decode_attention"} <= set(mods)
+    # importing builds and loads no kernel: nvcc runs at a kernel's first
+    # call only (this machine may have none)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            "from repro_torch.kernels import build\n"
+            "assert not build._loaded\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
