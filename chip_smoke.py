@@ -6,11 +6,14 @@
 Phases, each printing its own lines:
   1. the card (name and power limit, as nvidia-smi gives them) and the
      build of every CUDA kernel from the sources in this checkout, one
-     nvcc per source, all started together;
+     nvcc per source, all started together, with each kernel's registers
+     and spills as ptxas reports them;
   2. every kernel against its plain PyTorch version on the card:
      - K1 (paged decode) over the reference's shape sweep, window/softcap
-       cases and the full-width shape, with hot pages on the card, cold
-       pages in pinned host memory and unmapped (FREE) table entries;
+       cases, split counts given through the C argument (ranges wholly
+       before a window among them) and the full-width shape with and
+       without a window, with hot pages on the card, cold pages in pinned
+       host memory and unmapped (FREE) table entries;
      - K4 (Mamba2 SSD scan) over the reference's SSD sweep, a start state,
        S < chunk and the full-width zamba2-7b layer (S 4096, H 112, P = N =
        64), in f32 and bf16;
@@ -19,8 +22,9 @@ Phases, each printing its own lines:
      an all-hot run (tokens must be identical), K1's launch count against
      decode steps x layers, and a small fp32 run on the card against the
      same run on the CPU (plain path); then K1's time beside its bound, its
-     plain version's and one PyTorch library call's, decode tokens/s and a
-     profile of a few decode steps (device-busy share, top device kernels);
+     plain version's and one PyTorch library call's, at the wrapper's split
+     count and at one split in turns, decode tokens/s and a profile of a
+     few decode steps (device-busy share, top device kernels);
   4. zamba2-7b: its reduced fp32 variant on the card against the CPU
      (logits and loss), then the full width in bf16 (random weights from
      seed 0, B 2 x S 4096): the loss and the forward (finite), K4's
@@ -34,7 +38,8 @@ Phases, each printing its own lines:
        sweeps in f32 and bf16, window/softcap cases, Sq < Skv, ragged Sq,
        G 1 and 3, D 64, 112 and 256, strided inputs, and rows with no
        visible key (causal Sq > Skv; a length-0 slot), and a CUDA query
-       with host KV refused;
+       with host KV refused; K2 again at each D its wgmma kernel takes (64,
+       112, 128) through the masking sweep;
      - K3 on the KV of the smollm-360m serving run gathered densely from
        its pools, against K1 on those pools and against the plain version;
      - K2 on the q, k, v of zamba2-7b's first SHARED_ATTN layer at full
@@ -42,7 +47,12 @@ Phases, each printing its own lines:
        _gqa_core, and K3 on the same activations against K2's last row;
        K3 at zamba2-7b's shared-block decode shape (B 8 x S 4096);
      - each kernel's time beside its bound, its plain version's and one
-       F.scaled_dot_product_attention call's.
+       F.scaled_dot_product_attention call's; K2's wgmma kernel against its
+       mma.sync kernel in turns at zamba2's shape and at D 64 and 128.
+
+Every kernel time is the median over launches that each follow an L2
+flush and a device-side spin, so the events time the card's work and not
+the host's launch overhead.
 
 Then one JSON line with the kernels' record, the card line again, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -54,6 +64,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -68,11 +79,17 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_FLOP_PER_S = 67e12          # H100 SXM float32 outside tensor cores
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 on tensor cores
 P_ROUNDING = 2.0 ** -8           # bf16 rounding moves a value by at most this
+SPIN_CYCLES = 1_000_000          # about 0.5 ms at the H100's clocks
 MAX_SEQ, SLOTS, PAGE, DECODE = 1024, 8, 16, 32
 SWEEP = [(2, 64, 4, 2, 16, 8), (3, 128, 8, 4, 32, 16), (1, 32, 2, 1, 128, 8),
          (2, 96, 6, 2, 64, 16)]
 WINDOW_SOFTCAP = [(0, 0.0), (24, 0.0), (0, 30.0), (16, 50.0)]
 FULL_WIDTH = (SLOTS, MAX_SEQ, 15, 5, 64, PAGE)   # B, S, H, KVH, D, page
+# K1 at the head shapes of the wider configs: paligemma-3b (D 256, 1 KV
+# head: 64 lanes of 16 bytes a key row in f32), musicgen-medium (24 KV
+# heads), gemma3-12b (8 KV heads of D 256), and D 256 at 64-token pages
+K1_WIDE = [(2, 128, 8, 1, 256, 16), (2, 64, 24, 24, 64, 16),
+           (2, 64, 16, 8, 256, 16), (2, 256, 8, 1, 256, 64)]
 KERNELS = ("paged_decode", "ssd", "decode_attention",
            "flash_attention")                     # csrc/<name>.cu
 
@@ -94,6 +111,27 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> str:
+    """Each kernel's registers and spills from ``nvcc -Xptxas -v``: the
+    kernel's name and template argument, then what ptxas said of it."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"\d+([a-z_]+_kernel)I(Li(\d+)E|f|13__nv_bfloat16)", ln)
+        if "Compiling entry function" in ln and m:
+            arg = m.group(3) or ("f32" if m.group(2) == "f" else "bf16")
+            name = f"{m.group(1)}<{arg}>"
+        elif "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else "?"
+        elif "spill" in ln and name:
+            spill = ", ".join(x.strip() for x in ln.split(",")[1:])
+        elif "registers" in ln and name:
+            regs = re.search(r"Used (\d+) registers", ln)
+            out.append(f"{name} {regs.group(1) if regs else '?'} registers, "
+                       f"{spill}")
+            name = None
+    return "; ".join(out)
 
 
 # --------------------------------------------------------------- kernels ----
@@ -141,36 +179,73 @@ def check_kernels():
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import ref
     torch.backends.cuda.matmul.allow_tf32 = False     # plain version in fp32
-    cases = [(s, dt, 0, 0.0) for s in SWEEP
+    # (shape, dtype, window, softcap, splits): splits None is the wrapper's
+    # own count (plan_splits: every page its own split at these B and NP)
+    cases = [(s, dt, 0, 0.0, None) for s in SWEEP + K1_WIDE
              for dt in (torch.float32, torch.bfloat16)]
-    cases += [((2, 96, 4, 2, 32, 16), torch.float32, w, cap)
+    cases += [((2, 96, 4, 2, 32, 16), torch.float32, w, cap, None)
               for w, cap in WINDOW_SOFTCAP]
+    # explicit split counts through the C argument: one split for the
+    # whole slot, ranges that straddle pages, ranges wholly before a window
+    cases += [((3, 128, 8, 4, 32, 16), dt, w, 0.0, n)
+              for dt in (torch.float32, torch.bfloat16) for w in (0, 20)
+              for n in (1, 3, 5, 8)]
+    # the plans K1_WIDE must take on this card: fewer KV heads per CTA, and
+    # at one KV head tiles shorter than a page, so each path runs above
+    plans = {(s, dt): pd.plan(torch.empty(s[0], s[2], s[4], dtype=dt,
+                                          device="cuda"), s[3], s[5],
+                              s[1] // s[5])
+             for s in K1_WIDE for dt in (torch.float32, torch.bfloat16)}
+    if not (any(g < s[3] for (s, _), (_, g, _) in plans.items())
+            and any(t < s[5] for (s, _), (_, _, t) in plans.items())):
+        raise AssertionError(f"k1 wide cases miss a path: {plans}")
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for i, (shape, dt, window, cap) in enumerate(cases):
+    for i, (shape, dt, window, cap, splits) in enumerate(cases):
         c = k1_case(shape, dt, seed=i)
-        out = pd.paged_decode_attention(*k1_args(c), window=window,
-                                        softcap_val=cap)
+        if splits is None:
+            out = pd.paged_decode_attention(*k1_args(c), window=window,
+                                            softcap_val=cap)
+        else:
+            _, group, tile = pd.plan(c["q"], shape[3], shape[5],
+                                     shape[1] // shape[5])
+            out = pd._launch(*k1_args(c), window, cap, splits, group,
+                             tile)
         want = ref.paged_decode_attention_ref(*k1_args(c, True),
                                               window=window, softcap_val=cap)
         torch.cuda.synchronize()
-        err = _attn_close(out, want, f"k1 {shape} {dt} w{window} cap{cap}")[0]
+        err = _attn_close(out, want, f"k1 {shape} {dt} w{window} cap{cap} "
+                                     f"splits {splits}")[0]
         worst[dt] = max(worst[dt], err)
     # the main path's shape, lengths 100-1000 and a wholly unmapped slot, in
-    # both dtypes: f32 holds the kernel's arithmetic to the plain version's,
-    # bf16 its loads and its rounding of the output
+    # both dtypes, at the wrapper's split count and with a 64-token window
+    # (most splits wholly before it): f32 holds the kernel's arithmetic to
+    # the plain version's, bf16 its loads and its rounding of the output
     lengths = [int(n) for n in np.random.default_rng(1).integers(
         100, 1000, SLOTS)]
     full = {}
     for dt in (torch.float32, torch.bfloat16):
         c = k1_case(FULL_WIDTH, dt, seed=99, free_row=True, lengths=lengths)
-        out = pd.paged_decode_attention(*k1_args(c))
-        want = ref.paged_decode_attention_ref(*k1_args(c, True))
-        torch.cuda.synchronize()
-        full[dt] = (c, _attn_close(out, want,
-                                   f"k1 full width {FULL_WIDTH} {dt}")[0])
-    print(f"k1 check: {len(cases) + 2} cases match the plain version; "
-          f"max_abs_err f32 {worst[torch.float32]:.3e} (sweep) "
-          f"{full[torch.float32][1]:.3e} (full width) within "
+        for window in (0, 64):
+            out = pd.paged_decode_attention(*k1_args(c), window=window)
+            want = ref.paged_decode_attention_ref(*k1_args(c, True),
+                                                  window=window)
+            torch.cuda.synchronize()
+            err = _attn_close(out, want, f"k1 full width {FULL_WIDTH} {dt} "
+                                         f"w{window}")[0]
+            if window == 0:
+                full[dt] = (c, err)
+            else:
+                worst[dt] = max(worst[dt], err)
+    B, S, _, KVH = FULL_WIDTH[:4]
+    full_plan = pd.plan(full[torch.bfloat16][0]["q"], KVH, PAGE, S // PAGE)
+    wide = "; ".join(f"{s} {str(dt)[6:]}: {g} KV heads a CTA, tile {t}"
+                     for (s, dt), (_, g, t) in plans.items())
+    print(f"k1 check: {len(cases) + 4} cases match the plain version, cold "
+          f"pages read from pinned host memory by cp.async; splits 1-8 "
+          f"given, and the wrapper's (splits, KV heads a CTA, tile) "
+          f"{full_plan} at the full width; wide heads ({wide}); "
+          f"max_abs_err f32 {worst[torch.float32]:.3e} "
+          f"(sweep) {full[torch.float32][1]:.3e} (full width) within "
           f"{_tol_text(torch.float32)}; bf16 {worst[torch.bfloat16]:.3e} "
           f"(sweep) {full[torch.bfloat16][1]:.3e} (full width) within "
           f"{_tol_text(torch.bfloat16)}", flush=True)
@@ -355,7 +430,10 @@ def check_small_against_cpu():
 
 def time_ms(fn, reps=20, flush_bytes=64 << 20):
     """Median ms of ``fn`` over ``reps`` launches, each after writing a
-    buffer larger than L2 so every launch starts from a cold cache."""
+    buffer larger than L2 so every launch starts from a cold cache.  A
+    device-side spin of about 0.5 ms between the flush and the start event
+    keeps the card busy while the host enqueues ``fn``, so the events time
+    the device's work and not the host's launch overhead."""
     import torch
     flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
     for _ in range(3):
@@ -363,6 +441,7 @@ def time_ms(fn, reps=20, flush_bytes=64 << 20):
     ts = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -472,19 +551,34 @@ def k1_record(full, err, launches, card):
                   cold_pages * page_bytes / h2d)
     ops_s = 4.0 * H * D * tokens / FP32_FLOP_PER_S
     bound_ms = 1e3 * max(bytes_s, ops_s)
-    ms = time_ms(lambda: pd.paged_decode_attention(*k1_args(full)))
+    # the wrapper's split count against one split (the C argument), in
+    # turns: planned, 1, 1, planned
+    import torch
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    planned, group, tile = pd.plan(full["q"], KVH, page, S // page)
+    args = k1_args(full)
+    turns = [(n, time_ms(lambda: pd._launch(*args, 0, 0.0, n, group,
+                                            tile)))
+             for n in (planned, 1, 1, planned)]
+    ms = float(np.mean([t for n, t in turns if n == planned]))
     dev_args = k1_args(full, True)
     plain_ms = time_ms(lambda: ref.paged_decode_attention_ref(*dev_args),
                        reps=5)
     # yardstick only: one SDPA call over the same KV gathered densely
     library_ms = time_ms(_sdpa_decode(full["q"], *full["dense"],
                                       full["lengths"]))
-    print(f"k1 time: {ms:.4f} ms at B{B} H{H} KVH{KVH} D{D} page{page} bf16 "
+    print(f"k1 time: {ms:.4f} ms (mean of the two turns at {planned} "
+          f"splits) at B{B} H{H} KVH{KVH} D{D} page{page} bf16 "
           f"({hot_pages} hot + {cold_pages} cold distinct pages of "
           f"{page_bytes} B, {tokens // page} page visits); "
           f"bound {bound_ms:.4f} ms (hot at {HBM_BYTES_PER_S / 1e12} TB/s, "
           f"cold at measured pinned H2D {h2d / 1e9:.2f} GB/s); plain "
           f"{plain_ms:.4f} ms; sdpa {library_ms:.4f} ms [{card}]", flush=True)
+    print(f"k1 splits (in turns): " + ", ".join(
+        f"{n}: {t:.4f} ms" for n, t in turns) + f" (the wrapper takes "
+        f"{planned}: {B} slots, {KVH // group} KV head group(s) of {group}, "
+        f"{S // page} pages, {n_sm} SMs; tile {tile}) [{card}]",
+        flush=True)
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/paged_decode.py:119",
@@ -836,6 +930,7 @@ K2_SWEEP = [(2, 128, 128, 4, 2, 64), (1, 64, 256, 8, 8, 32),
             (2, 100, 100, 6, 2, 64), (1, 1, 160, 4, 1, 64),
             (1, 32, 32, 2, 1, 128)]
 K3_LONG = (8, 4096, 32, 32, 112)    # zamba2-7b's shared block at decode
+WGMMA_D = (64, 112, 128)            # the head_dims K2's wgmma kernel takes
 
 
 def _limit_text(dtype) -> str:
@@ -966,7 +1061,9 @@ def check_k2():
     sweep in f32 and bf16, window/softcap cases, Sq < Skv (a 256-row chunk
     against 1024 keys, G 3), ragged Sq, D 112 and 256, bf16 at D 40 and 96
     (the SIMT kernel: no tensor-core instance there), strided q/k/v,
-    non-causal cases, and rows with no visible key (causal, Sq > Skv)."""
+    non-causal cases, and rows with no visible key (causal, Sq > Skv); then
+    each D the wgmma kernel takes through that masking sweep.  Returns the
+    kernel each bf16 D ran on."""
     import torch
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import ref
@@ -986,9 +1083,20 @@ def check_k2():
               ((1, 120, 100, 4, 4, 32), f32, {"causal": False, "window": 20},
                False),
               ((2, 130, 130, 8, 2, 64), bf16, {"window": 50}, True)]
+    for d in WGMMA_D:      # Skv never a multiple of the 128-key KV tile
+        cases += [((2, 300, 300, 4, 2, d), bf16, {}, False),
+                  ((1, 200, 330, 4, 4, d), bf16, {"causal": False}, False),
+                  ((1, 260, 260, 4, 2, d), bf16,
+                   {"window": 50, "softcap_val": 30.0}, False),
+                  ((2, 300, 170, 4, 2, d), bf16, {}, False),   # no-key rows
+                  ((1, 150, 700, 6, 2, d), bf16, {"window": 100}, False),
+                  ((2, 257, 257, 8, 2, d), bf16, {"window": 40}, True)]
     worst = {f32: (0.0, 0.0), bf16: (0.0, 0.0)}
+    ran = {}
     for i, (shape, dt, kw, strided) in enumerate(cases):
         q, k, v = k2_case(shape, dt, seed=400 + i, strided=strided)
+        if dt == bf16:
+            ran[shape[-1]] = k2.kernel_name(q)
         out = k2.flash_attention(q, k, v, **kw)
         want = ref.attention_ref(q, k, v, **kw)
         pav = None if dt == f32 else _p_abs_v_k2(q, k, v, **kw)
@@ -1000,7 +1108,12 @@ def check_k2():
           f"(attention_ref), rows with no visible key included; max_abs_err "
           f"f32 {worst[f32][0]:.3e} ({worst[f32][1]:.3f} of "
           f"{_limit_text(f32)}), bf16 {worst[bf16][0]:.3e} "
-          f"({worst[bf16][1]:.3f} of {_limit_text(bf16)})", flush=True)
+          f"({worst[bf16][1]:.3f} of {_limit_text(bf16)}); bf16 kernels by D: "
+          + ", ".join(f"{d} {n}" for d, n in sorted(ran.items())),
+          flush=True)
+    if any(ran[d] != "wgmma" for d in WGMMA_D):
+        raise AssertionError(f"the wgmma kernel did not take D {WGMMA_D}")
+    return ran
 
 
 def serving_kv(b, layer):
@@ -1155,8 +1268,9 @@ def k2_on_zamba(main, card):
     """K2 through ops.flash_attention on the q, k, v of zamba2-7b's first
     SHARED_ATTN layer at full width, against the plain version and that
     layer's _gqa_core; K3 on the same activations against K2's last row;
-    then K2's time at that shape.  The plain versions' f32 scores (4.3 GB
-    each) are freed before the next phase."""
+    then K2's time at that shape, against the mma.sync kernel in turns.
+    The plain versions' f32 scores (4.3 GB each) are freed before the next
+    phase."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as k3
@@ -1196,12 +1310,13 @@ def k2_on_zamba(main, card):
           f"({share:.3f} of {_limit_text(q.dtype)}); == _gqa_core, "
           f"{e_gqa[0]:.3e} ({e_gqa[1]:.3f}); K3 on the last row == K2's, "
           f"{e_last[0]:.3e} ({e_last[1]:.3f} of {_tol_text(q.dtype)}); max "
-          f"|o| {float(out.float().abs().max()):.3e}; {launches} K2 launch",
-          flush=True)
+          f"|o| {float(out.float().abs().max()):.3e}; {launches} K2 launch "
+          f"on the {k2.kernel_name(q)} kernel", flush=True)
     del out, last
     by_bytes, by_ops = k2_bound(q, k)
     bound_ms = 1e3 * max(by_bytes, by_ops)
-    ms = time_ms(lambda: k2.flash_attention(q, k, v))
+    turns = k2_turns(q, k, v)
+    ms = float(np.mean([t for name, t in turns if name == "new"]))
     plain_ms = time_ms(lambda: ref.attention_ref(q, k, v), reps=5)
     torch.cuda.empty_cache()
     # yardstick only: Sq == Skv, so SDPA's top-left causal mask is the
@@ -1210,13 +1325,16 @@ def k2_on_zamba(main, card):
     sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
     pairs = visible_pairs(S, S, True, 0)
-    print(f"k2 time (zamba2-7b shared block): {ms:.4f} ms at B{B} S{S} H{H} "
+    print(f"k2 time (zamba2-7b shared block): {ms:.4f} ms (mean of the "
+          f"wgmma kernel's two turns) at B{B} S{S} H{H} "
           f"KVH{KVH} D{D} {q.dtype} causal; bound {bound_ms:.4f} ms "
           f"(operations {1e3 * by_ops:.4f} ms: {4.0 * B * H * D * pairs / 1e9:.1f}"
           f" GFLOP at {BF16_FLOP_PER_S / 1e12:g} TFLOP/s, the bf16 "
           f"tensor-core rate, since bf16 q.k is exact in f32 and the oracle "
           f"rounds p to bf16; bytes {1e3 * by_bytes:.4f} ms); plain "
           f"{plain_ms:.4f} ms; sdpa {sdpa_ms:.4f} ms [{card}]", flush=True)
+    print_turns("zamba2-7b shared block", turns, D, sdpa_ms, bound_ms, card)
+    k2_other_d(card)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:73",
@@ -1224,6 +1342,58 @@ def k2_on_zamba(main, card):
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": sdpa_ms}
+
+
+def k2_turns(q, k, v):
+    """The kernel flash_attention takes and the mma.sync kernel, timed in
+    turns (new, old, old, new) on the same inputs, causal."""
+    from repro_torch.kernels import flash_attention as k2
+    fns = {"new": lambda: k2.flash_attention(q, k, v),
+           "mma.sync": lambda: k2.mma_sync(q, k, v)}
+    return [(name, time_ms(fns[name]))
+            for name in ("new", "mma.sync", "mma.sync", "new")]
+
+
+def print_turns(what, turns, D, sdpa_ms, bound_ms, card):
+    new = np.mean([t for name, t in turns if name == "new"])
+    old = np.mean([t for name, t in turns if name != "new"])
+    print(f"k2 wgmma vs mma.sync ({what}, D {D}, in turns): " + ", ".join(
+        f"{name} {t:.4f} ms" for name, t in turns) + f"; wgmma "
+        f"{old / new:.2f} times as fast, {sdpa_ms / new:.2f} of sdpa's "
+        f"speed ({sdpa_ms:.4f} ms), {100 * bound_ms / new:.1f}% of its bound "
+        f"{bound_ms:.4f} ms [{card}]", flush=True)
+
+
+def k2_other_d(card):
+    """The other head_dims the wgmma kernel takes, at B 2 x S 4096 x H 32,
+    causal, random bf16 from a seed: against the mma.sync kernel in turns,
+    its bound and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import ref
+    for d in WGMMA_D:
+        if d == 112:                        # zamba2's, timed above
+            continue
+        q, k, v = k2_case((2, 4096, 4096, 32, 32, d), torch.bfloat16,
+                          seed=600 + d)
+        # the check at this shape is against K1's limit plus the p rounding
+        # on the first 256 query rows (the plain version's scores for all
+        # 4096 would be 4.3 GB)
+        sub = q[:, :256]
+        out = k2.flash_attention(sub, k[:, :256], v[:, :256])
+        _attn_close(out, ref.attention_ref(sub, k[:, :256], v[:, :256]),
+                    f"k2 D {d}", p_abs_v=_p_abs_v_k2(sub, k[:, :256],
+                                                     v[:, :256]))
+        by_bytes, by_ops = k2_bound(q, k)
+        turns = k2_turns(q, k, v)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        print_turns("B2 S4096 H32 random", turns, d, sdpa_ms,
+                    1e3 * max(by_bytes, by_ops), card)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
 
 
 def k3_long_cache(card):
@@ -1276,9 +1446,8 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     for name, (secs, log) in build.build_all(KERNELS).items():
-        info = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"build {name}: {secs:.2f} s; " + " | ".join(info), flush=True)
+        print(f"build {name}: {secs:.2f} s; {ptxas_summary(log)}",
+              flush=True)
 
     full, err = check_kernels()
     k4_full = check_k4()

@@ -27,15 +27,17 @@
 // is 240.6 GFLOP, 0.243 ms at the card's bf16 tensor-core rate against
 // 0.070 ms for q, k, v and o moved once.
 //
-// What this first design does: two paths, each one CTA per (query tile of
-// kBQ = 64 rows, head, batch row), the tiles that see the most keys
-// launched first.  Each walks KV tiles of kBK = 64 keys staged in shared
-// memory, only from the first key the tile's window reaches to the causal
+// The design: three kernels, each one CTA per (query tile, head, batch
+// row), the tiles that see the most keys launched first, each walking KV
+// tiles only from the first key the tile's window reaches to the causal
 // diagonal of its last row; the ragged ends of Sq and Skv are masked by
-// bounds, with no padding.
-// - bf16 at D 16, 32, 64, 112, 128 or 256 (every head_dim of the repo's
-//   configs): mma.sync tensor-core products, described at flash_mma_kernel
-//   below.
+// position, with no padding.
+// - bf16 at D 64, 112 and 128 (smollm, granite and musicgen; zamba2;
+//   internlm2): a warp-specialised wgmma kernel fed by TMA through a ring
+//   of KV stages, described at flash_wgmma_kernel below.
+// - bf16 at D 16, 32 and 256: mma.sync tensor-core products, described at
+//   flash_mma_kernel below (the kernel D 64, 112 and 128 took before the
+//   wgmma kernel; flash_attention_mma still reaches it there, for timing).
 // - f32, and bf16 at any other D: a SIMT kernel of 256 threads.  Both
 //   products are register-tiled f32 FMAs on CUDA cores: each thread holds a
 //   4 x 4 tile of the scores and a 4-row by 4-column tile of each
@@ -43,12 +45,11 @@
 //   statistics reduce over the 16 threads of a row with shuffles.  Shared
 //   memory is 4 (3 kBQ D + kBQ kBK + D) bytes, 214 KB at D 256 (under the
 //   227 KB a block may have) and 103 KB at D 112.
-// wgmma with TMA loads and a warp-specialised pipeline, which would bring
-// the bf16 path toward the operation bound, are a later change's work.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (kernels/build.py); kernels/flash_attention.py is its wrapper.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -327,9 +328,10 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 
 // ------------------------------------------------ bf16 tensor-core path ----
 //
-// For bf16 inputs with D in {16, 32, 64, 112, 128, 256} (every head_dim of
-// the repo's configs): one CTA of four warps per (query tile of kBQ rows,
-// head, batch row), each warp owning 16 query rows.  q, K and V tiles are
+// Instances at D 16, 32, 64, 112, 128 and 256 (every head_dim of the repo's
+// configs); flash_attention routes bf16 at D 16, 32 and 256 here: one CTA
+// of four warps per (query tile of kBQ rows, head, batch row), each warp
+// owning 16 query rows.  q, K and V tiles are
 // staged in shared memory as bf16 with cp.async (rows padded by 16 bytes
 // so ldmatrix hits distinct banks); K(j + 1) loads while P.V(j) runs and
 // V(j) while Q.K(j)^T runs.  Both products are mma.sync m16n8k16 with bf16
@@ -600,8 +602,666 @@ cudaError_t launch_mma(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The tensor-core path where it has an instance for D, else the SIMT one.
-cudaError_t launch_bf16(const Args& a, int B, cudaStream_t stream) {
+
+// ------------------------------------------------- bf16 wgmma path ----
+//
+// For bf16 at D 64, 112 and 128: a warp-specialised kernel built on what
+// Hopper added.  One CTA of three warpgroups per (query tile of kWgBQ = 128
+// rows, head, batch row), the tiles that see the most keys launched first.
+// - Warpgroup 0, the producer, gives up registers (setmaxnreg 24); one of
+//   its threads starts the TMA loads: the Q tile once, then each KV tile of
+//   kWgBK = 128 keys into a ring of kStages stages (4 at D 64, 3 at D 112
+//   and 128: about 145 KiB and 226 KiB of shared memory), K and V each with
+//   a full and an empty mbarrier, so loads run ahead of the products.
+// - Warpgroups 1 and 2, the consumers, take 240 registers each and 64 query
+//   rows each.  Per KV tile: S = Q K^T by wgmma m64n128k16 from shared
+//   memory (Q and K K-major); the online softmax on S in registers, in base
+//   2 with the scale folded in (one FFMA and one ex2 a score on a tile that
+//   needs no mask), row statistics over the four threads of a row by
+//   shuffles; p rounded to bf16 straight into wgmma's A-operand registers;
+//   O += P V by wgmma with A from registers and V from shared memory as an
+//   MN-major B (the transpose bit); each stage released on its empty
+//   barrier as soon as its product is in.  Within a consumer, S of tile j
+//   goes to the tensor cores with P V of tile j - 1, and the softmax of tile j
+//   runs while P V of tile j - 1 is still on the tensor cores; the two
+//   consumers run on their own, so one's softmax also overlaps the other's
+//   products.  (Making them take turns with named barriers, as FlashAttention
+//   3 does, did not move the time beyond run-to-run noise on this card, so
+//   it is not done.)
+// - Tiles come from the 4-D tensor maps (D, S, heads, B) that the wrapper
+//   derives from the tensors' strides, 64 columns (128 bytes, one 128-byte
+//   swizzle span) per box: two boxes per row at D 112 and 128.  TMA
+//   zero-fills rows past Sq or Skv and, at D 112, columns 112..127, so Q K^T
+//   walks 7 k-steps of 16 and P V runs at N 128 and drops 16 zero columns at
+//   the store (N 112 would save 1/8 of the P V products; N 128 keeps every
+//   B operand whole 128-byte swizzle atoms).
+// - A consumer masks only the tiles that straddle its rows' causal
+//   diagonal, window edge or Skv, and skips tiles that none of its rows can
+//   see (still waiting and releasing them, so the ring stays in step).
+//   Rows with no visible key take the oracle's mean of v, as above.
+// D 256 stays on mma.sync: a 64 x 256 f32 output accumulator alone is 128
+// registers a consumer thread, beside the 64 of the scores.  D 16 and 32
+// (reduced configs only) stay there too, and f32 on the SIMT kernel.
+
+constexpr int kWgBQ = 128;       // query rows per CTA, 64 per consumer
+constexpr int kWgBK = 128;       // keys per KV tile
+constexpr int kWgThreads = 384;  // producer + two consumer warpgroups
+constexpr int kBoxCols = 64;     // bf16 columns per TMA box: 128 bytes
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf2 = kNegInf * kLog2e;  // NEG_INF in base-2 units
+
+template <int kD>
+struct WgCfg {
+  static constexpr int kCB = (kD + kBoxCols - 1) / kBoxCols;  // column boxes
+  static constexpr int kDp = kBoxCols * kCB;  // D padded to whole boxes
+  static constexpr int kStages = kCB == 1 ? 4 : 3;
+  static constexpr int kQBlock = kWgBQ * 128;  // bytes of one Q column box
+  static constexpr int kKVBlock = kWgBK * 128;  // of one K or V column box
+  static constexpr int kQBytes = kQBlock * kCB;
+  static constexpr int kKVBytes = kKVBlock * kCB;  // one K or V tile
+  static constexpr size_t kSmem = 1024 /* alignment slack */ + kQBytes +
+                                  2 * (size_t)kStages * kKVBytes +
+                                  8 * (1 + 4 * kStages) + 4 * kDp;
+};
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// one box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N committed groups of this warpgroup's wgmma are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses of r across the asynchronous
+// wgmma that reads or writes it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(unsigned (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one 64 x 128 score tile of a consumer warpgroup,
+// in registers and in base 2.  s[i] is row g + 8 ((i % 4) / 2) of the
+// thread's warp and key key0 + 8 (i / 4) + 2 tq + i % 2; the four threads
+// tq of a row reduce its max by shuffles.  The mask and the softcap are
+// template arguments, so a tile that needs neither runs neither.
+struct Softmax {
+  const Args& a;
+  int qpos0;  // the position of the thread's row g; row g + 8 is + 8
+  int tq;
+
+  template <bool kMask, bool kCap>
+  __device__ __forceinline__ void run(float (&s)[64], float (&m)[2],
+                                      float (&l)[2], float (&alpha)[2],
+                                      int key0) const {
+    const float c = a.scale * kLog2e;
+    const float cap_in = kCap ? a.scale / a.softcap : 0.f;
+    const float cap_out = a.softcap * kLog2e;
+    // each row's max and sum are kept in four partials (score i goes to
+    // partial (i % 2) + 2 ((i / 4) % 2)), so no chain of dependent
+    // instructions is longer than 8
+    float mx[2][4], sum[2][4];
+    if (!kMask && !kCap) {
+      // p = 2^(s c - m) in one FFMA per score: the row max of s c is c
+      // times the row max of s (c > 0)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mx[(i % 4) / 2][i % 2 + 2 * (i / 4)] = s[i];
+#pragma unroll
+      for (int i = 8; i < 64; ++i) {
+        float& x = mx[(i % 4) / 2][i % 2 + 2 * ((i / 4) % 2)];
+        x = fmaxf(x, s[i]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        mx[r][0] = c * fmaxf(fmaxf(mx[r][0], mx[r][1]),
+                             fmaxf(mx[r][2], mx[r][3]));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int r = (i % 4) / 2;
+        float x = kCap ? cap_out * tanhf(s[i] * cap_in) : s[i] * c;
+        if (kMask) {
+          const int kpos = key0 + (i / 4) * 8 + 2 * tq + i % 2;
+          const int qpos = qpos0 + 8 * r;
+          bool ok = kpos < a.Skv;
+          if (a.causal) ok = ok && kpos <= qpos;
+          if (a.window) ok = ok && qpos - kpos < a.window;
+          x = ok ? x : kNegInf2;
+        }
+        s[i] = x;
+        float& y = mx[r][i % 2 + 2 * ((i / 4) % 2)];
+        y = i < 8 ? x : fmaxf(y, x);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        mx[r][0] = fmaxf(fmaxf(mx[r][0], mx[r][1]),
+                         fmaxf(mx[r][2], mx[r][3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = fmaxf(m[r], mx[r][0]);
+      x = fmaxf(x, __shfl_xor_sync(~0u, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(~0u, x, 2));
+      alpha[r] = ex2(m[r] - x);
+      m[r] = x;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) sum[r][k] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = (i % 4) / 2;
+      float p = !kMask && !kCap ? ex2(fmaf(s[i], c, -m[r])) : ex2(s[i] - m[r]);
+      // keys past Skv (zero-filled) never count
+      if (kMask) p = key0 + (i / 4) * 8 + 2 * tq + i % 2 < a.Skv ? p : 0.f;
+      sum[r][i % 2 + 2 * ((i / 4) % 2)] += p;
+      s[i] = p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      l[r] = l[r] * alpha[r] + ((sum[r][0] + sum[r][1]) +
+                                (sum[r][2] + sum[r][3]));
+  }
+
+  // a tile whose keys every row of the warpgroup (rows r0 .. r0 + nw - 1)
+  // sees runs unmasked
+  __device__ __forceinline__ void tile(float (&s)[64], float (&m)[2],
+                                       float (&l)[2], float (&alpha)[2],
+                                       int key0, int nw, int r0) const {
+    const int off = a.Skv - a.Sq;
+    const bool mask = (a.causal && key0 + kWgBK - 1 > r0 + off) ||
+                      (a.window && r0 + nw - 1 + off - key0 >= a.window) ||
+                      key0 + kWgBK > a.Skv;
+    if (a.softcap != 0.f) {
+      if (mask) run<true, true>(s, m, l, alpha, key0);
+      else run<false, true>(s, m, l, alpha, key0);
+    } else {
+      if (mask) run<true, false>(s, m, l, alpha, key0);
+      else run<false, false>(s, m, l, alpha, key0);
+    }
+  }
+};
+
+// d (64 x 128, f32) = A (64 x 16) * B (16 x 128) + (scale_d ? d : 0),
+// A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const unsigned (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const unsigned (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int kN>
+__device__ __forceinline__ void wgmma_pv(float (&o)[kN / 2],
+                                         const unsigned (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
+                                             const unsigned (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n64(o, a, db);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const unsigned (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n128(o, a, db);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, Args a) {
+  using C = WgCfg<kD>;
+  constexpr int kS = C::kStages;
+  extern __shared__ uint8_t wg_smem[];
+  // 1024-byte aligned: the 128-byte swizzle repeats every 8 rows of 128 B
+  uint8_t* q_s = wg_smem + ((1024 - (smem_addr(wg_smem) & 1023)) & 1023);
+  uint8_t* k_s = q_s + C::kQBytes;    // kS tiles of kCB boxes (128 x 128 B)
+  uint8_t* v_s = k_s + kS * C::kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kS * C::kKVBytes);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kS;
+  uint64_t* k_empty = v_full + kS;
+  uint64_t* v_empty = k_empty + kS;
+  float* vsum = reinterpret_cast<float*>(v_empty + kS);  // (kDp,)
+
+  const int tile = gridDim.x - 1 - blockIdx.x;  // the longest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (a.H / a.KVH);
+  const int off = a.Skv - a.Sq;  // qpos = i + off
+  const int q0 = tile * kWgBQ;
+  const int nq = min(kWgBQ, a.Sq - q0);
+  const int hi = a.causal ? min(a.Skv, q0 + nq + off) : a.Skv;
+  const int lo = a.window ? max(0, q0 + off - a.window + 1) : 0;
+  const int n_kv = hi > lo ? (hi - lo + kWgBK - 1) / kWgBK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 256);  // every consumer thread releases
+      mbar_init(&v_empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, C::kQBytes);
+      for (int cb = 0; cb < C::kCB; ++cb)
+        tma_load_4d(q_s + cb * C::kQBlock, &tm_q, q_full, cb * kBoxCols, q0,
+                    h, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % kS;
+        const int ph = (j / kS) & 1;
+        const int key0 = lo + j * kWgBK;
+        mbar_wait(&k_empty[st], ph ^ 1);  // passes at once on the first lap
+        mbar_expect_tx(&k_full[st], C::kKVBytes);
+        for (int cb = 0; cb < C::kCB; ++cb)
+          tma_load_4d(k_s + st * C::kKVBytes + cb * C::kKVBlock, &tm_k,
+                      &k_full[st], cb * kBoxCols, key0, kvh, b);
+        mbar_wait(&v_empty[st], ph ^ 1);
+        mbar_expect_tx(&v_full[st], C::kKVBytes);
+        for (int cb = 0; cb < C::kCB; ++cb)
+          tma_load_4d(v_s + st * C::kKVBytes + cb * C::kKVBlock, &tm_v,
+                      &v_full[st], cb * kBoxCols, key0, kvh, b);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup w takes rows 64 w .. 64 w + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int w = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;   // accumulator rows g and g + 8 of the warp
+    const int tq = lane % 4;  // accumulator columns 2 tq, 2 tq + 1 of 8
+    const int r0 = q0 + 64 * w;
+    const int nw = max(0, min(64, a.Sq - r0));
+    // the keys this warpgroup's rows can see
+    const int hi_w = a.causal ? min(a.Skv, r0 + nw + off) : a.Skv;
+    const int lo_w = a.window ? max(0, r0 + off - a.window + 1) : 0;
+    const int qpos0 = r0 + warp * 16 + g + off;  // row g; row g + 8 is + 8
+    const Softmax sm{a, qpos0, tq};
+
+    float o[C::kDp / 2];
+#pragma unroll
+    for (int i = 0; i < C::kDp / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf2, kNegInf2};
+    float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float s[64];              // scores, then probabilities, of a tile
+    unsigned pa[kWgBK / 16][4];  // probabilities as wgmma A fragments
+    const uint32_t q_addr = smem_addr(q_s) + w * 64 * 128;
+    mbar_wait(q_full, 0);
+
+    // tiles j_lo .. j_hi - 1 hold a key some row of this warpgroup sees;
+    // the others are only waited for and released, to keep the ring in step
+    int j_lo = 0, j_hi = 0;
+    if (nw > 0 && hi_w > lo_w) {
+      j_lo = (lo_w - lo) / kWgBK;
+      j_hi = min(n_kv, (hi_w - lo + kWgBK - 1) / kWgBK);
+    }
+    auto qk = [&](int j) {  // start S = Q K_j^T (K_j has landed)
+      const uint32_t k_addr = smem_addr(k_s) + (j % kS) * C::kKVBytes;
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss_n128(
+            s,
+            gmma_desc(q_addr + (kk / 4) * C::kQBlock + (kk % 4) * 32, 16,
+                      1024),
+            gmma_desc(k_addr + (kk / 4) * C::kKVBlock + (kk % 4) * 32, 16,
+                      1024),
+            kk > 0);
+      wgmma_commit();
+    };
+    auto pv = [&](int j) {  // start O += P V_j (V_j has landed)
+      const uint32_t v_addr = smem_addr(v_s) + (j % kS) * C::kKVBytes;
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
+        wgmma_pv<C::kDp>(o, pa[kk],
+                         gmma_desc(v_addr + kk * 16 * 128, C::kKVBlock, 1024));
+      wgmma_commit();
+    };
+    auto k_in = [&](int j) { mbar_wait(&k_full[j % kS], (j / kS) & 1); };
+    auto v_in = [&](int j) { mbar_wait(&v_full[j % kS], (j / kS) & 1); };
+    auto to_pa = [&]() {
+#pragma unroll
+      for (int i = 0; i < 64; i += 2)
+        pa[i / 8][(i % 8) / 2] = pack_bf16(s[i], s[i + 1]);
+    };
+
+    auto pass = [&](int j) {
+      k_in(j);
+      mbar_arrive(&k_empty[j % kS]);
+      v_in(j);
+      mbar_arrive(&v_empty[j % kS]);
+    };
+    for (int j = 0; j < j_lo; ++j) pass(j);
+    if (j_lo < j_hi) {
+      float alpha[2];
+      k_in(j_lo);
+      wgmma_fence();
+      qk(j_lo);
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(&k_empty[j_lo % kS]);
+      sm.tile(s, m, l, alpha, lo + j_lo * kWgBK, nw, r0);
+      to_pa();
+      // S of tile j on the tensor cores while P V of tile j - 1 runs, and
+      // the softmax of tile j while P V of tile j - 1 finishes
+      for (int j = j_lo + 1; j < j_hi; ++j) {
+        k_in(j);
+        v_in(j - 1);
+        fence_regs(o);
+        wgmma_fence();
+        qk(j);
+        pv(j - 1);
+        wgmma_wait<1>();  // S of tile j is in
+        fence_regs(s);
+        mbar_arrive(&k_empty[j % kS]);
+        sm.tile(s, m, l, alpha, lo + j * kWgBK, nw, r0);
+        wgmma_wait<0>();  // P V of tile j - 1 is in
+        fence_regs(o);
+        fence_regs(pa);
+        mbar_arrive(&v_empty[(j - 1) % kS]);
+#pragma unroll
+        for (int i = 0; i < C::kDp / 2; ++i) o[i] *= alpha[(i % 4) / 2];
+        to_pa();
+      }
+      v_in(j_hi - 1);
+      fence_regs(o);
+      wgmma_fence();
+      pv(j_hi - 1);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      mbar_arrive(&v_empty[(j_hi - 1) % kS]);
+    }
+    for (int j = max(j_hi, j_lo); j < n_kv; ++j) pass(j);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(~0u, l[r], 1);
+      l[r] += __shfl_xor_sync(~0u, l[r], 2);
+    }
+    // rows with no visible key (causal, qpos < 0): the mean of v over all
+    // Skv keys, as the oracle's uniform softmax gives
+    const __nv_bfloat16* vb =
+        static_cast<const __nv_bfloat16*>(a.v) + b * a.sv_b + kvh * a.sv_h;
+    if (a.causal && q0 + off < 0) {
+      for (int d = threadIdx.x - 128; d < kD; d += 256) {
+        float sum = 0.f;
+        for (int t = 0; t < a.Skv; ++t)
+          sum += __bfloat162float(vb[t * a.sv_s + d]);
+        vsum[d] = sum;
+      }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // consumers only
+    }
+    const float p_empty = __bfloat162float(__float2bfloat16(1.f / a.Skv));
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.out);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;
+      if (row >= nw) continue;
+      const bool empty = a.causal && qpos0 + 8 * r < 0;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow = ob + (((size_t)b * a.Sq + r0 + row) * a.H + h) * kD;
+#pragma unroll
+      for (int jb = 0; jb < kD / 8; ++jb) {  // drops the padded columns
+        const int col = jb * 8 + 2 * tq;
+        const float x0 = empty ? p_empty * vsum[col] : o[jb * 4 + 2 * r] * inv;
+        const float x1 =
+            empty ? p_empty * vsum[col + 1] : o[jb * 4 + 2 * r + 1] * inv;
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(x0, x1);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the CUDA runtime this
+// library links, so it is looked up through the runtime's entry-point query
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// One bf16 tensor map from the wrapper's nine numbers (kernels/
+// flash_attention.py::tma_map): dims (D, S, heads, B) in elements, the byte
+// strides of S, heads and B, and the box (columns, rows).  The box must be
+// the kernel's: kBoxCols columns and `rows` rows.
+cudaError_t encode_map(CUtensorMap* map, const void* ptr,
+                       const long long* m, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if (m[7] != kBoxCols || m[8] != rows) return cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {(cuuint64_t)m[0], (cuuint64_t)m[1],
+                              (cuuint64_t)m[2], (cuuint64_t)m[3]};
+  const cuuint64_t strides[3] = {(cuuint64_t)m[4], (cuuint64_t)m[5],
+                                 (cuuint64_t)m[6]};
+  const cuuint32_t box[4] = {(cuuint32_t)m[7], (cuuint32_t)m[8], 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int kD>
+cudaError_t launch_wgmma(const Args& a, int B, const long long* maps,
+                         cudaStream_t stream) {
+  if (maps == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap tm[3];
+  const void* ptrs[3] = {a.q, a.k, a.v};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err =
+        encode_map(&tm[i], ptrs[i], maps + 9 * i, i == 0 ? kWgBQ : kWgBK);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t smem = WgCfg<kD>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Sq + kWgBQ - 1) / kWgBQ, a.H, B);
+  flash_wgmma_kernel<kD><<<grid, kWgThreads, smem, stream>>>(tm[0], tm[1],
+                                                             tm[2], a);
+  return cudaGetLastError();
+}
+
+// The head_dims each bf16 path takes (every other D: the SIMT kernel).
+inline bool wgmma_d(int D) { return D == 64 || D == 112 || D == 128; }
+inline bool mma_d(int D) { return D == 16 || D == 32 || D == 256; }
+
+// bf16: the wgmma kernel at D 64, 112 and 128, mma.sync at D 16, 32 and
+// 256, else the SIMT kernel.  `maps`: the three tensor maps' numbers (9
+// each, q, k, v), which the wgmma kernel needs.
+cudaError_t launch_bf16(const Args& a, int B, const long long* maps,
+                        cudaStream_t stream) {
+  switch (a.D) {
+    case 16: return launch_mma<16>(a, B, stream);
+    case 32: return launch_mma<32>(a, B, stream);
+    case 64: return launch_wgmma<64>(a, B, maps, stream);
+    case 112: return launch_wgmma<112>(a, B, maps, stream);
+    case 128: return launch_wgmma<128>(a, B, maps, stream);
+    case 256: return launch_mma<256>(a, B, stream);
+    default: return launch<__nv_bfloat16>(a, B, stream);
+  }
+}
+
+// The mma.sync kernel at every D it has an instance for.
+cudaError_t launch_mma_any(const Args& a, int B, cudaStream_t stream) {
   switch (a.D) {
     case 16: return launch_mma<16>(a, B, stream);
     case 32: return launch_mma<32>(a, B, stream);
@@ -609,7 +1269,7 @@ cudaError_t launch_bf16(const Args& a, int B, cudaStream_t stream) {
     case 112: return launch_mma<112>(a, B, stream);
     case 128: return launch_mma<128>(a, B, stream);
     case 256: return launch_mma<256>(a, B, stream);
-    default: return launch<__nv_bfloat16>(a, B, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -621,20 +1281,44 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16.  q (B, Sq, H, D), k / v (B, Skv, KVH, D)
 // through the given strides (elements; the last dimension contiguous, every
 // row 16-byte aligned); out (B, Sq, H, D) contiguous.  D is a multiple of 8
-// and at most 256.
+// and at most 256.  maps: for bf16, the tensor maps of q, k and v, nine
+// numbers each (kernels/flash_attention.py::tma_map); may be null for f32.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     int B, int Sq, int Skv, int H, int KVH, int D, int causal,
                     int window, float softcap, float scale, long long sq_b,
                     long long sq_s, long long sq_h, long long sk_b,
                     long long sk_s, long long sk_h, long long sv_b,
-                    long long sv_s, long long sv_h, int dtype, void* stream) {
+                    long long sv_s, long long sv_h, const long long* maps,
+                    int dtype, void* stream) {
   const Args a{q,    k,    v,      out,     Sq,    Skv,  H,    KVH,
                D,    causal, window, softcap, scale, sq_b, sq_s, sq_h,
                sk_b, sk_s, sk_h,   sv_b,    sv_s,  sv_h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return (int)launch_bf16(a, B, s);
+  if (dtype == 1) return (int)launch_bf16(a, B, maps, s);
   if (dtype == 0) return (int)launch<float>(a, B, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The name of the kernel flash_attention launches at head_dim D and dtype.
+const char* flash_attention_kernel(int D, int dtype) {
+  if (dtype != 1) return "simt";
+  return wgmma_d(D) ? "wgmma" : mma_d(D) ? "mma.sync" : "simt";
+}
+
+// The earlier bf16 mma.sync kernel at D 16, 32, 64, 112, 128 or 256, with
+// flash_attention's arguments (bf16 only, no maps).  For timing beside the
+// wgmma kernel; flash_attention never routes 64, 112 or 128 here.
+int flash_attention_mma(const void* q, const void* k, const void* v,
+                        void* out, int B, int Sq, int Skv, int H, int KVH,
+                        int D, int causal, int window, float softcap,
+                        float scale, long long sq_b, long long sq_s,
+                        long long sq_h, long long sk_b, long long sk_s,
+                        long long sk_h, long long sv_b, long long sv_s,
+                        long long sv_h, void* stream) {
+  const Args a{q,    k,    v,      out,     Sq,    Skv,  H,    KVH,
+               D,    causal, window, softcap, scale, sq_b, sq_s, sq_h,
+               sk_b, sk_s, sk_h,   sv_b,    sv_s,  sv_h};
+  return (int)launch_mma_any(a, B, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -12,13 +12,19 @@ Layout, as the reference:
   lengths          (B,) int32           valid tokens per slot
 
 The kernel reads cold pages straight from the pinned host pool through its
-mapped device address, so the cold pools must be pinned CPU tensors.  This
-wrapper takes CUDA inputs only: the plain version for CPU tensors is
+mapped device address, so the cold pools must be pinned CPU tensors.  Each
+CTA covers ``plan_tiles(...)`` KV heads and pages in tiles of that many
+tokens; each slot's pages are split over ``plan_splits(...)`` CTAs whose
+partial results a second kernel merges
+(``kernels/ref.py::paged_decode_split_ref`` is that algorithm in plain
+torch); one call counts as one launch.  This wrapper
+takes CUDA inputs only: the plain version for CPU tensors is
 ``kernels/ref.py``, chosen by ``kernels/ops.py``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,9 +39,11 @@ _F = ctypes.c_float
 def _lib():
     lib = build.load("paged_decode")
     if lib.paged_decode_attention.argtypes is None:
-        lib.paged_decode_attention.argtypes = [_P] * 9 + [_I] * 9 + [
+        lib.paged_decode_attention.argtypes = [_P] * 11 + [_I] * 12 + [
             _F, _F, _I, _P]
         lib.paged_decode_attention.restype = _I
+        lib.paged_decode_smem_limit.argtypes = [ctypes.POINTER(_I)]
+        lib.paged_decode_smem_limit.restype = _I
         lib.host_device_pointer.argtypes = [_P, ctypes.POINTER(_P)]
         lib.host_device_pointer.restype = _I
     return lib
@@ -66,6 +74,75 @@ def _mapped_address(lib, t: torch.Tensor) -> int:
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"paged_decode_attention: {msg}")
+
+
+RING_STAGES = 3         # kStages of csrc/paged_decode.cu
+
+
+def smem_bytes(H: int, KVH: int, D: int, esize: int, kv_group: int,
+               tile: int) -> int:
+    """Dynamic shared memory of one split-kernel CTA covering ``kv_group``
+    KV heads with ring buffers of ``tile`` tokens, as ``split_smem_bytes``
+    in csrc/paged_decode.cu: f32 q, accumulator, scores and three row
+    statistics for its query heads, then RING_STAGES buffers of K and V."""
+    hq = kv_group * (H // KVH)
+    return (4 * (2 * hq * D + hq * tile + 3 * hq) + 16
+            + RING_STAGES * 2 * tile * kv_group * D * esize)
+
+
+def plan_tiles(H: int, KVH: int, D: int, page: int, esize: int,
+               smem_limit: int) -> tuple:
+    """(KV heads per CTA, tokens per ring buffer): every KV head and whole
+    pages where that ring fits in ``smem_limit`` bytes (a page's K for all
+    heads is one contiguous block of the pool); else the most KV heads, a
+    divisor of KVH, that fit with whole pages; else one KV head and the
+    longest tile, a divisor of page, that fits.  Raises where not even one
+    token of one head fits."""
+    def fits(g, t):
+        return smem_bytes(H, KVH, D, esize, g, t) <= smem_limit
+    for g in range(KVH, 0, -1):
+        if KVH % g == 0 and fits(g, page):
+            return g, page
+    for t in range(page, 0, -1):
+        if page % t == 0 and fits(1, t):
+            return 1, t
+    raise ValueError(
+        f"paged_decode_attention: {H // KVH} query heads of D {D} need "
+        f"{smem_bytes(H, KVH, D, esize, 1, 1)} bytes of shared memory per "
+        f"CTA, more than the card's {smem_limit}")
+
+
+def plan_splits(B: int, groups: int, NP: int, n_sm: int) -> int:
+    """CTAs each slot's NP logical pages are split over: enough that the
+    B * groups * splits CTAs (``groups`` = KVH / KV heads per CTA) give
+    every SM about one, at least 1 and at most NP.  Shapes and the SM count
+    only: the lengths live on the card, and reading them would stall the
+    host every layer."""
+    return max(1, min(NP, -(-n_sm // (B * groups))))
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int) -> tuple:
+    """(SM count, opt-in shared memory bytes per CTA) of card ``index``,
+    asked once."""
+    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+    limit = _I()
+    with torch.cuda.device(index):
+        rc = _lib().paged_decode_smem_limit(ctypes.byref(limit))
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention: shared memory limit "
+                           f"query failed (CUDA error {rc})")
+    return n_sm, limit.value
+
+
+def plan(q: torch.Tensor, KVH: int, page: int, NP: int) -> tuple:
+    """(splits, KV heads per CTA, tile) the wrapper launches with on q's
+    card."""
+    B, H, D = q.shape
+    n_sm, limit = _card(q.device.index if q.device.index is not None
+                        else torch.cuda.current_device())
+    group, tile = plan_tiles(H, KVH, D, page, q.element_size(), limit)
+    return plan_splits(B, KVH // group, NP, n_sm), group, tile
 
 
 def paged_decode_attention(q, k_hot, v_hot, k_cold, v_cold, page_table,
@@ -109,21 +186,42 @@ def paged_decode_attention(q, k_hot, v_hot, k_cold, v_cold, page_table,
            f"head_dim {D} is not a whole number of 16-byte chunks")
     _check(n_hot > 0 and n_cold > 0, "empty pool")
 
+    out = _launch(q, k_hot, v_hot, k_cold, v_cold, page_table, page_tier,
+                  lengths, window, softcap_val, *plan(q, KVH, page, NP))
+    paged_decode_attention.launches += 1
+    return out
+
+
+def _launch(q, k_hot, v_hot, k_cold, v_cold, page_table, page_tier, lengths,
+            window, softcap_val, splits, group, tile):
+    """Both kernels on checked inputs with ``splits`` CTAs per slot and KV
+    head group, each covering ``group`` KV heads in tiles of ``tile``
+    tokens (``chip_smoke.py`` also runs other plans through it); raises on a
+    failed launch."""
+    B, H, D = q.shape
+    n_hot, page, KVH, _ = k_hot.shape
+    NP = page_table.shape[1]
     lib = _lib()
     out = torch.empty_like(q)
+    # the partial o (B, splits, H, D) and then m, l (B, splits, H, 2), f32
+    scratch = torch.empty(B * splits * H * (D + 2), dtype=torch.float32,
+                          device=q.device)
+    o_part = scratch[:B * splits * H * D]
+    ml_part = scratch[B * splits * H * D:]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_decode_attention(
             q.data_ptr(), k_hot.data_ptr(), v_hot.data_ptr(),
             _mapped_address(lib, k_cold), _mapped_address(lib, v_cold),
             page_table.data_ptr(), page_tier.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, H, KVH, D, page, NP, n_hot, n_cold,
-            int(window), float(softcap_val), float(D ** -0.5),
+            out.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(), B, H,
+            KVH, D, page, NP, n_hot, k_cold.shape[0], int(window),
+            int(splits), int(group), int(tile), float(softcap_val),
+            float(D ** -0.5),
             _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
                            f"error {err}")
-    paged_decode_attention.launches += 1
     return out
 
 

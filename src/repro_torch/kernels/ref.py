@@ -7,9 +7,10 @@ finite ``NEG_INF``, f32 scores and p cast to v's dtype before P.V; of
 ``repro/kernels/decode_attention.py::masked_scores`` /
 ``online_softmax_update`` and ``repro/kernels/ref.py::
 paged_decode_attention_ref``, with the same op order, the same ``NEG_INF``
-and the same clipping of physical page indices; and of
-``repro/kernels/paged_decode.py::pack_kv_pools``, which lays dense caches out
-as pools; and of the Mamba2 SSD oracles ``ssd_ref`` (sequential) and
+and the same clipping of physical page indices (with, beside it, the split
+over page ranges and the merge that the paged decode kernel computes); of
+``repro/kernels/paged_decode.py::pack_kv_pools``, which lays dense caches
+out as pools; and of the Mamba2 SSD oracles ``ssd_ref`` (sequential) and
 ``ssd_chunked_ref`` (the chunked algorithm the SSD kernel computes).
 """
 from __future__ import annotations
@@ -103,6 +104,17 @@ def online_softmax_update(s, v, acc, m, l):
     return acc_new, m_new, l_new
 
 
+def _page(pool_hot, pool_cold, page_table, page_tier, i):
+    """Logical page i of every slot, (B, KVH, page, D) in f32: tier 0 from
+    the hot pool, any other tier from the cold pool, each physical index
+    clipped into its pool."""
+    phys = page_table[:, i].long()
+    hot = pool_hot[phys.clamp(0, pool_hot.shape[0] - 1)]
+    cold = pool_cold[phys.clamp(0, pool_cold.shape[0] - 1)]
+    pg = torch.where((page_tier[:, i] == 0)[:, None, None, None], hot, cold)
+    return pg.transpose(1, 2).float()
+
+
 def paged_decode_attention_ref(q, k_hot, v_hot, k_cold, v_cold, page_table,
                                page_tier, lengths, *, window: int = 0,
                                softcap_val: float = 0.0):
@@ -122,23 +134,66 @@ def paged_decode_attention_ref(q, k_hot, v_hot, k_cold, v_cold, page_table,
     qg = q.reshape(B, KVH, G, D).float()
     lengths = lengths.to(torch.int32)
 
-    def gather(pool_hot, pool_cold, i):
-        phys = page_table[:, i].long()
-        t = page_tier[:, i]
-        hot = pool_hot[phys.clamp(0, pool_hot.shape[0] - 1)]
-        cold = pool_cold[phys.clamp(0, pool_cold.shape[0] - 1)]
-        pg = torch.where((t == 0)[:, None, None, None], hot, cold)
-        return pg.transpose(1, 2).float()                   # (B,KVH,page,D)
-
     acc = torch.zeros(B, KVH, G, D, dtype=torch.float32, device=q.device)
     m = torch.full((B, KVH, G), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros(B, KVH, G, dtype=torch.float32, device=q.device)
     for i in range(NP):
-        s = masked_scores(qg, gather(k_hot, k_cold, i), i * page, lengths,
-                          window=window, softcap_val=softcap_val)
-        acc, m, l = online_softmax_update(s, gather(v_hot, v_cold, i),
-                                          acc, m, l)
+        k = _page(k_hot, k_cold, page_table, page_tier, i)
+        v = _page(v_hot, v_cold, page_table, page_tier, i)
+        s = masked_scores(qg, k, i * page, lengths, window=window,
+                          softcap_val=softcap_val)
+        acc, m, l = online_softmax_update(s, v, acc, m, l)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype).reshape(B, H, D)
+
+
+def paged_decode_split_ref(q, k_hot, v_hot, k_cold, v_cold, page_table,
+                           page_tier, lengths, *, n_split: int,
+                           window: int = 0, softcap_val: float = 0.0):
+    """The split-and-combine algorithm of the paged decode kernel
+    (csrc/paged_decode.cu) in plain torch: split s of ``n_split`` owns
+    logical pages [s P, s P + P), P = ceil(NP / n_split), and visits those
+    of them in the slot's [lo, npages) (lo the first page in the window);
+    its partial (o, m, l) starts at (0, NEG_INF, 0) and takes the online
+    softmax update of each visited page.  The partials merge as the combine
+    kernel merges them: m = max m_i, o = sum exp(m_i - m) o_i / max(sum
+    exp(m_i - m) l_i, 1e-30).  Equal to ``paged_decode_attention_ref`` to
+    f32 rounding wherever a slot sees a key."""
+    B, H, D = q.shape
+    page, KVH = k_hot.shape[1], k_hot.shape[2]
+    NP = page_table.shape[1]
+    G = H // KVH
+    qg = q.reshape(B, KVH, G, D).float()
+    lengths = lengths.to(torch.int32)
+    npages = torch.clamp((lengths + page - 1) // page, max=NP)
+    lo = torch.clamp((lengths - window) // page, min=0) if window \
+        else torch.zeros_like(lengths)
+
+    per = -(-NP // n_split)
+    parts = []
+    for s in range(n_split):
+        acc = torch.zeros(B, KVH, G, D, dtype=torch.float32, device=q.device)
+        m = torch.full((B, KVH, G), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros(B, KVH, G, dtype=torch.float32, device=q.device)
+        for i in range(s * per, min(NP, s * per + per)):
+            visit = ((i >= lo) & (i < npages))[:, None, None]      # (B,1,1)
+            k = _page(k_hot, k_cold, page_table, page_tier, i)
+            v = _page(v_hot, v_cold, page_table, page_tier, i)
+            sc = masked_scores(qg, k, i * page, lengths, window=window,
+                               softcap_val=softcap_val)
+            a2, m2, l2 = online_softmax_update(sc, v, acc, m, l)
+            acc = torch.where(visit[..., None], a2, acc)
+            m, l = torch.where(visit, m2, m), torch.where(visit, l2, l)
+        parts.append((acc, m, l))
+    m_all = torch.stack([p[1] for p in parts]).amax(dim=0)
+    o = torch.zeros_like(parts[0][0])
+    l_all = torch.zeros_like(parts[0][2])
+    for acc, m, l in parts:
+        w = torch.exp(m - m_all)
+        o = o + w[..., None] * acc
+        l_all = l_all + w * l
+    out = o / torch.clamp(l_all, min=1e-30)[..., None]
     return out.to(q.dtype).reshape(B, H, D)
 
 
