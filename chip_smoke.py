@@ -15,8 +15,11 @@ Phases, each printing its own lines:
        without a window, with hot pages on the card, cold pages in pinned
        host memory and unmapped (FREE) table entries;
      - K4 (Mamba2 SSD scan) over the reference's SSD sweep, a start state,
-       S < chunk and the full-width zamba2-7b layer (S 4096, H 112, P = N =
-       64), in f32 and bf16;
+       S < chunk, a bf16 P of 12 and the full-width zamba2-7b layer (S 4096,
+       H 112, P = N = 64), in f32 and bf16, each on the kernel the wrapper
+       picks (bf16 with P, N multiples of 8: the tensor-core kernel; else
+       the SIMT kernel), then the tensor-core kernel at given segment
+       counts, with h0 and a ragged last chunk;
   3. serving smollm-360m at full width (bf16, random weights from seed 0)
      through the paged-pool ContinuousBatcher: tiered hot windows against
      an all-hot run (tokens must be identical), K1's launch count against
@@ -29,15 +32,19 @@ Phases, each printing its own lines:
      (logits and loss), then the full width in bf16 (random weights from
      seed 0, B 2 x S 4096): the loss and the forward (finite), K4's
      launches against 65 MAMBA layers x forwards, the first Mamba layer's
-     K4 output against the plain version on the same activations, the
-     forward's time and tokens/s, a profile of one forward, and K4's time
-     beside its bound and its plain version's;
+     K4 output (on the tensor-core kernel) against the plain version on the
+     same activations, the forward's time and tokens/s, a profile of one
+     forward with K4's share, and K4's time at B 2 and B 1 beside both its
+     bounds (bytes or tensor-core operations; f32 CUDA-core operations) and
+     its plain version's, against the SIMT kernel in turns and at other
+     segment counts;
   5. the attention entry points ops.flash_attention (K2) and
      ops.decode_attention (K3), which no model path of the reference calls:
      - both kernels against their plain versions over the reference's
        sweeps in f32 and bf16, window/softcap cases, Sq < Skv, ragged Sq,
-       G 1 and 3, D 64, 112 and 256, strided inputs, and rows with no
-       visible key (causal Sq > Skv; a length-0 slot), and a CUDA query
+       G 1, 3, 5 and 8, D 8, 64, 112 and 256, strided inputs, and rows with
+       no visible key (causal Sq > Skv; a length-0 slot; a window past S),
+       K3 also at split counts 1, 2 and the wrapper's, and a CUDA query
        with host KV refused; K2 again at each D its wgmma kernel takes (64,
        112, 128) through the masking sweep;
      - K3 on the KV of the smollm-360m serving run gathered densely from
@@ -48,7 +55,9 @@ Phases, each printing its own lines:
        K3 at zamba2-7b's shared-block decode shape (B 8 x S 4096);
      - each kernel's time beside its bound, its plain version's and one
        F.scaled_dot_product_attention call's; K2's wgmma kernel against its
-       mma.sync kernel in turns at zamba2's shape and at D 64 and 128.
+       mma.sync kernel in turns at zamba2's shape and at D 64 and 128; K3
+       at the wrapper's split count against one split in turns at both of
+       its shapes.
 
 Every kernel time is the median over launches that each follow an L2
 flush and a device-side spin, so the events time the card's work and not
@@ -117,10 +126,14 @@ def ptxas_summary(log: str) -> str:
     """Each kernel's registers and spills from ``nvcc -Xptxas -v``: the
     kernel's name and template argument, then what ptxas said of it."""
     out, name, spill = [], None, ""
+    names = {"f": "f32", "13__nv_bfloat16": "bf16"}
     for ln in log.splitlines():
-        m = re.search(r"\d+([a-z_]+_kernel)I(Li(\d+)E|f|13__nv_bfloat16)", ln)
+        m = re.search(r"\d+([a-z_]+_kernel)I((?:Li\d+E|Lb\dE|f|"
+                      r"13__nv_bfloat16)+)E", ln)
         if "Compiling entry function" in ln and m:
-            arg = m.group(3) or ("f32" if m.group(2) == "f" else "bf16")
+            args = re.findall(r"Li(\d+)E|Lb(\d)E|(f|13__nv_bfloat16)",
+                              m.group(2))
+            arg = ", ".join(i or b or names[t] for i, b, t in args)
             name = f"{m.group(1)}<{arg}>"
         elif "Compiling entry function" in ln:
             name = ln.split("'")[1] if "'" in ln else "?"
@@ -651,53 +664,73 @@ def k4_case(shape, dtype, seed, *, with_h0=False, model_layout=False):
 
 def check_k4():
     """Phase (a): K4 against its plain version on the card over the
-    reference's SSD sweep (f32 and bf16, one and two heads per CTA), a start
-    state h0, S < chunk, and the full-width shape in the model's layout.
+    reference's SSD sweep (f32 and bf16), a start state h0, S < chunk, a
+    bf16 P of 12 (the SIMT kernel by the wrapper's rule) and the full-width
+    shape in the model's layout, each on the kernel the wrapper picks; the
+    bf16 sweep and the full-width bf16 shape again on the SIMT kernel that
+    k4_record times against the tensor-core kernel, at two heads a CTA (and
+    one at full width, what the wrapper takes there at B 1); then the bf16
+    tensor-core kernel at given segment counts (1 up to more than the
+    planner takes, with h0).  Prints which kernel each case ran on.
     Returns the full-width bf16 case."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as k4
     torch.backends.cuda.matmul.allow_tf32 = False     # plain version in fp32
-    cases = [(s, dt, {"block_heads": bh}) for s in K4_SWEEP
-             for dt, bh in ((torch.float32, None), (torch.bfloat16, 2))]
+    f32, bf16 = torch.float32, torch.bfloat16
+    simt2 = {"kernel": "simt", "block_heads": 2}
+    cases = [(s, dt, opt) for s in K4_SWEEP
+             for dt, opt in ((f32, {}), (bf16, {}), (bf16, simt2))]
     cases += [((2, 64, 4, 16, 16, 16), dt, {"with_h0": True})
-              for dt in (torch.float32, torch.bfloat16)]
-    cases += [((1, 40, 4, 16, 32, 256), torch.float32, {}),      # S < chunk
-              ((2, 192, 4, 64, 64, 64), torch.float32,
-               {"block_heads": 2, "with_h0": True})]
-    cases += [(K4_FULL, dt, {"model_layout": True})
-              for dt in (torch.float32, torch.bfloat16)]
-    worst = {}
+              for dt in (f32, bf16)]
+    cases += [((1, 40, 4, 16, 32, 256), f32, {}),      # S < chunk
+              ((1, 40, 4, 16, 32, 256), bf16, {}),
+              ((2, 192, 4, 64, 64, 64), f32,
+               {"block_heads": 2, "with_h0": True}),
+              ((2, 64, 4, 12, 16, 16), bf16, {})]      # P 12: SIMT
+    cases += [(K4_FULL, dt, {"model_layout": True}) for dt in (f32, bf16)]
+    cases += [(K4_FULL, bf16, {"model_layout": True, "kernel": "simt",
+                               "block_heads": bh}) for bh in (1, 2)]
+    cases += [((2, 192, 4, 64, 64, 64), bf16,
+               {"with_h0": True, "segments": n}) for n in (1, 2, 3)]
+    cases += [((1, 1000, 2, 32, 16, 8), bf16,         # ragged last chunk
+               {"with_h0": True, "segments": n}) for n in (1, 4)]
+    cases += [(K4_FULL, bf16, {"model_layout": True, "segments": n})
+              for n in (1, 2, 5)]
+    worst, ran = {}, {"mma": 0, "simt": 0}
     full = None
     for i, (shape, dt, opt) in enumerate(cases):
-        bh = opt.get("block_heads")
         args, kw = k4_case(shape, dt, seed=100 + i,
                            with_h0=opt.get("with_h0", False),
                            model_layout=opt.get("model_layout", False))
-        y, h = k4.ssd(*args, **kw) if bh is None else \
-            k4._launch(*args, **kw, block_heads=bh)
+        kernel = opt.get("kernel") or k4.path(args[0], args[3], args[4])
+        ran[kernel] += 1
+        y, h = k4._launch(*args, **kw, kernel=opt.get("kernel"),
+                          block_heads=opt.get("block_heads"),
+                          segments=opt.get("segments"))
         y_ref, h_ref = ref.ssd_chunked_ref(*args, **kw)
         torch.cuda.synchronize()
-        what = f"{shape} {dt} {opt}"
+        what = f"{shape} {dt} {opt} on {kernel}"
         ey = _k4_close(y, y_ref, what + " y")
         eh = _k4_close(h, h_ref, what + " h")
-        key = (dt, "full" if shape == K4_FULL else "sweep")
+        key = (kernel, "full" if shape == K4_FULL else "sweep")
         wy, wh = worst.get(key, (0.0, 0.0))
         worst[key] = (max(wy, ey), max(wh, eh))
-        if shape == K4_FULL and dt == torch.bfloat16:
+        if shape == K4_FULL and dt == bf16 and opt == {"model_layout": True}:
+            if kernel != "mma":
+                raise AssertionError("k4: the full-width bf16 case did not "
+                                     "run on the tensor-core kernel")
             full = (args, kw, ey)
-    t32, t16 = _k4_tol(torch.float32), _k4_tol(torch.bfloat16)
-    f32 = "; ".join(f"{k} y {worst[(torch.float32, k)][0]:.3e} h "
-                    f"{worst[(torch.float32, k)][1]:.3e}"
-                    for k in ("sweep", "full"))
-    b16 = "; ".join(f"{k} y {worst[(torch.bfloat16, k)][0]:.3e} h "
-                    f"{worst[(torch.bfloat16, k)][1]:.3e}"
-                    for k in ("sweep", "full"))
+    t32, t16 = _k4_tol(f32), _k4_tol(bf16)
+    errs = "; ".join(f"{k} {w}: y {worst[(k, w)][0]:.3e} h "
+                     f"{worst[(k, w)][1]:.3e}" for k, w in sorted(worst))
     print(f"k4 check: {len(cases)} cases match the plain version "
-          f"(ssd_chunked_ref); max_abs_err f32 {f32} within atol "
-          f"{t32['atol']:g}; bf16 {b16} (y within atol {t16['atol']:g} + "
-          f"rtol {t16['rtol']:g}, h within atol {t32['atol']:g})",
-          flush=True)
+          f"(ssd_chunked_ref), {ran['mma']} on the tensor-core kernel (bf16, "
+          f"segments 1-5 given and planned), {ran['simt']} on the SIMT "
+          f"kernel (bf16 at two heads a CTA, and one at full width, "
+          f"included); max_abs_err {errs} (f32 y and every h within atol "
+          f"{t32['atol']:g}, bf16 y within atol {t16['atol']:g} + rtol "
+          f"{t16['rtol']:g})", flush=True)
     return full
 
 
@@ -819,6 +852,9 @@ def run_zamba_full(card):
     # agree with the plain version
     _, args = first.ssd_inputs(cfg, captured["x"])
     kw = dict(chunk=cfg.ssm.chunk, h0=None)
+    if k4.path(args[0], args[3], args[4]) != "mma":
+        raise AssertionError("zamba2-7b: the forward's K4 calls are not on "
+                             "the tensor-core kernel")
     y, h = k4.ssd(*args, **kw)
     if not torch.equal(h, captured["h"]):
         raise AssertionError("zamba2-7b: K4 gave another state on the same "
@@ -839,7 +875,7 @@ def run_zamba_full(card):
     wall_us, rows = device_profile(lambda: forward(params, cfg, batch), 1)
     busy = print_profile("zamba2-7b forward", wall_us, rows, 1, card,
                          unit="forward", top=12)
-    k4_us = sum(us for us, _, k in rows if "ssd_kernel" in k)
+    k4_us = sum(us for us, _, k in rows if "ssd_" in k)
     if busy:
         print(f"zamba2-7b forward: K4 {k4_us / 1e3:.3f} ms of "
               f"{busy / 1e3:.3f} ms device time ({100 * k4_us / busy:.1f}%), "
@@ -855,15 +891,21 @@ def run_zamba_full(card):
 
 
 def k4_bound(B, S, H, P, N, esize):
-    """(seconds by bytes, seconds by operations) of one SSD call.  Bytes: x
-    and y, dt, B and C read or written once, the f32 state written once.
-    Operations: the fewest f32 flops over the formulations the function
+    """(seconds by bytes, seconds by f32 operations, seconds by tensor-core
+    operations, the chunk of the fewest operations) of one SSD call.
+    Bytes: x and y, dt, B and C read or written once, the f32 state written
+    once.  Operations: the fewest over the formulations the function
     allows, the chunked form at any chunk q dividing S (q = 1 is the
     token-by-token recurrence), counting per chunk the causal half, q(q+1)/2
     pairs, of C B^T (N per pair, shared by the heads) and of the masked G x
     (P per pair and head), C h^T and the state update B^T x (q N P each per
-    head) and the state's decay (N P per head); the f32 CUDA-core rate,
-    since the function's products are f32 (the reference kernel upcasts)."""
+    head) and the state's decay (N P per head).  The f32 figure puts them
+    all at the f32 CUDA-core rate (the reference upcasts every operand).
+    The tensor-core figure puts the products at the bf16 tensor-core rate,
+    each product with an f32 operand (G x, C h^T, the state update) counted
+    twice, as the kernel splits that operand into two bf16 parts, and the
+    decay at the f32 rate; the tensor-core kernel's bound is the larger of
+    bytes and that."""
     nbytes = 2 * B * S * H * P * esize + B * S * H * esize + \
         2 * B * S * N * esize + B * H * P * N * 4
 
@@ -872,15 +914,25 @@ def k4_bound(B, S, H, P, N, esize):
         return (S // q) * B * (2 * pairs * N + H * (
             2 * pairs * P + 4 * q * N * P + N * P))
 
-    q = min((q for q in range(1, S + 1) if S % q == 0), key=flops)
-    return nbytes / HBM_BYTES_PER_S, flops(q) / FP32_FLOP_PER_S, q
+    def tc_seconds(q):
+        pairs = q * (q + 1) // 2
+        products = (S // q) * B * (2 * pairs * N + 2 * H * (
+            2 * pairs * P + 4 * q * N * P))
+        return products / BF16_FLOP_PER_S + \
+            (S // q) * B * H * N * P / FP32_FLOP_PER_S
+
+    divisors = [q for q in range(1, S + 1) if S % q == 0]
+    q = min(divisors, key=flops)
+    return nbytes / HBM_BYTES_PER_S, flops(q) / FP32_FLOP_PER_S, \
+        min(tc_seconds(d) for d in divisors), q
 
 
 def k4_record(main, full, card):
     """Phase (d): K4's time at the main path's shape (the captured first
     zamba2 layer, B 2) and at the full-width B 1 shape, each launch after an
-    L2 flush, beside its bound and its plain version's time; and at both
-    shapes one against two heads per CTA, in turns (1, 2, 2, 1)."""
+    L2 flush, beside both bounds and its plain version's time: the
+    tensor-core kernel the wrapper takes against the SIMT kernel in turns
+    (mma, simt, simt, mma), then at other segment counts."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as k4
@@ -891,33 +943,60 @@ def k4_record(main, full, card):
         x, Bm = args[0], args[3]
         B, S, H, P = x.shape
         N = Bm.shape[-1]
-        ms = time_ms(lambda: k4.ssd(*args, **kw))
+        if k4.path(x, Bm, args[4]) != "mma":
+            raise AssertionError(f"k4 ({name}) is not on the tensor-core "
+                                 f"kernel")
+        planned = k4.plan(x)
+        turns = [(kern, time_ms(lambda: k4._launch(*args, **kw,
+                                                   kernel=kern)))
+                 for kern in ("mma", "simt", "simt", "mma")]
+        ms = float(np.mean([t for kern, t in turns if kern == "mma"]))
+        simt_ms = float(np.mean([t for kern, t in turns if kern == "simt"]))
         plain_ms = time_ms(lambda: ref.ssd_chunked_ref(*args, **kw), reps=5)
-        by_bytes, by_ops, q = k4_bound(B, S, H, P, N, x.element_size())
-        out[name] = (ms, plain_ms, by_bytes, by_ops)
-        print(f"k4 time ({name}): {ms:.4f} ms at B{B} S{S} H{H} P{P} N{N} "
-              f"{x.dtype}; bound {1e3 * max(by_bytes, by_ops):.4f} ms "
-              f"(bytes {1e3 * by_bytes:.4f} ms at "
-              f"{HBM_BYTES_PER_S / 1e12} TB/s, f32 operations "
-              f"{1e3 * by_ops:.4f} ms at {FP32_FLOP_PER_S / 1e12} TFLOP/s, "
-              f"fewest at chunk {q}); plain {plain_ms:.4f} ms; library: "
-              f"none [{card}]", flush=True)
-        turns = [(bh, time_ms(lambda: k4._launch(*args, **kw,
-                                                 block_heads=bh)))
-                 for bh in (1, 2, 2, 1)]
-        print(f"k4 heads per CTA ({name}): " + ", ".join(
-            f"{bh}: {t:.4f} ms" for bh, t in turns) + f" (ssd takes "
-            f"{k4._block_heads(B, H, n_sm)}) [{card}]", flush=True)
-    ms, plain_ms, by_bytes, by_ops = out["main"]
+        by_bytes, by_f32, by_tc, q = k4_bound(B, S, H, P, N,
+                                              x.element_size())
+        bound_ms = 1e3 * max(by_bytes, by_tc)
+        out[name] = (ms, plain_ms, by_bytes, by_tc, by_f32, simt_ms, planned)
+        print(f"k4 time ({name}): {ms:.4f} ms (tensor-core kernel, mean of "
+              f"its two turns, {planned} segments) at B{B} S{S} H{H} P{P} "
+              f"N{N} {x.dtype}; SIMT kernel {simt_ms:.4f} ms "
+              f"({simt_ms / ms:.2f} times as long); bound {bound_ms:.4f} ms, "
+              f"{100 * bound_ms / ms:.1f}% of it (bytes {1e3 * by_bytes:.4f} "
+              f"ms at {HBM_BYTES_PER_S / 1e12} TB/s; tensor-core operations "
+              f"{1e3 * by_tc:.4f} ms at {BF16_FLOP_PER_S / 1e12:g} TFLOP/s, "
+              f"split operands counted twice); f32 bound "
+              f"{1e3 * max(by_bytes, by_f32):.4f} ms (f32 operations "
+              f"{1e3 * by_f32:.4f} ms at {FP32_FLOP_PER_S / 1e12} TFLOP/s, "
+              f"fewest at chunk {q}); plain {plain_ms:.4f} ms; library: none "
+              f"[{card}]", flush=True)
+        print(f"k4 kernels ({name}, in turns): " + ", ".join(
+            f"{kern} {t:.4f} ms" for kern, t in turns) + f" [{card}]",
+            flush=True)
+        seg_ms = [(n, time_ms(lambda: k4._launch(*args, **kw, segments=n)))
+                  for n in sorted({1, 2, 3, 4, 6, planned})]
+        print(f"k4 segments ({name}): " + ", ".join(
+            f"{n}: {t:.4f} ms" for n, t in seg_ms) + f" (the wrapper takes "
+            f"{planned}: B {B} x H {H}, {n_sm} SMs holding "
+            f"{k4.ctas_per_sm(x.device)} CTAs each by the occupancy API) "
+            f"[{card}]", flush=True)
+    ms, plain_ms, by_bytes, by_tc, by_f32, simt_ms, planned = out["main"]
     return {"name": "ssd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
             "replaces": "src/repro/kernels/mamba2.py:75",
             "launches": main["launches"], "max_abs_err": main["err"],
             "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_ms": 1e3 * max(by_bytes, by_tc),
+            "bound_by": "bytes" if by_bytes >= by_tc else "operations",
             "library_ms": None,
-            "library_note": "no single PyTorch call computes the SSD scan"}
+            "library_note": "no single PyTorch call computes the SSD scan",
+            "kernel": "mma", "segments": planned, "simt_ms": simt_ms,
+            "bound_f32_ms": 1e3 * max(by_bytes, by_f32),
+            "b1": dict(zip(("ms", "plain_ms", "bytes_ms", "tc_ops_ms",
+                            "f32_ops_ms", "simt_ms", "segments"),
+                           (out["b1"][0], out["b1"][1],
+                            1e3 * out["b1"][2], 1e3 * out["b1"][3],
+                            1e3 * out["b1"][4], out["b1"][5],
+                            out["b1"][6])))}
 
 
 # ------------------------------------------------------------- K3 and K2 ----
@@ -990,8 +1069,14 @@ def _p_abs_v_k2(q, k, v, **kw):
 
 def check_k3():
     """K3 against its plain version on the card over the reference's decode
-    sweep in f32 and bf16, window/softcap cases, G 1 and 3, D 64, 112 and
-    256, caches read through strides, and length-0 slots."""
+    sweep in f32 and bf16, window/softcap cases, G 1, 3, 5 and 8 (head
+    groups of at most four a CTA), D 8, 64, 112 and 256, caches read
+    through strides, and length-0 slots, at the wrapper's split count;
+    then at split counts 1, 2 and the wrapper's through the C argument,
+    with windows and slots without a visible key (length 0, or a window
+    that starts past S), each with its partials' scratch filled with NaN
+    first: splits that see no key of a slot must write their empty partial,
+    or the merge reads the NaN."""
     import torch
     from repro_torch.kernels import decode_attention as k3
     from repro_torch.kernels import ref
@@ -1007,23 +1092,54 @@ def check_k3():
     cases += [((2, 200, 6, 2, 64), bf16, {"window": 40}, {"strided": True})]
     cases += [((3, 100, 4, 2, 32), dt, {"window": 16},
                {"lengths": [0, 57, 100]}) for dt in (f32, bf16)]
+    cases += [((2, 200, 10, 2, 64), dt, {"window": 50},          # G 5
+               {"lengths": [200, 130]}) for dt in (f32, bf16)]
+    cases += [((2, 50, 4, 2, 8), dt, {}, {}) for dt in (f32, bf16)]  # D 8
+    # given split counts: (shape, window, lengths); the last slot of the
+    # windowed cases starts its window past S
+    split_cases = [((4, 1024, 15, 5, 64), 0, [0, 1, 500, 1024]),
+                   ((3, 1024, 15, 5, 64), 64, [0, 700, 1024 + 64 + 3]),
+                   ((2, 4096, 4, 4, 112), 0, [1306, 3597]),
+                   ((3, 512, 8, 1, 64), 100, [511, 250, 512 + 100 + 1])]
     worst = {f32: (0.0, 0.0), bf16: (0.0, 0.0)}
+    runs = []
     for i, (shape, dt, kw, opt) in enumerate(cases):
-        args = k3_case(shape, dt, seed=300 + i, **opt)
-        out = k3.decode_attention(*args, **kw)
+        runs.append((shape, dt, kw, opt, None, 300 + i))
+    for i, (shape, window, lengths) in enumerate(split_cases):
+        for dt in (f32, bf16):
+            for n in ("1", "2", "planned"):
+                runs.append((shape, dt, {"window": window},
+                             {"lengths": lengths}, n, 350 + i))
+    plans = {}
+    for shape, dt, kw, opt, n, seed in runs:
+        args = k3_case(shape, dt, seed=seed, **opt)
+        if n is None:
+            out = k3.decode_attention(*args, **kw)
+        else:
+            planned = k3.plan(args[0], shape[3], shape[1])
+            plans[shape] = planned
+            splits = planned if n == "planned" else int(n)
+            B, H, D = args[0].shape
+            nan = torch.full((k3.scratch_size(B, H, D, splits),),
+                             float("nan"), device="cuda")
+            out = k3._launch(*args, kw["window"], 0.0, splits, scratch=nan)
         want = ref.decode_attention_ref(*args, **kw)
         pav = None if dt == f32 else _p_abs_v_k3(*args, **kw)
         torch.cuda.synchronize()
-        e = _attn_close(out, want, f"k3 {shape} {dt} {kw} {opt}",
+        e = _attn_close(out, want, f"k3 {shape} {dt} {kw} {opt} splits {n}",
                         p_abs_v=pav)
         worst[dt] = tuple(map(max, worst[dt], e))
     _refuse_host_kv()
-    print(f"k3 check: {len(cases)} cases match the plain version "
-          f"(decode_attention_ref), length-0 slots included; max_abs_err f32 "
-          f"{worst[f32][0]:.3e} ({worst[f32][1]:.3f} of {_limit_text(f32)}),"
-          f" bf16 {worst[bf16][0]:.3e} ({worst[bf16][1]:.3f} of "
-          f"{_limit_text(bf16)}); a CUDA query with host KV and a misaligned "
-          f"cache are refused", flush=True)
+    print(f"k3 check: {len(runs)} cases match the plain version "
+          f"(decode_attention_ref), length-0 slots and windows past S "
+          f"included; {len(cases)} at the wrapper's split count, "
+          f"{len(runs) - len(cases)} at 1, 2 and the planned count "
+          f"({', '.join(f'{s}: {n}' for s, n in plans.items())}) over "
+          f"scratch filled with NaN; "
+          f"max_abs_err f32 {worst[f32][0]:.3e} ({worst[f32][1]:.3f} of "
+          f"{_limit_text(f32)}), bf16 {worst[bf16][0]:.3e} "
+          f"({worst[bf16][1]:.3f} of {_limit_text(bf16)}); a CUDA query with host KV and a "
+          f"misaligned cache are refused", flush=True)
 
 
 def _refuse_host_kv():
@@ -1204,25 +1320,38 @@ def _sdpa_decode(q, k, v, lengths):
 
 def k3_time(q, k, v, lengths, what, card):
     """K3's time at this shape beside its bound, its plain version's and
-    SDPA's.  Returns (ms, plain_ms, bound_ms, bound_by, sdpa_ms)."""
+    SDPA's, at the wrapper's split count against one split in turns
+    (planned, 1, 1, planned).  Returns (ms, plain_ms, bound_ms, bound_by,
+    sdpa_ms, planned splits, one-split ms)."""
     from repro_torch.kernels import decode_attention as k3
     from repro_torch.kernels import ref
     by_bytes, by_ops = k3_bound(q, k, lengths)
     bound_ms = 1e3 * max(by_bytes, by_ops)
-    ms = time_ms(lambda: k3.decode_attention(q, k, v, lengths))
+    B, H, D = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    planned = k3.plan(q, KVH, S)
+    turns = [(n, time_ms(lambda: k3._launch(q, k, v, lengths, 0, 0.0, n)))
+             for n in (planned, 1, 1, planned)]
+    ms = float(np.mean([t for n, t in turns if n == planned]))
+    one_ms = float(np.mean([t for n, t in turns if n == 1]))
     plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, v, lengths),
                        reps=5)
     sdpa_ms = time_ms(_sdpa_decode(q, k, v, lengths))
-    B, H, D = q.shape
-    S, KVH = k.shape[1], k.shape[2]
     n = lengths.tolist()
-    print(f"k3 time ({what}): {ms:.4f} ms at B{B} S{S} H{H} KVH{KVH} D{D} "
-          f"{q.dtype}, lengths {min(n)}-{max(n)}; bound {bound_ms:.4f} ms "
-          f"(bytes {1e3 * by_bytes:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s, "
-          f"operations {1e3 * by_ops:.4f} ms); plain {plain_ms:.4f} ms; sdpa "
-          f"{sdpa_ms:.4f} ms [{card}]", flush=True)
+    print(f"k3 time ({what}): {ms:.4f} ms (mean of the two turns at "
+          f"{planned} splits) at B{B} S{S} H{H} KVH{KVH} D{D} {q.dtype}, "
+          f"lengths {min(n)}-{max(n)}; bound {bound_ms:.4f} ms (bytes "
+          f"{1e3 * by_bytes:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s, "
+          f"operations {1e3 * by_ops:.4f} ms), {100 * bound_ms / ms:.1f}% of "
+          f"it; plain {plain_ms:.4f} ms; sdpa {sdpa_ms:.4f} ms, "
+          f"{sdpa_ms / ms:.2f} of its time [{card}]", flush=True)
+    print(f"k3 splits ({what}, in turns): " + ", ".join(
+        f"{n}: {t:.4f} ms" for n, t in turns) + f" (the wrapper takes "
+        f"{planned} for {B} slots x {KVH} KV heads, S {S}, D {D}) [{card}]",
+        flush=True)
     return ms, plain_ms, bound_ms, \
-        "bytes" if by_bytes >= by_ops else "operations", sdpa_ms
+        "bytes" if by_bytes >= by_ops else "operations", sdpa_ms, planned, \
+        one_ms
 
 
 def k3_on_serving(b, card):
@@ -1408,6 +1537,8 @@ def k3_long_cache(card):
     lengths = [int(n) for n in np.random.default_rng(2).integers(
         1024, S + 1, B)]
     q, k, v, n = k3_case(K3_LONG, torch.bfloat16, seed=500, lengths=lengths)
+    if k3.plan(q, K3_LONG[3], S) <= 1:
+        raise AssertionError("k3: one split at the long cache")
     reset_counts()
     out = ops.decode_attention(q, k, v, n)
     torch.cuda.synchronize()
@@ -1421,19 +1552,26 @@ def k3_long_cache(card):
     print(f"k3 at zamba2-7b's decode shape {K3_LONG}: == plain, max_abs_err "
           f"{err:.3e} ({share:.3f} of {_limit_text(q.dtype)}); {launches} "
           f"launch", flush=True)
-    k3_time(q, k, v, n, "zamba2-7b long cache", card)
-    return launches
+    timed = k3_time(q, k, v, n, "zamba2-7b long cache", card)
+    return launches, timed
 
 
-def k3_record(serving, long_launches):
-    ms, plain_ms, bound_ms, bound_by, sdpa_ms = serving["timed"]
+def k3_record(serving, long_run):
+    """The kernels line's K3 entry: the serving KV's numbers, with the long
+    cache's beside them."""
+    long_launches, long_timed = long_run
+    ms, plain_ms, bound_ms, bound_by, sdpa_ms, splits, one_ms = \
+        serving["timed"]
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:85",
             "launches": serving["launches"] + long_launches,
             "max_abs_err": serving["err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": sdpa_ms}
+            "library_ms": sdpa_ms, "splits": splits, "one_split_ms": one_ms,
+            "long_cache": dict(zip(
+                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "splits", "one_split_ms"), long_timed))}
 
 
 def main() -> int:

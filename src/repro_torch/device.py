@@ -1,6 +1,8 @@
 """Device resolution for the port's entry points."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -19,3 +21,16 @@ def resolve(device=None) -> torch.device:
     if d.type == "cuda" and d.index is None:
         d = torch.device("cuda", torch.cuda.current_device())
     return d
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of CUDA card ``device`` (the current card
+    when it names no index), asked once per card: the kernel wrappers plan
+    their grids from it."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())

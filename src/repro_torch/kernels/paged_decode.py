@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -122,27 +123,25 @@ def plan_splits(B: int, groups: int, NP: int, n_sm: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _card(index: int) -> tuple:
-    """(SM count, opt-in shared memory bytes per CTA) of card ``index``,
-    asked once."""
-    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+def _smem_limit(index: int) -> int:
+    """Opt-in shared memory bytes per CTA of card ``index``, asked once."""
     limit = _I()
     with torch.cuda.device(index):
         rc = _lib().paged_decode_smem_limit(ctypes.byref(limit))
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention: shared memory limit "
                            f"query failed (CUDA error {rc})")
-    return n_sm, limit.value
+    return limit.value
 
 
 def plan(q: torch.Tensor, KVH: int, page: int, NP: int) -> tuple:
     """(splits, KV heads per CTA, tile) the wrapper launches with on q's
     card."""
     B, H, D = q.shape
-    n_sm, limit = _card(q.device.index if q.device.index is not None
+    limit = _smem_limit(q.device.index if q.device.index is not None
                         else torch.cuda.current_device())
     group, tile = plan_tiles(H, KVH, D, page, q.element_size(), limit)
-    return plan_splits(B, KVH // group, NP, n_sm), group, tile
+    return plan_splits(B, KVH // group, NP, sm_count(q.device)), group, tile
 
 
 def paged_decode_attention(q, k_hot, v_hot, k_cold, v_cold, page_table,

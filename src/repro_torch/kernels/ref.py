@@ -197,6 +197,68 @@ def paged_decode_split_ref(q, k_hot, v_hot, k_cold, v_cold, page_table,
     return out.to(q.dtype).reshape(B, H, D)
 
 
+def decode_attention_split_ref(q, k_cache, v_cache, lengths, *,
+                               n_split: int, window: int = 0,
+                               softcap_val: float = 0.0):
+    """The split-and-merge algorithm of the flash decode kernel
+    (csrc/decode_attention.cu) in plain torch: split s of ``n_split`` owns
+    keys [s per, s per + per), per = ceil(S / n_split), and its partial
+    (o, m, l) folds the keys of that range in the slot's visible range
+    [lo, hi) (lo = max(0, len - window) with a window, else 0; hi =
+    min(len, S)), p kept in f32.  A split whose range misses [lo, hi)
+    gives the empty partial, o = 0, m = NEG_INF, l = 0, which adds nothing
+    to the merge's sums.  A slot with no visible key
+    (R5) sums every split's range of v with weight p = 1/S rounded to v's
+    dtype, m = 0 and l = 1 on split 0 only, so the merge gives the oracle's
+    mean of v over all S rows.  The merge: m = max m_i, o = sum exp(m_i -
+    m) o_i / max(sum exp(m_i - m) l_i, 1e-30).  Equal to
+    ``decode_attention_ref`` to f32 rounding in f32."""
+    B, H, D = q.shape
+    S, KVH = k_cache.shape[1], k_cache.shape[2]
+    G = H // KVH
+    qg = q.reshape(B, KVH, G, D).float()
+    k, v = k_cache.float(), v_cache.float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k) * (D ** -0.5)
+    if softcap_val:
+        s = softcap_val * torch.tanh(s / softcap_val)
+    n = lengths.to(torch.int64)
+    hi = torch.clamp(n, max=S)
+    lo = torch.clamp(n - window, min=0) if window else torch.zeros_like(n)
+    uniform = hi <= lo                                       # (B,)
+    dev = q.device
+    p_u = torch.tensor(1.0 / S, device=dev).to(v_cache.dtype).float()
+    kpos = torch.arange(S, device=dev)
+    per = -(-S // n_split)
+    m_all = torch.full((B, KVH, G), NEG_INF, device=dev)
+    parts = []
+    for i in range(n_split):
+        a, e = i * per, min(S, i * per + per)
+        if a >= e:
+            continue
+        pos = kpos[None, a:e]
+        vis = (pos >= lo[:, None]) & (pos < hi[:, None])
+        sc = torch.where(vis[:, None, None], s[..., a:e], NEG_INF)
+        m = sc.amax(dim=-1)
+        p = torch.where(vis[:, None, None], torch.exp(sc - m[..., None]), 0.0)
+        l = p.sum(dim=-1)
+        o = torch.einsum("bkgs,bskd->bkgd", p, v[:, a:e])
+        o_u = (p_u * v[:, a:e].sum(dim=1))[:, :, None, :].expand_as(o)
+        u = uniform[:, None, None]
+        o = torch.where(u[..., None], o_u, o)
+        m = torch.where(u, 0.0, m)
+        l = torch.where(u, 1.0 if i == 0 else 0.0, l)
+        parts.append((o, m, l))      # no visible key: (0, NEG_INF, 0)
+        m_all = torch.maximum(m_all, m)
+    o_sum = torch.zeros(B, KVH, G, D, device=dev)
+    l_sum = torch.zeros(B, KVH, G, device=dev)
+    for o, m, l in parts:
+        w = torch.exp(m - m_all)
+        o_sum = o_sum + w[..., None] * o
+        l_sum = l_sum + w * l
+    out = o_sum / torch.clamp(l_sum, min=1e-30)[..., None]
+    return out.to(q.dtype).reshape(B, H, D)
+
+
 def pack_kv_pools(k_cache, v_cache, cold_tokens, page_tokens: int):
     """Pack dense caches (B, S, KVH, D) into the paged pool layout, as the
     reference's ``pack_kv_pools``: pages fully below slot b's
@@ -301,4 +363,104 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, *, chunk: int = 64, h0=None):
         h = h * torch.exp(tot)[:, :, None, None] + \
             torch.einsum("bthp,btn,bth->bhpn", xc[:, k], Bc[:, k], w)
     y = (y + torch.stack(y_inter, dim=1)).reshape(B, K * Q, H, P)[:, :S]
+    return y.to(x.dtype), h
+
+
+def round_operand(t, operands: str):
+    """An f32 operand of the SSD kernel's tensor-core products as the
+    kernel rounds it: "f32" as it is; "bf16x2" split into a bf16 high part
+    and a bf16 low part (t - high), their sum (each part multiplies the
+    bf16 operand exactly; the pair keeps about 2**-16 of t); "tf32" rounded
+    to 10 mantissa bits, to nearest."""
+    if operands == "f32":
+        return t
+    if operands == "bf16x2":
+        hi = t.to(torch.bfloat16).float()
+        return hi + (t - hi).to(torch.bfloat16).float()
+    if operands == "tf32":
+        i = t.float().contiguous().view(torch.int32)
+        return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+    raise ValueError(f"operands {operands!r} is not f32, bf16x2 or tf32")
+
+
+def _ssd_chunk(x, dt, A, Bm, Cm, h, operands, want_y):
+    """One chunk of the SSD kernel's scan, f32, its f32 operands rounded by
+    ``operands``: x (B,Q,H,P), dt (B,Q,H), Bm/Cm (B,Q,N), state h (B,H,P,N)
+    at the chunk's start.  Returns (y (B,Q,H,P) or None, h at its end, the
+    chunk's total log-decay (B,H))."""
+    l = torch.cumsum(dt * A, dim=1)                      # inclusive, (B,Q,H)
+    lT = l[:, -1]
+    y = None
+    if want_y:
+        Q = x.shape[1]
+        CB = torch.einsum("btn,bsn->bts", Cm, Bm)
+        mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+        diff = l[:, :, None, :] - l[:, None, :, :]        # (B,t,s,H)
+        decay = torch.exp(torch.where(mask[None, :, :, None], diff,
+                                      float("-inf")))
+        G = round_operand(CB[..., None] * decay * dt[:, None], operands)
+        y = torch.einsum("btsh,bshp->bthp", G, x) + torch.exp(l)[..., None] \
+            * torch.einsum("btn,bhpn->bthp", Cm, round_operand(h, operands))
+    w = torch.exp(lT[:, None, :] - l) * dt                # (B,Q,H)
+    wx = round_operand(w[..., None] * x, operands)
+    h = h * torch.exp(lT)[:, :, None, None] + \
+        torch.einsum("bshp,bsn->bhpn", wx, Bm)
+    return y, h, lT
+
+
+def ssd_split_ref(x, dt, A, Bm, Cm, *, segments: int, chunk: int = 64,
+                  h0=None, operands: str = "f32"):
+    """The segmented scan of the SSD tensor-core kernel (csrc/ssd.cu) in
+    plain torch.  The sequence is cut into ``chunk``-token chunks (a ragged
+    tail padded with dt = 0) and the chunks into segments of cps =
+    ceil(chunks / segments) chunks (so ceil(chunks / cps) segments):
+      1. each segment but the last runs the state update alone from a zero
+         state, giving its state dS_k and its total log-decay L_k;
+      2. h runs through those segments in order from h0 (or 0), h =
+         exp(L_k) h + dS_k, and a segment starts from the h the segments
+         before it give;
+      3. each segment runs the full chunked scan from its start state and
+         writes its y; the last one's end state is h.
+    ``operands`` rounds the f32 operands of the kernel's products (the
+    masked weights G, the decay-weighted x of the state update, and h in
+    C h^T) as ``round_operand`` does.  Same I/O as ``ssd_chunked_ref``,
+    and equal to it to f32 rounding with ``operands="f32"``."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    nc = (S + pad) // chunk
+    xc = x.reshape(B, nc, chunk, H, P).float()
+    dtc = dt.reshape(B, nc, chunk, H).float()
+    Bc = Bm.reshape(B, nc, chunk, N).float()
+    Cc = Cm.reshape(B, nc, chunk, N).float()
+    A = A.float()
+    cps = -(-nc // max(1, min(segments, nc)))
+    n_seg = -(-nc // cps)
+
+    def run(c0, c1, h, want_y):
+        ys, total = [], torch.zeros(B, H, device=x.device)
+        for c in range(c0, min(nc, c1)):
+            y, h, lT = _ssd_chunk(xc[:, c], dtc[:, c], A, Bc[:, c], Cc[:, c],
+                                  h, operands, want_y)
+            ys.append(y)
+            total = total + lT
+        return ys, h, total
+
+    zero = torch.zeros(B, H, P, N, dtype=torch.float32, device=x.device)
+    h = zero if h0 is None else h0.float()
+    starts = [h]
+    for k in range(n_seg - 1):                            # passes 1 and 2
+        _, dS, L = run(k * cps, k * cps + cps, zero, False)
+        h = torch.exp(L)[:, :, None, None] * h + dS
+        starts.append(h)
+    ys = []
+    for k in range(n_seg):                                # pass 3
+        y, h, _ = run(k * cps, k * cps + cps, starts[k], True)
+        ys += y
+    y = torch.stack(ys, dim=1).reshape(B, nc * chunk, H, P)[:, :S]
     return y.to(x.dtype), h
