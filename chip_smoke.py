@@ -28,6 +28,16 @@ Phases, each printing its own lines:
      plain version's and one PyTorch library call's, at the wrapper's split
      count and at one split in turns, decode tokens/s and a profile of a
      few decode steps (device-busy share, top device kernels);
+  3b. the rates behind H100_COST's measured constants (a device copy,
+     pinned host<->device copies, one page demotion), each printed beside
+     its constant; then Sentinel's loop at the same width, weights and
+     requests: profile the stream (serve_trace_for), plan at 20 % of its
+     peak KV on H100_COST and re-plan at 10 % (runtime.plan, plan_delta),
+     serve with the first plan and apply the PlanDelta a third of the way
+     in: tokens must equal an all-hot run's, the delta must demote pages on
+     the card, K1 must run once per decode step and layer, and the
+     engine's integer counters must equal predict_pool_counters'; decode
+     tokens/s and the pure-decode step time beside the plan's prediction;
   4. zamba2-7b: its reduced fp32 variant on the card against the CPU
      (logits and loss), then the full width in bf16 (random weights from
      seed 0, B 2 x S 4096): the loss and the forward (finite), K4's
@@ -319,10 +329,13 @@ def requests(vocab: int, seed: int = 0):
     return reqs
 
 
-def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device):
-    """Run one engine to completion.  Returns (sorted outputs, engine,
-    launches, decode steps that ran with cold pages mapped, wall seconds,
-    seconds of each pure decode step)."""
+def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device,
+          schedule=()):
+    """Run one engine to completion.  ``schedule`` lists ``(step, plan or
+    PlanDelta)`` re-plans, each applied before the engine step of that
+    index.  Returns (sorted outputs, engine, launches, decode steps that ran
+    with cold pages mapped, wall seconds, seconds of each pure decode step,
+    bytes each re-plan moved)."""
     import torch
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.serve.engine import ContinuousBatcher
@@ -330,12 +343,15 @@ def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device):
                           device=device)
     for toks, key in reqs:
         b.submit(torch.as_tensor(toks), decode, prefix_key=key)
-    results, cold_steps, step_s = [], 0, []
+    results, cold_steps, step_s, moved = [], 0, [], []
+    pending = sorted(schedule, key=lambda e: e[0])
     if device == "cuda":
         torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     while b.queue or b._jobs or any(b.active):
+        while pending and pending[0][0] <= len(b.step_migration_bytes):
+            moved.append(b.apply_plan(pending.pop(0)[1]))
         cold_mapped = any(b.ptable.tier[s][i] == 1 for s in range(b.B)
                           if b.active[s]
                           for i in range(b.ptable.n_pages[s]))
@@ -353,7 +369,7 @@ def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device):
                 b.outputs[i] = []
     wall = time.perf_counter() - t0
     launches = pd.paged_decode_attention.launches
-    return sorted(results), b, launches, cold_steps, wall, step_s
+    return sorted(results), b, launches, cold_steps, wall, step_s, moved
 
 
 def check_serving():
@@ -362,19 +378,19 @@ def check_serving():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
-    from repro_torch.serve.plan import ServingPlan
+    from repro_torch.runtime.plan import PlacementPlan
     cfg = get_config("smollm-360m")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0)
     reqs = requests(cfg.vocab_size)
     windows = [128 + 16 * s for s in range(SLOTS)]          # 128..240 tokens
-    tiered = ServingPlan(hot_window=192, slot_hot_windows=windows,
-                         page_tokens=PAGE, prefill_chunk_tokens=256)
+    tiered = PlacementPlan(hot_window=192, slot_hot_windows=windows,
+                           page_tokens=PAGE, prefill_chunk_tokens=256)
     all_hot = dataclasses.replace(tiered, hot_window=MAX_SEQ,
                                   slot_hot_windows=[MAX_SEQ] * SLOTS)
     runs = {}
     for name, plan in (("tiered", tiered), ("all_hot", all_hot)):
-        out, b, launches, cold_steps, wall, step_s = serve(
+        out, b, launches, cold_steps, wall, step_s, _ = serve(
             params, cfg, plan, reqs, max_seq=MAX_SEQ, slots=SLOTS,
             decode=DECODE, device="cuda")
         cnt = b.counters()
@@ -413,7 +429,7 @@ def check_small_against_cpu():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
-    from repro_torch.serve.plan import ServingPlan
+    from repro_torch.runtime.plan import PlacementPlan
     cfg = get_config("smollm-360m").reduced()
     params_cpu = init_params(cfg, seed=0, device="cpu")
     params_gpu = copy.deepcopy(params_cpu).to("cuda")
@@ -422,8 +438,8 @@ def check_small_against_cpu():
     reqs = [(np.concatenate([sys_p, rng.integers(0, cfg.vocab_size, 3 + i)]),
              "sys") for i in range(3)] + \
         [(rng.integers(0, cfg.vocab_size, 21), None)]
-    plan = ServingPlan(hot_window=8, slot_hot_windows=[4, 8], page_tokens=4,
-                       prefill_chunk_tokens=8)
+    plan = PlacementPlan(hot_window=8, slot_hot_windows=[4, 8],
+                         page_tokens=4, prefill_chunk_tokens=8)
     got = {}
     for dev, p in (("cuda", params_gpu), ("cpu", params_cpu)):
         got[dev] = serve(p, cfg, plan, reqs, max_seq=48, slots=2, decode=10,
@@ -437,6 +453,114 @@ def check_small_against_cpu():
                              "with cold pages mapped")
     print("small check: reduced fp32 engine tokens on the card == on the CPU "
           "plain path", flush=True)
+
+
+def check_planned_serving(params, cfg, reqs, card):
+    """Phase 3b, Sentinel's loop on the card: profile the request stream
+    (serve_trace_for), plan at 20 % of its peak KV on H100_COST, re-plan at
+    10 % and diff the two into a PlanDelta, serve with the first plan and
+    apply the delta a third of the way in, against an all-hot run.  Fails
+    unless the tokens equal the all-hot run's, the delta demoted pages on
+    the card, K1 ran once per decode step and layer, and the engine's
+    integer counters equal predict_pool_counters' replay."""
+    import torch
+    from repro_torch import runtime
+    from repro_torch.models import kvcache, model
+    from repro_torch.runtime import H100_COST, PlacementPlan, plan_delta
+    from repro_torch.serve.engine import (predict_pool_counters,
+                                          serve_trace_for)
+    t0 = time.perf_counter()
+    trace = serve_trace_for(cfg, [(len(t), DECODE, k) for t, k in reqs],
+                            slots=SLOTS, block_tokens=PAGE, layer_group=8,
+                            shared_prefix_tokens=256, params=params)
+    peak = trace.peak_kv_bytes()
+    print(f"planned serve profile: {len(trace.objects)} KV objects over "
+          f"{trace.num_steps} trace steps, peak KV {peak:.0f} B, "
+          f"{time.perf_counter() - t0:.3f} s on the host", flush=True)
+    plans, pred_decode = {}, {}
+    for name, frac in (("plan_a", 0.2), ("plan_b", 0.1)):
+        t1 = time.perf_counter()
+        p = runtime.plan(trace, H100_COST, frac * peak, objective="latency",
+                         prefill_chunk_tokens=256)
+        host_s = time.perf_counter() - t1
+        plans[name] = p
+        pred_decode[name] = float(np.mean(
+            [t for i, t in enumerate(p.predicted_step_times)
+             if not trace.prefill_tokens.get(i)]))
+        print(f"planned serve {name}: {frac:.0%} of peak KV on "
+              f"{H100_COST.name}, policy {p.policy}, page {p.page_tokens}, "
+              f"hot window {p.hot_window}, slot windows "
+              f"{p.slot_hot_windows}, lookahead {p.lookahead}; predicted "
+              f"{1e3 * p.predicted_time:.4f} ms over "
+              f"{len(p.predicted_step_times)} steps, pure-decode step "
+              f"{1e3 * pred_decode[name]:.4f} ms, "
+              f"{p.predicted_decode_throughput:.1f} tokens/s; planner "
+              f"{host_s:.3f} s on the host", flush=True)
+    plan_a = plans["plan_a"]
+    row_bytes = kvcache.kv_token_bytes(
+        cfg, torch.finfo(model.param_dtype(cfg)).bits // 8) * cfg.num_layers
+    preq = [(tuple(int(x) for x in t), DECODE, None, k) for t, k in reqs]
+    common = dict(slots=SLOTS, max_seq=MAX_SEQ, page_tokens=PAGE,
+                  row_bytes=row_bytes, prefill_chunk_tokens=256)
+    steps = len(predict_pool_counters(preq, plan_a, **common)
+                ["step_migration_bytes"])
+    at = steps // 3
+    delta = plan_delta(plan_a, plans["plan_b"], step=at,
+                       reason="smoke:shrink")
+    if delta is None or "slot_hot_windows" not in delta.changes:
+        raise AssertionError(f"the 10 % re-plan leaves the windows as they "
+                             f"are: {delta}")
+    schedule = [(at, delta)]
+    pred = predict_pool_counters(preq, plan_a, plan_schedule=schedule,
+                                 **common)
+    out, b, launches, cold_steps, wall, step_s, moved = serve(
+        params, cfg, plan_a, reqs, max_seq=MAX_SEQ, slots=SLOTS,
+        decode=DECODE, device="cuda", schedule=schedule)
+    all_hot = PlacementPlan(hot_window=MAX_SEQ,
+                            slot_hot_windows=[MAX_SEQ] * SLOTS,
+                            page_tokens=PAGE, prefill_chunk_tokens=256)
+    out_h = serve(params, cfg, all_hot, reqs, max_seq=MAX_SEQ, slots=SLOTS,
+                  decode=DECODE, device="cuda")[0]
+    cnt = b.counters()
+    print(f"planned serve: {len(out)} requests, {cnt['decode_steps']} "
+          f"decode steps of {steps} engine steps, delta at step {at} "
+          f"({sorted(delta.changes)}) moved {moved} B, page_copies "
+          f"{cnt['page_copies']}, {cold_steps} decode steps with cold pages "
+          f"mapped, {launches} K1 launches", flush=True)
+    if out != out_h:
+        raise AssertionError("planned serve: tiered tokens differ from the "
+                             "all-hot run")
+    if len(moved) != 1 or moved[0] <= 0 or cnt["page_copies"] <= 0 or \
+            cold_steps <= 0:
+        raise AssertionError(f"planned serve: the delta did not demote "
+                             f"pages on the card ({moved}, {cnt})")
+    if launches != cnt["decode_steps"] * cfg.num_layers:
+        raise AssertionError(f"planned serve: {launches} K1 launches for "
+                             f"{cnt['decode_steps']} decode steps x "
+                             f"{cfg.num_layers} layers")
+    got = {k: cnt[k] for k in ("sim_migration_bytes", "step_migration_bytes",
+                               "page_copies", "admit_page_writes",
+                               "tenant_hot_peak")}
+    want = {"sim_migration_bytes": pred["migration_bytes"],
+            "step_migration_bytes": pred["step_migration_bytes"],
+            "page_copies": pred["page_copies"],
+            "admit_page_writes": pred["admit_page_writes"],
+            "tenant_hot_peak": pred["tenant_hot_peak"]}
+    if got != want:
+        raise AssertionError(f"planned serve: engine counters {got} != "
+                             f"predict_pool_counters {want}")
+    decode_tokens = sum(len(o) - 1 for o in out)
+    print(f"planned serve check: tiered tokens == all-hot tokens; the delta "
+          f"demoted {moved[0]} B; launches == decode steps x "
+          f"{cfg.num_layers}; counters == predict_pool_counters", flush=True)
+    print(f"planned serve time: {decode_tokens / wall:.1f} decode tokens/s "
+          f"over the whole run ({wall:.3f} s, prefill included); mean pure "
+          f"decode step {1e3 * float(np.mean(step_s)):.3f} ms over "
+          f"{len(step_s)} steps, against H100_COST's predicted pure-decode "
+          f"step {1e3 * pred_decode['plan_a']:.4f} ms "
+          f"({plan_a.predicted_decode_throughput:.1f} tokens/s) [{card}]",
+          flush=True)
+    print(f"phase 3b took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------- timing ----
@@ -472,6 +596,72 @@ def h2d_bytes_per_s(nbytes=256 << 20):
     ms = time_ms(lambda: dst.copy_(src, non_blocking=True), reps=5,
                  flush_bytes=1)
     return nbytes / (ms * 1e-3)
+
+
+def d2h_bytes_per_s(nbytes=256 << 20):
+    """Device -> pinned host copy rate: the direction a demotion moves."""
+    import torch
+    src = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    ms = time_ms(lambda: dst.copy_(src, non_blocking=True), reps=5,
+                 flush_bytes=1)
+    return nbytes / (ms * 1e-3)
+
+
+def device_copy_bytes_per_s(nbytes=1 << 30):
+    """Device memory rate of a device-to-device copy: each byte is read
+    once and written once, so 2 x nbytes cross the memory over the time."""
+    import torch
+    src = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    ms = time_ms(lambda: dst.copy_(src), reps=5, flush_bytes=1)
+    return 2 * nbytes / (ms * 1e-3)
+
+
+def demotion_seconds(cfg, rounds=5, n=48):
+    """Host seconds of one ``PagedKVPools.demote_boundary`` at smollm-360m's
+    width: one 16-token page of every layer's K and V copied device ->
+    pinned host, enqueued back to back as the engine does, median over
+    ``rounds`` of ``n`` demotions after 8 warm-up ones.  Returns (seconds,
+    bytes) of one demotion."""
+    import torch
+    from repro_torch.models import kvcache, model
+    dt = model.param_dtype(cfg)
+    runs = []
+    for _ in range(rounds):
+        pools = kvcache.PagedKVPools(cfg, 1, MAX_SEQ, PAGE, dt, "cuda")
+        for _ in range(pools.num_pages):
+            pools.table.alloc(0, 0)
+        for _ in range(8):
+            pools.demote_boundary(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            pools.demote_boundary(0)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) / n)
+    page_bytes = PAGE * kvcache.kv_token_bytes(
+        cfg, torch.finfo(dt).bits // 8) * cfg.num_layers
+    return float(np.median(runs)), page_bytes
+
+
+def measure_machine(cfg, card):
+    """The rates behind H100_COST's measured constants, each printed beside
+    the constant (for reading: nothing here gates the run)."""
+    from repro_torch.runtime import H100_COST
+    copy_bw = device_copy_bytes_per_s()
+    h2d, d2h = h2d_bytes_per_s(), d2h_bytes_per_s()
+    demote_s, page_bytes = demotion_seconds(cfg)
+    overhead = demote_s - page_bytes / d2h
+    print(f"machine: device-to-device copy {copy_bw / 1e9:.1f} GB/s "
+          f"(fast_read_bw/fast_write_bw {H100_COST.fast_read_bw / 1e9:.1f}); "
+          f"pinned H2D {h2d / 1e9:.2f} GB/s (slow_read_bw "
+          f"{H100_COST.slow_read_bw / 1e9:.2f}, mig_read_bw "
+          f"{H100_COST.mig_read_bw / 1e9:.2f}); D2H {d2h / 1e9:.2f} GB/s "
+          f"(mig_write_bw {H100_COST.mig_write_bw / 1e9:.2f}); one demotion "
+          f"of {page_bytes:.0f} B {1e6 * demote_s:.2f} us, less its bytes "
+          f"at D2H: {1e6 * overhead:.2f} us (mig_overhead "
+          f"{1e6 * H100_COST.mig_overhead:.2f} us) [{card}]", flush=True)
 
 
 def device_profile(run, steps):
@@ -1603,7 +1793,10 @@ def main() -> int:
     k1 = k1_record(full, err, launches, card)
     engine = profile_decode(*served, card)
     k3_serving = k3_on_serving(engine, card)
-    del served, engine
+    del engine
+    measure_machine(served[1], card)
+    check_planned_serving(served[0], served[1], served[3], card)
+    del served
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     check_zamba_small()

@@ -13,7 +13,9 @@ the paged decode kernel; each slot's cold boundary advances one page at a
 time as its hot window slides, under the plan's per-slot windows.
 
 ``sim_migration_bytes`` counts every byte moved device->host, and
-``counters()`` exports the same integer books the reference engine keeps.
+``counters()`` exports the same integer books the reference engine keeps;
+``predict_pool_counters`` replays them from the plan alone, and
+``serve_trace_for`` profiles a request stream for ``runtime.plan``.
 The dense and concat layouts and the paged-merged layout are not ported yet
 (ROADMAP, modules to port: item 7).
 """
@@ -21,11 +23,12 @@ from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 
 from repro_torch.configs.base import ATTN, LOCAL
+from repro_torch.core import hmsim
 from repro_torch.device import resolve
 from repro_torch.models import kvcache, model
 
@@ -50,7 +53,7 @@ class ContinuousBatcher:
     """Slot-based continuous batching over a fixed B-slot decode batch: all
     slots decode in lockstep against per-slot lengths, and finished or
     empty slots are refilled from per-tenant request queues.  ``plan`` (a
-    serve/plan.ServingPlan) sets the page size, every slot's hot window,
+    ``runtime.PlacementPlan``) sets the page size, every slot's hot window,
     the per-step prefill budget and the slots' tenants."""
 
     def __init__(self, params, cfg, batch_slots: int, max_seq: int, plan,
@@ -372,15 +375,16 @@ class ContinuousBatcher:
         return True
 
     def apply_plan(self, new_plan):
-        """Adopt a whole re-plan between decode steps: re-target every
-        active slot's cold boundary under the new windows (page-grain
-        demotions; grown windows promote nothing) and re-partition slot
-        tenancy.  Returns the migration bytes moved, attributed to the next
-        step's ``step_migration_bytes`` entry."""
-        if hasattr(new_plan, "changes"):
-            raise NotImplementedError(
-                "incremental PlanDeltas are not ported yet (ROADMAP, modules "
-                "to port: item 6); pass a whole plan")
+        """Adopt a re-plan (a whole ``PlacementPlan`` or an incremental
+        ``runtime.PlanDelta`` against the current plan) between decode
+        steps: re-target every active slot's cold boundary under the new
+        windows (page-grain demotions; grown windows promote nothing) and
+        re-partition slot tenancy.  Returns the migration bytes moved,
+        attributed to the next step's ``step_migration_bytes`` entry,
+        exactly as ``predict_pool_counters(..., plan_schedule=...)``
+        replays it."""
+        if hasattr(new_plan, "changes"):       # a PlanDelta, not a plan
+            new_plan = self.plan.apply_delta(new_plan)
         page = max(1, new_plan.page_tokens)
         if self.max_seq % page:
             page = next(p for p in range(page, 0, -1)
@@ -436,3 +440,405 @@ class ContinuousBatcher:
                     results.append(self.outputs[i])
                     self.outputs[i] = []
         return results
+
+
+def predict_pool_counters(requests: Sequence[tuple], plan, *, slots: int,
+                          max_seq: int, page_tokens: int, row_bytes: float,
+                          slot_tenants=None,
+                          plan_schedule: Sequence[tuple] = (),
+                          prefill_chunk_tokens: int = 0,
+                          dense_admit: bool = False,
+                          slot_devices=None) -> dict:
+    """Pure-Python replay of the pools-layout batcher's bookkeeping: given
+    the request stream ``[(prompt, decode_tokens[, tenant[, prefix_key]]),
+    ...]`` and a plan, predict ``sim_migration_bytes`` (total and the
+    per-decode-step ``step_migration_bytes`` series a CostModel prices),
+    the pool's ``page_copies`` / ``admit_page_writes`` counters, and the
+    per-tenant hot-pool byte peaks
+    — *exactly* (integer-for-integer) what a ``ContinuousBatcher`` will
+    report on the same deterministic stream.  This is the engine/simulator
+    agreement contract: the simulator predicts, the engine counts, the two
+    never drift (``tests/test_torch_online.py`` pins it on this engine).
+
+    ``prompt`` is either the prompt token *count* or the prompt token
+    *sequence*; requests carrying a ``prefix_key`` must pass the sequence —
+    the replay mirrors the engine's donor registry (LCP against the last
+    prompt registered under the key, full pages mapped onto the donor's
+    physical pages, refcounted, cold twins deduping shared demotions), so
+    ``admit_page_writes`` / ``xdev_migration_bytes`` count only the private
+    tail and stay integer-exact for shared-prefix admits.  ``dense_admit``
+    replays the one-shot dense admission path (the reference's
+    disaggregated engine's ``_admit_pool``, ROADMAP item 8), whose
+    shared-page cap differs from the pool-direct prefill scheduler's by the
+    final-row carve-out.
+
+    ``slot_devices`` (defaulting to the plan's) splits the replay across
+    decode shards: sharing is intra-shard only, ``device_hot_peak`` tracks
+    each shard's distinct-hot-page byte peak, and ``edge_migration_bytes``
+    ledgers every ``(src, dst)`` device edge — prefill->shard admit streams
+    and shard->shard slot re-homings (a ``plan_schedule`` entry whose plan
+    moves an active slot's owner) — integer-exactly as the reference
+    disaggregated engine's ``MeshPageTable`` counts them.
+
+    The replay mirrors the engine's event order: per step, binding of queued
+    requests to free slots (FIFO within each tenant), the prefill drain
+    (page-aligned chunks in slot order, at most ``prefill_chunk_tokens``
+    prompt tokens per step — 0 replays the legacy one-shot admission),
+    write-page growth for every active slot, then per-slot cold-boundary
+    demotions toward the plan's target; peaks are sampled after each
+    admission finalize and after each step's demotions, the same points the
+    engine samples.  Steps in which only prefill ran (budget exhausted
+    before any slot went active) still append a ``step_migration_bytes``
+    entry, exactly as ``ContinuousBatcher.step()`` does.
+
+    ``plan_schedule`` makes the replay *segment-aware* for online
+    re-planning: ``[(step, new_plan_or_delta), ...]`` means "the engine
+    called ``apply_plan`` before decode step ``step``".  The replay switches
+    plans at exactly that point — re-targeting active slots' cold boundaries
+    and re-partitioning slot tenancy — and, like the engine's marker-based
+    accounting, attributes the re-layout bytes to that step's
+    ``step_migration_bytes`` entry, so the two stay integer-identical
+    across a re-plan boundary (sum of the series == the total on both
+    sides)."""
+    pg = page_tokens
+    if slot_tenants is None and plan is not None:
+        slot_tenants = getattr(plan, "slot_tenants", None)
+    if slot_tenants and len(slot_tenants) != slots:
+        raise ValueError(f"slot_tenants has {len(slot_tenants)} entries for "
+                         f"{slots} slots (plan/batch geometry mismatch)")
+    if slot_devices is None and plan is not None:
+        slot_devices = getattr(plan, "slot_devices", None)
+    if slot_devices:
+        slot_devices = list(slot_devices)
+        if len(slot_devices) != slots:
+            raise ValueError(f"slot_devices has {len(slot_devices)} entries "
+                             f"for {slots} slots")
+
+    def parse(r):
+        p = r[0]
+        if isinstance(p, (list, tuple)):
+            toks = tuple(int(t) for t in p)
+            plen = len(toks)
+        else:
+            plen, toks = int(p), None
+        pk = r[3] if len(r) > 3 else None
+        if pk is not None and toks is None:
+            raise ValueError("a prefix_key needs the prompt's token values "
+                             "(pass the token sequence, not its length): "
+                             "the replay LCPs them against the donor")
+        return (plen, int(r[1]), r[2] if len(r) > 2 else None, toks, pk)
+
+    queue = [parse(r) for r in requests]
+    active = [False] * slots
+    host_len = [0] * slots
+    budget = [0] * slots
+    # physical-page model, mirroring PageTable: per-slot phys ids + tiers
+    # (cold-prefix), refcounts, and the cold-twin memo that dedupes shared
+    # demotions — without prefix sharing it degenerates to the old counters
+    ptab: list = [[] for _ in range(slots)]
+    ptier: list = [[] for _ in range(slots)]
+    hot_ref: dict = {}
+    cold_ref: dict = {}
+    cold_twin: dict = {}                   # hot phys -> its live cold twin
+    twin_of: dict = {}
+    donors: dict = {}                      # prefix_key -> (slot, tokens)
+    next_phys = [0]
+    mig = 0.0
+    copies = admit_writes = 0
+    peaks: dict = {}
+    dev_peaks: dict = {}
+    edge_bytes: dict = {}
+    step_mig: list = []
+
+    def slot_tn(s):
+        return slot_tenants[s] if slot_tenants else None
+
+    def dev(s):
+        return slot_devices[s] if slot_devices else 0
+
+    def dev_name(d):
+        return f"dev{d}" if slot_devices else "decode"
+
+    def fresh():
+        next_phys[0] += 1
+        return next_phys[0]
+
+    def release(tier, phys):
+        refs = cold_ref if tier else hot_ref
+        refs[phys] -= 1
+        if refs[phys] == 0:                # PageTable._release: memo death
+            if tier == 0:
+                twin = cold_twin.pop(phys, None)
+                if twin is not None:
+                    twin_of.pop(twin, None)
+            else:
+                src = twin_of.pop(phys, None)
+                if src is not None:
+                    cold_twin.pop(src, None)
+
+    def free_slot(s):
+        for t, p in zip(ptier[s], ptab[s]):
+            release(t, p)
+        ptab[s], ptier[s] = [], []
+
+    def alloc(s):
+        p = fresh()
+        hot_ref[p] = 1
+        ptab[s].append(p)
+        ptier[s].append(0)
+
+    def share(s, donor_slot, n):
+        for i in range(n):
+            p, t = ptab[donor_slot][i], ptier[donor_slot][i]
+            (cold_ref if t else hot_ref)[p] += 1
+            ptab[s].append(p)
+            ptier[s].append(t)
+
+    def cold_pages(s):
+        c = 0
+        for t in ptier[s]:
+            if t != 1:
+                break
+            c += 1
+        return c
+
+    def note():
+        per_t: dict = {}
+        per_d: dict = {}
+        for s in range(slots):
+            hot = {p for p, t in zip(ptab[s], ptier[s]) if t == 0}
+            per_d.setdefault(dev(s), set()).update(hot)
+            tn = slot_tn(s)
+            if tn is not None:
+                per_t.setdefault(tn, set()).update(hot)
+        for tn, pages in per_t.items():
+            v = len(pages) * pg * row_bytes
+            if v > peaks.get(tn, 0):
+                peaks[tn] = v
+        for d, pages in per_d.items():
+            v = len(pages) * pg * row_bytes
+            if v > dev_peaks.get(dev_name(d), 0):
+                dev_peaks[dev_name(d)] = v
+
+    def demote_one(s):
+        # PageTable.demote: first sharer copies and memoizes a cold twin,
+        # later sharers reuse it — shared bytes migrate exactly once
+        nonlocal mig, copies
+        idx = cold_pages(s)
+        src = ptab[s][idx]
+        twin = cold_twin.get(src)
+        if twin is not None and cold_ref.get(twin, 0) > 0:
+            cold_ref[twin] += 1
+            cold_phys, copied = twin, False
+        else:
+            cold_phys = fresh()
+            cold_ref[cold_phys] = 1
+            copied = True
+            if hot_ref[src] > 1:           # others still share: memoize
+                cold_twin[src] = cold_phys
+                twin_of[cold_phys] = src
+        release(0, src)
+        ptab[s][idx] = cold_phys
+        ptier[s][idx] = 1
+        if copied:
+            mig += pg * row_bytes
+            copies += 1
+
+    def demote_to(s, target):
+        while cold_pages(s) * pg < target:
+            demote_one(s)
+
+    def start_slot(s, prompt_len, toks, pk):
+        # _start_job / _admit_pool head: stale donor registrations for the
+        # slot die with its pages, then prefix-share against the donor —
+        # intra-shard only (MeshPageTable refuses cross-device aliasing)
+        for key in [k for k, (ds, _) in donors.items() if ds == s]:
+            del donors[key]
+        free_slot(s)
+        shared = 0
+        if pk is not None:
+            donor = donors.get(pk)
+            if donor is not None and donor[0] != s and ptab[donor[0]] \
+                    and dev(donor[0]) == dev(s):
+                lcp = 0
+                for a, b in zip(toks, donor[1]):
+                    if a != b:
+                        break
+                    lcp += 1
+                cap = lcp // pg
+                if not dense_admit:        # the suffix pass computes >= 1 row
+                    cap = min(cap, (prompt_len - 1) // pg)
+                shared = min(cap, len(ptab[donor[0]]))
+                if shared:
+                    share(s, donor[0], shared)
+            donors[pk] = (s, toks)
+        return shared
+
+    schedule = sorted(((int(t), p) for t, p in plan_schedule),
+                      key=lambda e: e[0])
+    # slot -> [done, prompt, decode, started, tokens, prefix_key]
+    jobs: dict = {}
+    while queue or jobs or any(active):
+        mig0 = mig
+        while schedule and schedule[0][0] <= len(step_mig):
+            _, nxt = schedule.pop(0)       # ContinuousBatcher.apply_plan
+            if hasattr(nxt, "changes"):    # a PlanDelta, not a plan
+                nxt = plan.apply_delta(nxt)
+            plan = nxt
+            tenants = getattr(plan, "slot_tenants", None)
+            if tenants:
+                if len(tenants) != slots:
+                    raise ValueError(
+                        f"slot_tenants has {len(tenants)} entries for "
+                        f"{slots} slots (plan/batch geometry mismatch)")
+                slot_tenants = list(tenants)
+            for s in range(slots):
+                if active[s]:
+                    demote_to(s, plan.cold_len_slot(s, host_len[s], pg))
+            new_sd = getattr(plan, "slot_devices", None)
+            if new_sd and slot_devices and list(new_sd) != slot_devices:
+                # slot re-homing: the demoted-first hot tail crosses the
+                # shard<->shard edge (MeshPageTable.migrate_slot; cold pages
+                # move host-internally and never touch a device edge)
+                if len(new_sd) != slots:
+                    raise ValueError(
+                        f"slot_devices has {len(new_sd)} entries for "
+                        f"{slots} slots")
+                for s in range(slots):
+                    if new_sd[s] == slot_devices[s]:
+                        continue
+                    if active[s]:
+                        hot = sum(1 for t in ptier[s] if t == 0)
+                        key = (dev_name(slot_devices[s]),
+                               dev_name(new_sd[s]))
+                        edge_bytes[key] = edge_bytes.get(key, 0.0) \
+                            + hot * pg * row_bytes
+                        # migrate_slot lands *exclusive* pages on the
+                        # destination and releases the source refs (any
+                        # remaining sharers keep the source pages, twin
+                        # memos die with the refs)
+                        moved = []
+                        for t_, p in zip(ptier[s], ptab[s]):
+                            release(t_, p)
+                            p2 = fresh()
+                            (cold_ref if t_ else hot_ref)[p2] = 1
+                            moved.append(p2)
+                        ptab[s] = moved
+                    elif s not in jobs and ptab[s]:
+                        # a finished slot's stale pages are dropped on
+                        # ownership change, not copied across the edge
+                        free_slot(s)
+                slot_devices = list(new_sd)
+            note()
+        for s in range(slots):             # ContinuousBatcher._admit: bind
+            if active[s] or s in jobs or not queue:
+                continue
+            tn_s = slot_tn(s)
+            qi = next((i for i, q in enumerate(queue)
+                       if tn_s is None or q[2] is None or q[2] == tn_s),
+                      None)
+            if qi is None:
+                continue
+            p, d, _, toks, pk = queue.pop(qi)
+            jobs[s] = [0, p, d, False, toks, pk]   # queued -> prefilling(0)
+        spent = 0                          # _drain_prefill: slot order,
+        stop = False                       # page-aligned chunks, one budget
+        for s in sorted(jobs):
+            if stop:
+                break
+            job = jobs[s]
+            while s in jobs:
+                if prefill_chunk_tokens and spent >= prefill_chunk_tokens:
+                    stop = True            # resume next step, all slots
+                    break
+                if not job[3]:             # _start_job: free + prefix share
+                    job[0] = start_slot(s, job[1], job[4], job[5]) * pg
+                    job[3] = True
+                done, p = job[0], job[1]
+                pages_left = -(-(p - done) // pg)
+                take = pages_left if not prefill_chunk_tokens else \
+                    min(pages_left,
+                        max(1, (prefill_chunk_tokens - spent) // pg))
+                end = min(p, done + take * pg)
+                spent += end - done
+                new = -(-end // pg) - len(ptab[s])
+                if new:
+                    admit_writes += new
+                    key = ("prefill", dev_name(dev(s)))
+                    edge_bytes[key] = edge_bytes.get(key, 0.0) \
+                        + new * pg * row_bytes
+                    for _ in range(new):
+                        alloc(s)
+                job[0] = end
+                if end >= p:               # _finish_job -> active
+                    del jobs[s]
+                    demote_to(s, plan.cold_len_slot(s, p, pg))
+                    host_len[s], active[s], budget[s] = p, True, job[2] - 1
+                    note()
+        if not any(active):
+            if jobs:
+                step_mig.append(mig - mig0)  # prefill-only step
+                continue
+            break
+        for s in range(slots):             # pool.ensure_write_page
+            if active[s] and len(ptab[s]) * pg < host_len[s] + 1:
+                alloc(s)
+        for s in range(slots):             # post-forward boundary advance
+            if active[s]:
+                demote_to(s, plan.cold_len_slot(s, host_len[s] + 1, pg))
+        note()
+        for s in range(slots):
+            if active[s]:
+                host_len[s] += 1
+                budget[s] -= 1
+                if budget[s] <= 0:
+                    active[s] = False
+        step_mig.append(mig - mig0)        # one engine decode step's delta
+    # xdev_migration_bytes: the planner's predicted device<->device edge
+    # traffic under prefill/decode disaggregation — every *private* admitted
+    # page is prefilled on the prefill group and crosses the edge exactly
+    # once; shared-prefix pages stay put on the decode side and never cross
+    # (the reference's serve/disagg.py MeshPageTable ledger matches it
+    # integer-exactly)
+    return {"migration_bytes": mig, "page_copies": copies,
+            "admit_page_writes": admit_writes, "tenant_hot_peak": peaks,
+            "step_migration_bytes": step_mig,
+            "device_hot_peak": dev_peaks,
+            "edge_migration_bytes": edge_bytes,
+            "xdev_migration_bytes": admit_writes * pg * row_bytes}
+
+
+def serve_trace_for(cfg, requests: Sequence[tuple], *, slots: int,
+                    params=None, block_tokens: int = 16,
+                    recent_window: int = 32, history_period: int = 4,
+                    dtype_bytes: int = 2, layer_group: int = 1,
+                    shared_prefix_tokens: int = 0):
+    """Build the serving-phase trace (hmsim.ServeTrace) for this model and
+    request stream — the profiling step of the decode-phase planner.  KV
+    bytes/token come from the cache geometry; weight bytes and flops/token
+    from the parameter count (2N MACs/token) when ``params`` is given, else
+    from the config's dense-layer dimensions.  ``layer_group`` coarsens the
+    object granularity to one KV block per *group* of layers (same total
+    bytes, fewer objects) — the simulator cost scales with object count while
+    the byte geometry is what decides placement quality.
+
+    Requests may be ``(prompt, decode)`` or ``(prompt, decode, prefix_id)``;
+    with ``shared_prefix_tokens > 0``, requests carrying the same prefix_id
+    share the KV blocks of their first ``shared_prefix_tokens`` prompt
+    tokens (tagged via ``KVObject.shared_key`` — the trace-level mirror of
+    the engine's physical page sharing)."""
+    kv_tok = kvcache.kv_token_bytes(cfg, dtype_bytes)
+    layers = max(1, -(-cfg.num_layers // max(1, layer_group)))
+    if params is not None:
+        n_params = sum(p.numel() for p in params.parameters())
+    else:
+        n_params = (12 * cfg.num_layers * cfg.d_model ** 2
+                    + cfg.vocab_size * cfg.d_model)
+    return hmsim.build_serve_trace(
+        requests, num_slots=slots, num_layers=layers,
+        kv_token_bytes=kv_tok * cfg.num_layers / layers,
+        block_tokens=block_tokens,
+        recent_window=recent_window, history_period=history_period,
+        flops_per_token=2.0 * n_params,
+        weight_bytes=float(n_params) * dtype_bytes,
+        shared_prefix_tokens=shared_prefix_tokens)

@@ -32,7 +32,7 @@ from repro.serve import engine as ref_engine
 from repro_torch.configs import get_config
 from repro_torch.models import model
 from repro_torch.serve.engine import ContinuousBatcher
-from repro_torch.serve.plan import ServingPlan
+from repro_torch.runtime.plan import PlacementPlan
 from repro_torch.weights import params_from_jax
 
 MAX_SEQ, SLOTS, PAGE = 32, 2, 4
@@ -141,7 +141,7 @@ def runs(setup):
                                      page_tokens=PAGE,
                                      prefill_chunk_tokens=case["chunk"],
                                      slot_tenants=case.get("tenants"))
-        plan_t = ServingPlan.from_dict(plan_j.to_dict())
+        plan_t = PlacementPlan.from_dict(plan_j.to_dict())
         all_hot = dataclasses.replace(plan_t,
                                       slot_hot_windows=[MAX_SEQ] * SLOTS)
         log_j, log_t = [], []

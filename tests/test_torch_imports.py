@@ -7,7 +7,6 @@ import os
 import pkgutil
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import pytest
@@ -17,7 +16,7 @@ import repro_torch
 from repro_torch.configs import get_config
 from repro_torch.models import model
 from repro_torch.serve.engine import ContinuousBatcher
-from repro_torch.serve.plan import ServingPlan
+from repro_torch.runtime.plan import PlacementPlan, PlanDelta
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -35,6 +34,11 @@ def test_port_modules_import_no_jax_and_no_reference():
             "repro_torch.configs.zamba2_7b",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.decode_attention"} <= set(mods)
+    assert {f"repro_torch.runtime.{m}" for m in (
+        "objects", "costmodel", "tiergraph", "policies", "plan", "online",
+        "synthetic")} <= set(mods)
+    assert {f"repro_torch.core.{m}" for m in (
+        "hardware", "profiler", "allocator", "hmsim")} <= set(mods)
     # importing builds and loads no kernel: nvcc runs at a kernel's first
     # call only (this machine may have none)
     code = ("import importlib, json, sys\n"
@@ -68,7 +72,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init_params(cfg)
     params = model.init_params(cfg, device="cpu")
-    plan = ServingPlan(hot_window=16, page_tokens=4)
+    plan = PlacementPlan(hot_window=16, page_tokens=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ContinuousBatcher(params, cfg, 2, 32, plan=plan)
     ContinuousBatcher(params, cfg, 2, 32, plan=plan, device="cpu")
@@ -79,8 +83,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_unported_layouts_raise():
-    """The pools are the one cache layout ported: a dense per-slot cache and
-    an incremental re-plan raise, naming the ROADMAP item that ports them."""
+    """The pools are the one cache layout ported: a dense per-slot cache
+    raises, naming the ROADMAP item that ports it.  An incremental re-plan
+    is ported and applies only against the plan it was diffed from."""
     cfg = get_config("smollm-360m").reduced()
     params = model.init_params(cfg, device="cpu")
     dense = {"k": torch.zeros(1, 8, cfg.num_kv_heads, cfg.head_dim),
@@ -90,10 +95,20 @@ def test_unported_layouts_raise():
                       caches=[dense] * cfg.num_layers,
                       cache_index=torch.zeros(1, dtype=torch.int32),
                       decode=True)
-    b = ContinuousBatcher(params, cfg, 2, 32, plan=ServingPlan(page_tokens=4),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.apply_plan(types.SimpleNamespace(changes={}, page_tokens=4))
+    b = ContinuousBatcher(params, cfg, 2, 32,
+                          plan=PlacementPlan(page_tokens=4), device="cpu")
+    with pytest.raises(ValueError, match="emission order"):
+        b.apply_plan(PlanDelta(base_digest="0" * 16, changes={}))
+
+
+def test_port_names_no_tpu_machine():
+    """The port's machine is the H100: no source file of the package names
+    the reference's TPU constants or machine."""
+    hits = [str(p.relative_to(ROOT)) for p in
+            (ROOT / "src" / "repro_torch").rglob("*")
+            if p.is_file() and p.suffix in (".py", ".cu", ".h", ".cuh")
+            and any(w in p.read_text() for w in ("TPU_V5E", "tpu-v5e"))]
+    assert hits == []
 
 
 def test_cached_hybrid_path_raises():
@@ -102,8 +117,8 @@ def test_cached_hybrid_path_raises():
     cfg = get_config("zamba2-7b").reduced()
     params = model.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(params, cfg, 2, 32, plan=ServingPlan(page_tokens=4),
-                          device="cpu")
+        ContinuousBatcher(params, cfg, 2, 32,
+                          plan=PlacementPlan(page_tokens=4), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.forward(params, cfg, {"tokens": torch.zeros(1, 1, dtype=int)},
                       caches=[{}] * cfg.num_layers,
