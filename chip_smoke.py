@@ -11,15 +11,18 @@ Phases, each printing its own lines:
   2. every kernel against its plain PyTorch version on the card:
      - K1 (paged decode) over the reference's shape sweep, window/softcap
        cases, split counts given through the C argument (ranges wholly
-       before a window among them) and the full-width shape with and
-       without a window, with hot pages on the card, cold pages in pinned
-       host memory and unmapped (FREE) table entries;
+       before a window among them), the full-width shape with and
+       without a window and zamba2-7b's shared-block shape (B 8, H = KVH =
+       32, D 112, 2048-token slots), with hot pages on the card, cold pages
+       in pinned host memory and unmapped (FREE) table entries;
      - K4 (Mamba2 SSD scan) over the reference's SSD sweep, a start state,
        S < chunk, a bf16 P of 12 and the full-width zamba2-7b layer (S 4096,
        H 112, P = N = 64), in f32 and bf16, each on the kernel the wrapper
        picks (bf16 with P, N multiples of 8: the tensor-core kernel; else
        the SIMT kernel), then the tensor-core kernel at given segment
-       counts, with h0 and a ragged last chunk;
+       counts, with h0 and a ragged last chunk; then K4 through ops.ssd at
+       zamba2's layer on prompt lengths of 700 and 1300 (not whole
+       256-token chunks: ops.ssd pads them) from a random start state;
   3. serving smollm-360m at full width (bf16, random weights from seed 0)
      through the paged-pool ContinuousBatcher: tiered hot windows against
      an all-hot run (tokens must be identical), K1's launch count against
@@ -28,6 +31,15 @@ Phases, each printing its own lines:
      plain version's and one PyTorch library call's, at the wrapper's split
      count and at one split in turns, decode tokens/s and a profile of a
      few decode steps (device-busy share, top device kernels);
+  3c. the other three engine layouts on phase 3's requests, weights and
+     width: all-HBM, concat (a global 256-token hot window) and
+     paged-merged (phase 3's per-slot windows): identical tokens, and the
+     per-slot boundaries move fewer bytes than the global one; the pools
+     run's tokens against all-HBM's are counted, not gated.  Then
+     _paged_decode_core (K1 over a dense cache split at per-slot
+     boundaries) for one decode step over the all-HBM run's cache against
+     the dense step, and generate (8 prompts of 256 tokens, 32 greedy
+     tokens, twice);
   3b. the rates behind H100_COST's measured constants (a device copy,
      pinned host<->device copies, one page demotion), each printed beside
      its constant; then Sentinel's loop at the same width, weights and
@@ -39,7 +51,8 @@ Phases, each printing its own lines:
      engine's integer counters must equal predict_pool_counters'; decode
      tokens/s and the pure-decode step time beside the plan's prediction;
   4. zamba2-7b: its reduced fp32 variant on the card against the CPU
-     (logits and loss), then the full width in bf16 (random weights from
+     (logits and loss, and the tokens of a small pools-layout serving run),
+     then the full width in bf16 (random weights from
      seed 0, B 2 x S 4096): the loss and the forward (finite), K4's
      launches against 65 MAMBA layers x forwards, the first Mamba layer's
      K4 output (on the tensor-core kernel) against the plain version on the
@@ -48,6 +61,14 @@ Phases, each printing its own lines:
      bounds (bytes or tensor-core operations; f32 CUDA-core operations) and
      its plain version's, against the SIMT kernel in turns and at other
      segment counts;
+  4b. zamba2-7b serving at full width with the same weights on the pools
+     layout (8 slots of 2048 tokens, page 16, hand hot windows of 256-480
+     tokens), 12 requests of 200-1500 prompt tokens, four sharing a
+     256-token prefix, 32 decode tokens each: tokens == an all-hot run's,
+     K4 launches == admissions x 65 (each admission's dense prefill), K1
+     launches == decode steps x 16 (the shared block's uses), counters ==
+     predict_pool_counters(dense_admit=True); prefill ms per admission,
+     decode tokens/s, the pure-decode step, peak memory and a profile;
   5. the attention entry points ops.flash_attention (K2) and
      ops.decode_attention (K3), which no model path of the reference calls:
      - both kernels against their plain versions over the reference's
@@ -82,6 +103,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -109,6 +131,10 @@ FULL_WIDTH = (SLOTS, MAX_SEQ, 15, 5, 64, PAGE)   # B, S, H, KVH, D, page
 # heads), gemma3-12b (8 KV heads of D 256), and D 256 at 64-token pages
 K1_WIDE = [(2, 128, 8, 1, 256, 16), (2, 64, 24, 24, 64, 16),
            (2, 64, 16, 8, 256, 16), (2, 256, 8, 1, 256, 64)]
+# K1 at zamba2-7b's shared block on the serving path: 32 query heads, one
+# per KV head, of D 112, over the engine's 2048-token slots
+ZAMBA_MAX_SEQ = 2048
+K1_ZAMBA = (SLOTS, ZAMBA_MAX_SEQ, 32, 32, 112, PAGE)
 KERNELS = ("paged_decode", "ssd", "decode_attention",
            "flash_attention")                     # csrc/<name>.cu
 
@@ -165,7 +191,7 @@ def k1_case(shape, dtype, seed, *, lengths=None, free_row=False):
     table entries past each slot's length FREE (-1), and optionally a last
     slot that is wholly unmapped, as an inactive engine slot is."""
     import torch
-    from repro_torch.kernels.ref import pack_kv_pools
+    from repro_torch.kernels.paged_decode import pack_kv_pools
     B, S, H, KVH, D, page = shape
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(B, H, D, generator=g).to(dtype)
@@ -197,7 +223,8 @@ def k1_args(c, cold_on_device=False):
 
 def check_kernels():
     """Phase 2: the kernel against its plain version on the card.  Returns
-    the full-width bf16 case and its max abs error."""
+    the full-width bf16 case and its max abs error, and the same at
+    zamba2-7b's shared-block shape."""
     import torch
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import ref
@@ -259,6 +286,25 @@ def check_kernels():
                 full[dt] = (c, err)
             else:
                 worst[dt] = max(worst[dt], err)
+    # zamba2-7b's shared-block shape, lengths of the serving prompts
+    zl = [int(n) for n in np.random.default_rng(4).integers(
+        200, 1533, SLOTS)]
+    zamba = {}
+    for dt in (torch.float32, torch.bfloat16):
+        c = k1_case(K1_ZAMBA, dt, seed=98, lengths=zl)
+        out = pd.paged_decode_attention(*k1_args(c))
+        want = ref.paged_decode_attention_ref(*k1_args(c, True))
+        torch.cuda.synchronize()
+        zamba[dt] = (c, _attn_close(out, want, f"k1 zamba2 shape {K1_ZAMBA} "
+                                              f"{dt}")[0])
+    z_plan = pd.plan(zamba[torch.bfloat16][0]["q"], K1_ZAMBA[3], PAGE,
+                     ZAMBA_MAX_SEQ // PAGE)
+    print(f"k1 zamba2 shape {K1_ZAMBA} (lengths {min(zl)}-{max(zl)}, cold "
+          f"pages pinned): == plain, max_abs_err f32 "
+          f"{zamba[torch.float32][1]:.3e} within "
+          f"{_tol_text(torch.float32)}, bf16 {zamba[torch.bfloat16][1]:.3e} "
+          f"within {_tol_text(torch.bfloat16)}; (splits, KV heads a CTA, "
+          f"tile) {z_plan}", flush=True)
     B, S, _, KVH = FULL_WIDTH[:4]
     full_plan = pd.plan(full[torch.bfloat16][0]["q"], KVH, PAGE, S // PAGE)
     wide = "; ".join(f"{s} {str(dt)[6:]}: {g} KV heads a CTA, tile {t}"
@@ -272,7 +318,7 @@ def check_kernels():
           f"{_tol_text(torch.float32)}; bf16 {worst[torch.bfloat16]:.3e} "
           f"(sweep) {full[torch.bfloat16][1]:.3e} (full width) within "
           f"{_tol_text(torch.bfloat16)}", flush=True)
-    return full[torch.bfloat16]
+    return full[torch.bfloat16], zamba[torch.bfloat16]
 
 
 def _tol(dtype):
@@ -330,17 +376,24 @@ def requests(vocab: int, seed: int = 0):
 
 
 def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device,
-          schedule=()):
-    """Run one engine to completion.  ``schedule`` lists ``(step, plan or
-    PlanDelta)`` re-plans, each applied before the engine step of that
-    index.  Returns (sorted outputs, engine, launches, decode steps that ran
-    with cold pages mapped, wall seconds, seconds of each pure decode step,
-    bytes each re-plan moved)."""
+          schedule=(), paged=True, on_engine=None):
+    """Run one engine to completion (the pools layout where ``cfg`` has
+    ``use_paged_decode`` and ``paged``; see serve/engine.py for the other
+    layouts).  ``schedule`` lists ``(step, plan or PlanDelta)`` re-plans,
+    each applied before the engine step of that index; ``on_engine(b)``
+    runs on the new engine before its first step.  Returns a dict: sorted
+    outputs ``out``, the engine ``b``, the K1 and K4 launches ``k1`` and
+    ``k4`` of the run, ``cold_steps`` (decode steps that ran with cold pages
+    mapped), ``wall`` seconds, ``step_s`` (seconds of each pure decode
+    step) and ``moved`` (bytes each re-plan moved)."""
     import torch
     from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ssd as k4
     from repro_torch.serve.engine import ContinuousBatcher
     b = ContinuousBatcher(params, cfg, slots, max_seq, plan=plan,
-                          device=device)
+                          paged=paged, device=device)
+    if on_engine is not None:
+        on_engine(b)
     for toks, key in reqs:
         b.submit(torch.as_tensor(toks), decode, prefix_key=key)
     results, cold_steps, step_s, moved = [], 0, [], []
@@ -352,9 +405,9 @@ def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device,
     while b.queue or b._jobs or any(b.active):
         while pending and pending[0][0] <= len(b.step_migration_bytes):
             moved.append(b.apply_plan(pending.pop(0)[1]))
-        cold_mapped = any(b.ptable.tier[s][i] == 1 for s in range(b.B)
-                          if b.active[s]
-                          for i in range(b.ptable.n_pages[s]))
+        cold_mapped = b.pool is not None and any(
+            b.ptable.tier[s][i] == 1 for s in range(b.B) if b.active[s]
+            for i in range(b.ptable.n_pages[s]))
         d0, ts = b.decode_steps, time.perf_counter()
         if not b.step():
             break
@@ -368,18 +421,20 @@ def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device,
                 results.append(tuple(b.outputs[i]))
                 b.outputs[i] = []
     wall = time.perf_counter() - t0
-    launches = pd.paged_decode_attention.launches
-    return sorted(results), b, launches, cold_steps, wall, step_s, moved
+    return {"out": sorted(results), "b": b,
+            "k1": pd.paged_decode_attention.launches, "k4": k4.ssd.launches,
+            "cold_steps": cold_steps, "wall": wall, "step_s": step_s,
+            "moved": moved}
 
 
 def check_serving():
     """Phase 3.  Returns the tiered run's numbers and what phase 4 needs to
     profile it."""
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     from repro_torch.runtime.plan import PlacementPlan
-    cfg = get_config("smollm-360m")
+    cfg = dataclasses.replace(get_config("smollm-360m"),
+                              use_paged_decode=True)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0)
     reqs = requests(cfg.vocab_size)
@@ -390,10 +445,11 @@ def check_serving():
                                   slot_hot_windows=[MAX_SEQ] * SLOTS)
     runs = {}
     for name, plan in (("tiered", tiered), ("all_hot", all_hot)):
-        out, b, launches, cold_steps, wall, step_s, _ = serve(
-            params, cfg, plan, reqs, max_seq=MAX_SEQ, slots=SLOTS,
-            decode=DECODE, device="cuda")
-        cnt = b.counters()
+        run = serve(params, cfg, plan, reqs, max_seq=MAX_SEQ, slots=SLOTS,
+                    decode=DECODE, device="cuda")
+        out, launches, cold_steps = run["out"], run["k1"], run["cold_steps"]
+        wall, step_s = run["wall"], run["step_s"]
+        cnt = run["b"].counters()
         if launches != cnt["decode_steps"] * cfg.num_layers:
             raise AssertionError(f"{name}: {launches} kernel launches for "
                                  f"{cnt['decode_steps']} decode steps x "
@@ -423,14 +479,175 @@ def check_serving():
     return runs["tiered"], (params, cfg, tiered, reqs)
 
 
+def check_layouts(params, cfg, tiered, reqs, pools_out, card):
+    """Phase 3c: phase 3's requests on the other three engine layouts at
+    the same width and weights: all-HBM (no plan), concat (one global hot
+    window of 256 tokens) and paged-merged (phase 3's per-slot windows,
+    paged=True without use_paged_decode).  All three run the plain
+    _gqa_core over the same values, so their tokens must be identical, and
+    the per-slot boundaries must move fewer bytes than the global one.
+    The pools run (K1 against the f32-score _gqa_core in bf16) is compared
+    token by token and not gated.  Then _paged_decode_core over the
+    all-HBM run's dense cache, and generate.  Returns K1's launches in the
+    _paged_decode_core step."""
+    from repro_torch.runtime.plan import PlacementPlan
+    t0 = time.perf_counter()
+    dense = dataclasses.replace(cfg, use_paged_decode=False)
+    layouts = {"all-HBM": (None, False),
+               "concat": (PlacementPlan(hot_window=256, page_tokens=PAGE),
+                          False),
+               "paged-merged": (dataclasses.replace(
+                   tiered, prefill_chunk_tokens=0), True)}
+    runs = {}
+    for name, (plan, paged) in layouts.items():
+        run = runs[name] = serve(params, dense, plan, reqs, max_seq=MAX_SEQ,
+                                 slots=SLOTS, decode=DECODE, device="cuda",
+                                 paged=paged)
+        decode_tokens = sum(len(o) - 1 for o in run["out"])
+        print(f"layout {name}: {len(run['out'])} requests, "
+              f"{run['b'].decode_steps} decode steps, sim_migration_bytes "
+              f"{run['b'].sim_migration_bytes:.0f}, {run['k1']} K1 launches; "
+              f"{decode_tokens / run['wall']:.1f} decode tokens/s over the "
+              f"run ({run['wall']:.3f} s), mean pure decode step "
+              f"{1e3 * float(np.mean(run['step_s'])):.3f} ms [{card}]",
+              flush=True)
+    base = runs["all-HBM"]["out"]
+    if not base == runs["concat"]["out"] == runs["paged-merged"]["out"]:
+        raise AssertionError("layouts: all-HBM, concat and paged-merged "
+                             "tokens differ")
+    if len(base) != len(reqs) or any(r["k1"] for r in runs.values()):
+        raise AssertionError("layouts: malformed outputs or a K1 launch on "
+                             "a dense layout")
+    paged_b = runs["paged-merged"]["b"].sim_migration_bytes
+    concat_b = runs["concat"]["b"].sim_migration_bytes
+    if not 0 < paged_b < concat_b:
+        raise AssertionError(f"layouts: paged-merged moved {paged_b} B, "
+                             f"concat {concat_b} B")
+    same = sum(a == b for o, p in zip(base, pools_out) for a, b in zip(o, p))
+    total = sum(len(o) for o in base)
+    print(f"layouts check: all-HBM == concat == paged-merged tokens; "
+          f"paged-merged moved {paged_b:.0f} B < concat's {concat_b:.0f} B "
+          f"({paged_b / concat_b:.3f} of it); pools (K1) against all-HBM "
+          f"(_gqa_core): {same} of {total} tokens agree (sorted outputs), "
+          f"{sum(o == p for o, p in zip(base, pools_out))} of {len(base)} "
+          f"requests whole (not gated)", flush=True)
+    core_launches = check_paged_decode_core(params, dense,
+                                            runs["all-HBM"]["b"])
+    del runs
+    check_generate(params, dense)
+    print(f"phase 3c took {time.perf_counter() - t0:.1f} s", flush=True)
+    return core_launches
+
+
+def check_paged_decode_core(params, cfg, b):
+    """_paged_decode_core at full width: one decode step over the all-HBM
+    run's dense cache (every slot at its final, stale length) with
+    per-slot boundaries at half of each length, so cold pages exist.  The
+    first layer's attention through K1 on the pool layout is held to the
+    dense _gqa_core on the same q and cache at K1's bf16 limit plus the
+    p rounding the plain version does (2**-8 p.|v|); the step's logits
+    against the dense step's are printed, and every slot's argmax must
+    agree where the dense top-1/top-2 margin exceeds twice the largest
+    logit difference.  K1 runs once per layer."""
+    import torch
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.models import model
+    from repro_torch.models.attention import (_gqa_core, _paged_decode_core,
+                                              attn_bias)
+    from repro_torch.models.layers import embed, rmsnorm
+    pcfg = dataclasses.replace(cfg, use_paged_decode=True)
+    lengths = b.lengths.clone()
+    n = lengths.tolist()
+    view = {"boundaries": [(x // 2) // PAGE * PAGE for x in n],
+            "page_tokens": PAGE}
+    tok = b.last_tok[:, None].clone()
+    dense, _ = model.decode_step(params, cfg, tok, b.caches, lengths)
+    reset_counts()
+    paged = model.forward(params, pcfg, {"tokens": tok}, caches=b.caches,
+                          cache_index=lengths, decode=True,
+                          paged_view=view)[:, -1]
+    torch.cuda.synchronize()
+    launches = pd.paged_decode_attention.launches
+    if launches != cfg.num_layers:
+        raise AssertionError(f"_paged_decode_core: {launches} K1 launches "
+                             f"for {cfg.num_layers} layers")
+    # the first layer on identical inputs: its q, and the cache the step
+    # just wrote
+    B, KV, hd = b.B, cfg.num_kv_heads, cfg.head_dim
+    G = cfg.num_heads // KV
+    layer = params.layers[0]
+    h = rmsnorm(embed(params.table, tok), layer.ln1, cfg.norm_eps)
+    pos = lengths[:, None]
+    q = layer.attn.qkv(cfg, h, pos)[0].reshape(B, 1, KV, G, hd)
+    k_all, v_all = b.caches[0]["k"], b.caches[0]["v"]
+    S = k_all.shape[1]
+    k4d, v4d = k_all.view(B, S, KV, hd), v_all.view(B, S, KV, hd)
+    want = _gqa_core(q, k4d, v4d, attn_bias(pos, torch.arange(
+        S, device="cuda")), cfg.attn_softcap).reshape(B, KV * G, hd)
+    got = _paged_decode_core(pcfg, q, k_all, v_all, lengths, view,
+                             0).reshape(B, KV * G, hd)
+    err, share = _attn_close(got, want, "_paged_decode_core layer 0",
+                             p_abs_v=_p_abs_v_k3(q.reshape(B, KV * G, hd),
+                                                 k4d, v4d, lengths + 1))
+    diff = (paged.float() - dense.float()).abs()
+    top2 = dense[:, :cfg.vocab_size].float().topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    agree = paged[:, :cfg.vocab_size].argmax(-1) == \
+        dense[:, :cfg.vocab_size].argmax(-1)
+    if not bool((agree | (margin <= 2 * diff.max())).all()):
+        raise AssertionError(f"_paged_decode_core: argmax differs where the "
+                             f"margin {margin.tolist()} exceeds twice the "
+                             f"logit difference {float(diff.max()):.3e}")
+    tol = _tol(torch.bfloat16)
+    within = bool((diff <= tol["atol"] + tol["rtol"]
+                   * dense.float().abs()).all())
+    print(f"paged decode core check: {B} slots, lengths {min(n)}-{max(n)}, "
+          f"boundaries {view['boundaries']}; layer 0 through K1 == dense "
+          f"_gqa_core, max_abs_err {err:.3e} ({share:.3f} of "
+          f"{_limit_text(torch.bfloat16)}); logits max_abs_err "
+          f"{float(diff.max()):.3e} ({'within' if within else 'outside'} "
+          f"K1's {_tol_text(torch.bfloat16)}), argmax agrees in "
+          f"{int(agree.sum())} of {B} slots (top-1/top-2 margins "
+          f"{min(margin.tolist()):.3e}-{max(margin.tolist()):.3e}); "
+          f"{launches} K1 launches", flush=True)
+    return launches
+
+
+def check_generate(params, cfg, n=8, prompt=256, tokens=32):
+    """generate on ``n`` prompts of ``prompt`` random tokens, ``tokens``
+    each, greedy: the same tokens in two calls, and the first token is the
+    prefill's argmax."""
+    import torch
+    from repro_torch.serve.engine import generate, make_prefill
+    g = torch.Generator(device="cuda").manual_seed(9)
+    prompts = {"tokens": torch.randint(0, cfg.vocab_size, (n, prompt),
+                                       generator=g, device="cuda")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = generate(params, cfg, prompts, tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b = generate(params, cfg, prompts, tokens)
+    last, _ = make_prefill(cfg)(params, prompts)
+    first = last[:, :cfg.vocab_size].argmax(-1)
+    if tuple(a.shape) != (n, tokens) or not torch.equal(a, b) or \
+            not torch.equal(a[:, 0], first):
+        raise AssertionError("generate: not deterministic, or its first "
+                             "token is not the prefill's argmax")
+    print(f"generate check: {n} prompts of {prompt} tokens, {tokens} greedy "
+          f"tokens each, identical in two calls, first token == prefill "
+          f"argmax; {n * tokens / wall:.1f} tokens/s (prefill included, "
+          f"{wall:.3f} s)", flush=True)
+
+
 def check_small_against_cpu():
     """The reduced fp32 model served on the card (kernel) and on the CPU
     (plain path) from the same parameters: identical tokens."""
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     from repro_torch.runtime.plan import PlacementPlan
-    cfg = get_config("smollm-360m").reduced()
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              use_paged_decode=True)
     params_cpu = init_params(cfg, seed=0, device="cpu")
     params_gpu = copy.deepcopy(params_cpu).to("cuda")
     rng = np.random.default_rng(3)
@@ -444,11 +661,11 @@ def check_small_against_cpu():
     for dev, p in (("cuda", params_gpu), ("cpu", params_cpu)):
         got[dev] = serve(p, cfg, plan, reqs, max_seq=48, slots=2, decode=10,
                          device=dev)
-    if got["cuda"][0] != got["cpu"][0]:
+    if got["cuda"]["out"] != got["cpu"]["out"]:
         raise AssertionError("reduced fp32 model: card tokens differ from "
                              "the CPU's plain path")
-    if got["cuda"][2] != got["cuda"][1].decode_steps * cfg.num_layers or \
-            got["cuda"][3] == 0:
+    if got["cuda"]["k1"] != got["cuda"]["b"].decode_steps * cfg.num_layers \
+            or got["cuda"]["cold_steps"] == 0:
         raise AssertionError("reduced run did not go through the kernel "
                              "with cold pages mapped")
     print("small check: reduced fp32 engine tokens on the card == on the CPU "
@@ -513,14 +730,16 @@ def check_planned_serving(params, cfg, reqs, card):
     schedule = [(at, delta)]
     pred = predict_pool_counters(preq, plan_a, plan_schedule=schedule,
                                  **common)
-    out, b, launches, cold_steps, wall, step_s, moved = serve(
-        params, cfg, plan_a, reqs, max_seq=MAX_SEQ, slots=SLOTS,
-        decode=DECODE, device="cuda", schedule=schedule)
+    run = serve(params, cfg, plan_a, reqs, max_seq=MAX_SEQ, slots=SLOTS,
+                decode=DECODE, device="cuda", schedule=schedule)
+    out, b, launches, cold_steps = run["out"], run["b"], run["k1"], \
+        run["cold_steps"]
+    wall, step_s, moved = run["wall"], run["step_s"], run["moved"]
     all_hot = PlacementPlan(hot_window=MAX_SEQ,
                             slot_hot_windows=[MAX_SEQ] * SLOTS,
                             page_tokens=PAGE, prefill_chunk_tokens=256)
     out_h = serve(params, cfg, all_hot, reqs, max_seq=MAX_SEQ, slots=SLOTS,
-                  decode=DECODE, device="cuda")[0]
+                  decode=DECODE, device="cuda")["out"]
     cnt = b.counters()
     print(f"planned serve: {len(out)} requests, {cnt['decode_steps']} "
           f"decode steps of {steps} engine steps, delta at step {at} "
@@ -701,15 +920,16 @@ def print_profile(what, wall_us, rows, steps, card, unit="step", top=6):
     return busy
 
 
-def profile_decode(params, cfg, plan, reqs, card, steps=8):
+def profile_decode(params, cfg, plan, reqs, card, steps=8, *,
+                   max_seq=MAX_SEQ, what="decode"):
     """Where a decode step's time goes: torch.profiler over ``steps`` pure
-    decode steps of the tiered engine once all slots decode.  Prints the
-    device-busy share (device time summed over all device kernels / wall
-    time, profiler on) and the kernels that take the most device time.
+    decode steps of the tiered pools engine once all slots decode.  Prints
+    the device-busy share (device time summed over all device kernels /
+    wall time, profiler on) and the kernels that take the most device time.
     Returns the engine, its slots decoding, for the K3 phase."""
     import torch
     from repro_torch.serve.engine import ContinuousBatcher
-    b = ContinuousBatcher(params, cfg, SLOTS, MAX_SEQ, plan=plan)
+    b = ContinuousBatcher(params, cfg, SLOTS, max_seq, plan=plan, paged=True)
     for toks, key in reqs[:SLOTS]:
         b.submit(torch.as_tensor(toks), DECODE, prefix_key=key)
     for _ in range(100):
@@ -719,17 +939,20 @@ def profile_decode(params, cfg, plan, reqs, card, steps=8):
     else:
         raise AssertionError("profile window: the slots never all decoded")
     wall_us, rows = device_profile(b.step, steps)
-    print_profile("decode", wall_us, rows, steps, card)
+    print_profile(what, wall_us, rows, steps, card)
     return b
 
 
-def k1_record(full, err, launches, card):
-    """Phase 4 for the paged decode kernel at the full-width shape."""
+def k1_time(c, what, card):
+    """K1's time on case ``c`` beside its bound, its plain version's and
+    one SDPA call's, at the wrapper's split count against one split in
+    turns (planned, 1, 1, planned).  Returns the kernels line's numbers."""
+    import torch
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import ref
-    B, S, H, KVH, D, page = full["shape"]
-    lengths = full["lengths"].tolist()
-    esize = full["q"].element_size()
+    B, S, H, KVH, D, page = c["shape"]
+    lengths = c["lengths"].tolist()
+    esize = c["q"].element_size()
     page_bytes = page * KVH * D * 2 * esize          # K and V, all heads
     # distinct physical pages this run's lengths make the kernel read, by
     # the pool it reads them from (tier 0 hot; cold and FREE entries, clipped
@@ -737,8 +960,8 @@ def k1_record(full, err, launches, card):
     # function must move once.  The unmapped slot visits clipped cold page 0
     # for every page of its length; that page counts once.  The arithmetic
     # counts every visit.
-    table, tier = full["page_table"].cpu(), full["page_tier"].cpu()
-    n_pool = {True: full["k_hot"].shape[0], False: full["k_cold"].shape[0]}
+    table, tier = c["page_table"].cpu(), c["page_tier"].cpu()
+    n_pool = {True: c["k_hot"].shape[0], False: c["k_cold"].shape[0]}
     read = set()
     for b, n in enumerate(lengths):
         for i in range(-(-n // page)):
@@ -748,47 +971,54 @@ def k1_record(full, err, launches, card):
     cold_pages = len(read) - hot_pages
     tokens = sum(-(-n // page) for n in lengths) * page
     # q in, out back, and the int32 table, tier and lengths
-    io_bytes = 2 * full["q"].numel() * esize + (2 * B * (S // page) + B) * 4
+    io_bytes = 2 * c["q"].numel() * esize + (2 * B * (S // page) + B) * 4
     h2d = h2d_bytes_per_s()
     bytes_s = max((hot_pages * page_bytes + io_bytes) / HBM_BYTES_PER_S,
                   cold_pages * page_bytes / h2d)
     ops_s = 4.0 * H * D * tokens / FP32_FLOP_PER_S
     bound_ms = 1e3 * max(bytes_s, ops_s)
-    # the wrapper's split count against one split (the C argument), in
-    # turns: planned, 1, 1, planned
-    import torch
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    planned, group, tile = pd.plan(full["q"], KVH, page, S // page)
-    args = k1_args(full)
+    planned, group, tile = pd.plan(c["q"], KVH, page, S // page)
+    args = k1_args(c)
     turns = [(n, time_ms(lambda: pd._launch(*args, 0, 0.0, n, group,
                                             tile)))
              for n in (planned, 1, 1, planned)]
     ms = float(np.mean([t for n, t in turns if n == planned]))
-    dev_args = k1_args(full, True)
+    dev_args = k1_args(c, True)
     plain_ms = time_ms(lambda: ref.paged_decode_attention_ref(*dev_args),
                        reps=5)
     # yardstick only: one SDPA call over the same KV gathered densely
-    library_ms = time_ms(_sdpa_decode(full["q"], *full["dense"],
-                                      full["lengths"]))
-    print(f"k1 time: {ms:.4f} ms (mean of the two turns at {planned} "
-          f"splits) at B{B} H{H} KVH{KVH} D{D} page{page} bf16 "
-          f"({hot_pages} hot + {cold_pages} cold distinct pages of "
-          f"{page_bytes} B, {tokens // page} page visits); "
+    library_ms = time_ms(_sdpa_decode(c["q"], *c["dense"], c["lengths"]))
+    print(f"k1 time ({what}): {ms:.4f} ms (mean of the two turns at "
+          f"{planned} splits) at B{B} H{H} KVH{KVH} D{D} page{page} "
+          f"{c['q'].dtype} ({hot_pages} hot + {cold_pages} cold distinct "
+          f"pages of {page_bytes} B, {tokens // page} page visits); "
           f"bound {bound_ms:.4f} ms (hot at {HBM_BYTES_PER_S / 1e12} TB/s, "
-          f"cold at measured pinned H2D {h2d / 1e9:.2f} GB/s); plain "
-          f"{plain_ms:.4f} ms; sdpa {library_ms:.4f} ms [{card}]", flush=True)
-    print(f"k1 splits (in turns): " + ", ".join(
+          f"cold at measured pinned H2D {h2d / 1e9:.2f} GB/s), "
+          f"{100 * bound_ms / ms:.1f}% of it; plain {plain_ms:.4f} ms; sdpa "
+          f"{library_ms:.4f} ms [{card}]", flush=True)
+    print(f"k1 splits ({what}, in turns): " + ", ".join(
         f"{n}: {t:.4f} ms" for n, t in turns) + f" (the wrapper takes "
         f"{planned}: {B} slots, {KVH // group} KV head group(s) of {group}, "
         f"{S // page} pages, {n_sm} SMs; tile {tile}) [{card}]",
         flush=True)
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
-            "replaces": "src/repro/kernels/paged_decode.py:119",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "splits": planned}
+
+
+def k1_record(full, err, launches, zamba, card):
+    """The kernels line's K1 entry: the smollm serving shape's numbers
+    (phase 3's launches), with zamba2-7b's shared-block shape beside them
+    and the launches of every path that ran it."""
+    rec = {"name": "paged_decode_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+           "replaces": "src/repro/kernels/paged_decode.py:119",
+           "launches": launches, "max_abs_err": err}
+    rec.update(k1_time(full, "smollm-360m serving shape", card))
+    rec["zamba2_shape"] = dict(k1_time(zamba[0], "zamba2-7b shared-block "
+                                       "shape", card), max_abs_err=zamba[1])
+    return rec
 
 
 # ------------------------------------------------------------------ K4 ----
@@ -924,6 +1154,37 @@ def check_k4():
     return full
 
 
+def check_k4_ragged():
+    """K4 through ops.ssd on zamba2-7b's layer (B 1, H 112, P = N = 64) at
+    prompt lengths that are not whole 256-token chunks, from a random start
+    state, in the model's layout: ops.ssd pads to whole chunks with dt = 0
+    and cuts y back, one K4 launch a call; held to the plain version (which
+    pads the same way) at K4's limits."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd as k4
+    errs = []
+    for S in (700, 1300):
+        for dt in (torch.float32, torch.bfloat16):
+            args, kw = k4_case((1, S, 112, 64, 64, 256), dt, seed=S,
+                               with_h0=True, model_layout=True)
+            reset_counts()
+            y, h = ops.ssd(*args, **kw)
+            if k4.ssd.launches != 1:
+                raise AssertionError(f"k4 ragged S {S}: {k4.ssd.launches} "
+                                     f"launches")
+            y_ref, h_ref = ref.ssd_chunked_ref(*args, **kw)
+            torch.cuda.synchronize()
+            what = f"ragged S {S} {dt} with h0 on " \
+                f"{k4.path(args[0], args[3], args[4])}"
+            errs.append((S, str(dt)[6:], _k4_close(y, y_ref, what + " y"),
+                         _k4_close(h, h_ref, what + " h")))
+    print("k4 ragged check (ops.ssd pads to whole chunks, one launch a "
+          "call, h0 random): " + "; ".join(
+              f"S {S} {dt}: y {ey:.3e} h {eh:.3e}" for S, dt, ey, eh in errs)
+          + " == plain within K4's limits", flush=True)
+
+
 def _n_mamba(cfg):
     from repro_torch.configs.base import MAMBA
     return sum(cfg.layer_kind(l) == MAMBA for l in range(cfg.num_layers))
@@ -993,7 +1254,7 @@ def run_zamba_full(card):
 
     def capture(module, args, out):     # the first Mamba layer, once
         if not captured:
-            captured.update(x=args[1], h=out[1])
+            captured.update(x=args[1], h=out[1]["h"])
 
     def capture_attn(module, args, out):    # the first SHARED_ATTN layer
         if not shared_in:
@@ -1040,7 +1301,7 @@ def run_zamba_full(card):
     # the first layer's scan again on its captured input (a check launch,
     # after the count was read): it must give the main path's state, and
     # agree with the plain version
-    _, args = first.ssd_inputs(cfg, captured["x"])
+    _, args, _ = first.ssd_inputs(cfg, captured["x"])
     kw = dict(chunk=cfg.ssm.chunk, h0=None)
     if k4.path(args[0], args[3], args[4]) != "mma":
         raise AssertionError("zamba2-7b: the forward's K4 calls are not on "
@@ -1074,10 +1335,179 @@ def run_zamba_full(card):
     # the first SHARED_ATTN layer's q, k, v, rebuilt from its input, for K2
     qkv = params.shared.attn.qkv(cfg, shared_in["x"],
                                  shared_in["positions"])
-    del params
     return {"args": args, "kw": kw, "err": ey, "launches": launches,
             "forwards": forwards, "n_mamba": n_mamba, "qkv": qkv,
-            "softcap": cfg.attn_softcap}
+            "softcap": cfg.attn_softcap, "params": params, "cfg": cfg}
+
+
+def zamba_requests(vocab: int, seed: int = 6):
+    """12 prompts of 200-1500 tokens, none a whole number of 256-token
+    chunks; four share a 256-token prefix under one key."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, 256)
+    reqs = []
+    for i, n in enumerate(rng.integers(200, 1501, 12)):
+        n = int(n) + (int(n) % 256 == 0)
+        if i % 3 == 1:
+            n = max(n, 301)
+            reqs.append((np.concatenate([prefix,
+                                         rng.integers(0, vocab, n - 256)]),
+                         "sys"))
+        else:
+            reqs.append((rng.integers(0, vocab, n), None))
+    return reqs
+
+
+def check_zamba_serving_small():
+    """zamba2-7b.reduced() in fp32 served on the pools layout on the card
+    (K1 for the shared block, K4 for every Mamba layer's prefill) and on the
+    CPU (plain path) from the same parameters: identical tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.plan import PlacementPlan
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(),
+                              use_paged_decode=True)
+    params_cpu = init_params(cfg, seed=0, device="cpu")
+    params_gpu = copy.deepcopy(params_cpu).to("cuda")
+    rng = np.random.default_rng(8)
+    sys_p = rng.integers(0, cfg.vocab_size, 9)
+    reqs = [(np.concatenate([sys_p, rng.integers(0, cfg.vocab_size, 3 + i)]),
+             "sys") for i in range(3)] + \
+        [(rng.integers(0, cfg.vocab_size, 21), None)]
+    plan = PlacementPlan(hot_window=8, slot_hot_windows=[4, 8],
+                         page_tokens=4)
+    got = {dev: serve(p, cfg, plan, reqs, max_seq=48, slots=2, decode=10,
+                      device=dev)
+           for dev, p in (("cuda", params_gpu), ("cpu", params_cpu))}
+    run = got["cuda"]
+    n_mamba = _n_mamba(cfg)
+    n_attn = cfg.num_layers - n_mamba
+    if run["out"] != got["cpu"]["out"]:
+        raise AssertionError("reduced fp32 zamba2 engine: card tokens "
+                             "differ from the CPU's plain path")
+    if run["k1"] != run["b"].decode_steps * n_attn or \
+            run["k4"] != len(reqs) * n_mamba or not run["cold_steps"]:
+        raise AssertionError(f"reduced zamba2 engine: {run['k1']} K1 and "
+                             f"{run['k4']} K4 launches, {run['cold_steps']} "
+                             f"decode steps with cold pages")
+    print(f"small zamba2 serve check: reduced fp32 engine tokens on the card "
+          f"(K1 {run['k1']}, K4 {run['k4']} launches) == on the CPU plain "
+          f"path", flush=True)
+
+
+def serve_zamba(params, cfg, card):
+    """Phase 4b: zamba2-7b serving at full width on the pools layout (bf16,
+    the forward phase's parameters): 8 slots of 2048 tokens, page 16, hand
+    hot windows of 256-480 tokens so admission and decode demote pages,
+    zamba_requests with 32 decode tokens each.  Admission is one dense
+    prefill (K4 in each of the 65 Mamba layers, over a ragged S from the
+    cache's zero state), then admit_rows and splice_other; decode runs K1
+    in the 16 shared-block uses and ssd_decode in the Mamba layers.  Fails
+    unless the tokens equal an all-hot run's, K4 ran admissions x 65 times
+    and K1 decode steps x 16 times in each run, and the integer counters
+    equal predict_pool_counters(..., dense_admit=True).  Prints prefill ms
+    per admission, decode tokens/s, the pure-decode step, peak device
+    memory and a profile of decode steps.  Returns the tiered run's K1 and
+    K4 launches."""
+    import torch
+    from repro_torch.runtime.plan import PlacementPlan
+    from repro_torch.serve.engine import predict_pool_counters
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, use_paged_decode=True)
+    reqs = zamba_requests(cfg.vocab_size)
+    windows = [256 + 32 * s for s in range(SLOTS)]          # 256..480
+    tiered = PlacementPlan(hot_window=384, slot_hot_windows=windows,
+                           page_tokens=PAGE)
+    all_hot = dataclasses.replace(tiered, hot_window=ZAMBA_MAX_SEQ,
+                                  slot_hot_windows=[ZAMBA_MAX_SEQ] * SLOTS)
+    n_mamba = _n_mamba(cfg)
+    n_attn = cfg.num_layers - n_mamba
+    admit_ms = []
+
+    def time_admissions(b):
+        admit = b._admit_dense
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            admit(*args)
+            torch.cuda.synchronize()
+            admit_ms.append(1e3 * (time.perf_counter() - ts))
+        b._admit_dense = timed
+
+    runs = {}
+    for name, plan in (("tiered", tiered), ("all_hot", all_hot)):
+        torch.cuda.reset_peak_memory_stats()
+        run = runs[name] = serve(
+            params, cfg, plan, reqs, max_seq=ZAMBA_MAX_SEQ, slots=SLOTS,
+            decode=DECODE, device="cuda",
+            on_engine=time_admissions if name == "tiered" else None)
+        run["peak"] = torch.cuda.max_memory_allocated() / 1e9
+        # the engine's books, then its pools go before the next run
+        b = run.pop("b")
+        cnt = run["counters"] = b.counters()
+        row_bytes, steps = b._row_bytes, b.decode_steps
+        del b
+        gc.collect()            # the timing wrapper holds the engine in a cycle
+        torch.cuda.empty_cache()
+        if len(run["out"]) != len(reqs) or \
+                any(len(o) != DECODE for o in run["out"]):
+            raise AssertionError(f"zamba2 serve {name}: malformed outputs")
+        if run["k4"] != len(reqs) * n_mamba or \
+                run["k1"] != steps * n_attn:
+            raise AssertionError(
+                f"zamba2 serve {name}: {run['k4']} K4 launches for "
+                f"{len(reqs)} admissions x {n_mamba}, {run['k1']} K1 "
+                f"launches for {steps} decode steps x {n_attn}")
+        print(f"zamba2 serve {name}: {len(run['out'])} requests, "
+              f"{steps} decode steps, K4 {run['k4']} = "
+              f"{len(reqs)} admissions x {n_mamba}, K1 {run['k1']} = "
+              f"{steps} decode steps x {n_attn}, page_copies "
+              f"{cnt['page_copies']}, {run['cold_steps']} decode steps with "
+              f"cold pages mapped, sim_migration_bytes "
+              f"{cnt['sim_migration_bytes']:.0f}, peak memory "
+              f"{run['peak']:.1f} GB", flush=True)
+    run, out_h = runs["tiered"], runs["all_hot"]["out"]
+    cnt = run["counters"]
+    if run["out"] != out_h:
+        raise AssertionError("zamba2 serve: tiered tokens differ from the "
+                             "all-hot run")
+    if not (cnt["page_copies"] > 0 and run["cold_steps"] > 0):
+        raise AssertionError(f"zamba2 serve: no demotion on the card {cnt}")
+    preq = [(tuple(int(x) for x in t), DECODE, None, k) for t, k in reqs]
+    pred = predict_pool_counters(preq, tiered, slots=SLOTS,
+                                 max_seq=ZAMBA_MAX_SEQ, page_tokens=PAGE,
+                                 row_bytes=row_bytes, dense_admit=True)
+    got = {k: cnt[k] for k in ("sim_migration_bytes", "step_migration_bytes",
+                               "page_copies", "admit_page_writes")}
+    want = {"sim_migration_bytes": pred["migration_bytes"],
+            "step_migration_bytes": pred["step_migration_bytes"],
+            "page_copies": pred["page_copies"],
+            "admit_page_writes": pred["admit_page_writes"]}
+    if got != want:
+        raise AssertionError(f"zamba2 serve: engine counters {got} != "
+                             f"predict_pool_counters {want}")
+    decode_tokens = sum(len(o) - 1 for o in run["out"])
+    lens = [len(t) for t, _ in reqs]
+    print(f"zamba2 serve check: tiered tokens == all-hot tokens; K4 == "
+          f"admissions x {n_mamba}, K1 == decode steps x {n_attn}; counters "
+          f"== predict_pool_counters(dense_admit=True); prompts "
+          f"{min(lens)}-{max(lens)} tokens, KV {row_bytes:.0f} B a token",
+          flush=True)
+    print(f"zamba2 serve time: prefill {float(np.mean(admit_ms)):.1f} ms per "
+          f"admission (mean of {len(admit_ms)}, {min(admit_ms):.1f}-"
+          f"{max(admit_ms):.1f}); {decode_tokens / run['wall']:.1f} decode "
+          f"tokens/s over the whole tiered run ({run['wall']:.3f} s, prefill "
+          f"included); mean pure decode step "
+          f"{1e3 * float(np.mean(run['step_s'])):.3f} ms over "
+          f"{len(run['step_s'])} steps of {SLOTS} slots; peak device memory "
+          f"{run['peak']:.1f} GB [{card}]", flush=True)
+    launches = {"k1": run["k1"], "k4": run["k4"]}
+    torch.cuda.empty_cache()
+    profile_decode(params, cfg, tiered, reqs, card, steps=4,
+                   max_seq=ZAMBA_MAX_SEQ, what="zamba2 decode")
+    print(f"phase 4b took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 
 def k4_bound(B, S, H, P, N, esize):
@@ -1777,8 +2207,9 @@ def main() -> int:
         print(f"build {name}: {secs:.2f} s; {ptxas_summary(log)}",
               flush=True)
 
-    full, err = check_kernels()
+    (full, err), k1_zamba = check_kernels()
     k4_full = check_k4()
+    check_k4_ragged()
     t0 = time.perf_counter()
     check_k3()
     check_k2()
@@ -1790,7 +2221,8 @@ def main() -> int:
           f"whole tiered run ({wall:.3f} s, prefill included); mean pure "
           f"decode step {1e3 * float(np.mean(step_s)):.3f} ms over "
           f"{len(step_s)} steps of {SLOTS} slots [{card}]", flush=True)
-    k1 = k1_record(full, err, launches, card)
+    core_launches = check_layouts(*served, out, card)
+    k1 = k1_record(full, err, launches, k1_zamba, card)
     engine = profile_decode(*served, card)
     k3_serving = k3_on_serving(engine, card)
     del engine
@@ -1800,10 +2232,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     check_zamba_small()
+    check_zamba_serving_small()
     main_k4 = run_zamba_full(card)
     k4 = k4_record(main_k4, k4_full, card)
     k2 = k2_on_zamba(main_k4, card)
+    zamba_serve = serve_zamba(main_k4.pop("params"), main_k4["cfg"], card)
     del main_k4
+    torch.cuda.empty_cache()
+    # every path's launches, each counted from 0 just before it ran
+    k1["launches_by_path"] = {
+        "smollm-360m serving, pools (phase 3)": launches,
+        "_paged_decode_core, one decode step (phase 3c)": core_launches,
+        "zamba2-7b serving, pools (phase 4b)": zamba_serve["k1"]}
+    k4["launches_by_path"] = {
+        "zamba2-7b forwards (phase 4)": k4["launches"],
+        "zamba2-7b serving prefill (phase 4b)": zamba_serve["k4"]}
     k3 = k3_record(k3_serving, k3_long_cache(card))
     print(f"zamba2 phases took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

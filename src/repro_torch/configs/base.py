@@ -48,6 +48,9 @@ class ModelConfig:
     prologue_d_ff: int = 0        # a dense prologue layer's MLP (unported)
 
     # attention details (the window and the softcap reach the decode kernel)
+    use_paged_decode: bool = False  # decode reads KV through page pools
+                                    # with ops.paged_decode_attention (the
+                                    # engine's pools layout, paged=True)
     sliding_window: int = 0       # LOCAL layers' window
     attn_softcap: float = 0.0
     rope_theta: float = 10_000.0

@@ -2,8 +2,12 @@
 for the SSD scan): the plain PyTorch version (kernels/ref.py) for a CPU
 tensor, the hand-written CUDA kernel for a CUDA tensor.  There is no switch
 and no fallback: a CUDA input runs the kernel or raises.  The signatures
-are the reference's (``repro/kernels/ops.py``)."""
+are the reference's (``repro/kernels/ops.py``).  ``ssd_decode``, one
+token's state update, has no kernel in either package: it is plain torch
+on every device."""
 from __future__ import annotations
+
+import torch.nn.functional as F
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
@@ -51,6 +55,20 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, h0=None):
     """Mamba2 SSD chunked scan: x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm
     (B,S,N), optional start state h0 (B,H,P,N).  Returns (y (B,S,H,P) in
     x's dtype, final state (B,H,P,N) float32).  A CUDA x runs the kernel,
-    with or without h0."""
+    with or without h0.  The kernel takes whole chunks (S a multiple of
+    min(chunk, S)), so a ragged S is padded here, on every device, with
+    dt = 0, which leaves the state as it is (decay 1, no input), and y is
+    cut back to S."""
+    S = x.shape[1]
+    pad = (-S) % min(chunk, S)
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
     fn = _ssd.ssd if x.is_cuda else _ref.ssd_chunked_ref
-    return fn(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    y, h = fn(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    return (y[:, :S] if pad else y), h
+
+
+ssd_decode = _ref.ssd_decode_ref     # one token: plain torch is the op

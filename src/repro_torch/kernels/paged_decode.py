@@ -225,3 +225,77 @@ def _launch(q, k_hot, v_hot, k_cold, v_cold, page_table, page_tier, lengths,
 
 
 paged_decode_attention.launches = 0
+
+
+# ----------------------------------------------------- dense -> pool layout ----
+
+def pool_layout(cold_tokens, num_pages: int, page_tokens: int,
+                device="cpu"):
+    """Layer-independent pool layout from per-slot cold boundaries.
+
+    ``cold_tokens`` (len B, ints): per-slot cold boundary in tokens; pages
+    wholly below it go to the cold pool.  Physical pages interleave slots
+    (slot-major over logical pages), so the table is a real indirection.
+    Returns (page_table, page_tier) int32 (B, num_pages) on ``device`` and
+    (hot_idx, cold_idx), the (slot, logical page) each physical page of the
+    hot and the cold pool holds, in pool order: computed once per decode
+    step, then every layer's pools are gathered from it."""
+    B = len(cold_tokens)
+    cold_pages = [int(c) // page_tokens for c in cold_tokens]
+    hot_idx, cold_idx = [], []
+    table = [[0] * num_pages for _ in range(B)]
+    tier = [[0] * num_pages for _ in range(B)]
+    for i in range(num_pages):
+        for b in range(B):
+            if i < cold_pages[b]:
+                table[b][i], tier[b][i] = len(cold_idx), 1
+                cold_idx.append((b, i))
+            else:
+                table[b][i], tier[b][i] = len(hot_idx), 0
+                hot_idx.append((b, i))
+    return (torch.tensor(table, dtype=torch.int32, device=device),
+            torch.tensor(tier, dtype=torch.int32, device=device),
+            tuple(hot_idx), tuple(cold_idx))
+
+
+def gather_pools(k_cache, v_cache, layout, page_tokens: int):
+    """One layer's (k_hot, v_hot, k_cold, v_cold) pools for a shared
+    layout; k_cache, v_cache dense (B, S, KVH, D).  An empty pool holds one
+    zero page.  The hot pools stay on the caches' device; on a CUDA cache
+    the cold pools are copied into pinned host memory."""
+    B, S, KVH, D = k_cache.shape
+    if S % page_tokens:
+        raise ValueError(f"{S} tokens are not whole {page_tokens}-token "
+                         "pages")
+    NP = S // page_tokens
+    _, _, hot_idx, cold_idx = layout
+
+    def gather(cache, idx, cold):
+        if not idx:
+            pages = torch.zeros((1, page_tokens, KVH, D), dtype=cache.dtype,
+                                device=cache.device)
+        else:
+            paged = cache.reshape(B, NP, page_tokens, KVH, D)
+            bs = torch.tensor([b for b, _ in idx], device=cache.device)
+            ps = torch.tensor([i for _, i in idx], device=cache.device)
+            pages = paged[bs, ps]
+        if cold and pages.is_cuda:
+            # a copy on the current stream, so it lands before the kernel
+            # that reads the pool through its mapped address
+            host = torch.empty(pages.shape, dtype=pages.dtype,
+                               pin_memory=True)
+            pages = host.copy_(pages)
+        return pages
+
+    return (gather(k_cache, hot_idx, False), gather(v_cache, hot_idx, False),
+            gather(k_cache, cold_idx, True), gather(v_cache, cold_idx, True))
+
+
+def pack_kv_pools(k_cache, v_cache, cold_tokens, page_tokens: int):
+    """Pack dense caches (B, S, KVH, D) into the pool layout: (k_hot, v_hot,
+    k_cold, v_cold, page_table, page_tier), from ``pool_layout`` and
+    ``gather_pools``, for single-layer callers and the kernel checks."""
+    layout = pool_layout(cold_tokens, k_cache.shape[1] // page_tokens,
+                         page_tokens, device=k_cache.device)
+    return (*gather_pools(k_cache, v_cache, layout, page_tokens),
+            layout[0], layout[1])

@@ -8,10 +8,10 @@ finite ``NEG_INF``, f32 scores and p cast to v's dtype before P.V; of
 ``online_softmax_update`` and ``repro/kernels/ref.py::
 paged_decode_attention_ref``, with the same op order, the same ``NEG_INF``
 and the same clipping of physical page indices (with, beside it, the split
-over page ranges and the merge that the paged decode kernel computes); of
-``repro/kernels/paged_decode.py::pack_kv_pools``, which lays dense caches
-out as pools; and of the Mamba2 SSD oracles ``ssd_ref`` (sequential) and
-``ssd_chunked_ref`` (the chunked algorithm the SSD kernel computes).
+over page ranges and the merge that the paged decode kernel computes); and
+of the Mamba2 SSD oracles ``ssd_ref`` (sequential), ``ssd_chunked_ref``
+(the chunked algorithm the SSD kernel computes) and ``ssd_decode_ref`` (one
+decode step, which has no kernel in either package).
 """
 from __future__ import annotations
 
@@ -259,43 +259,6 @@ def decode_attention_split_ref(q, k_cache, v_cache, lengths, *,
     return out.to(q.dtype).reshape(B, H, D)
 
 
-def pack_kv_pools(k_cache, v_cache, cold_tokens, page_tokens: int):
-    """Pack dense caches (B, S, KVH, D) into the paged pool layout, as the
-    reference's ``pack_kv_pools``: pages fully below slot b's
-    ``cold_tokens[b]`` go to the cold pool, physical pages interleave slots
-    (slot-major over logical pages).  Returns (k_hot, v_hot, k_cold, v_cold,
-    page_table, page_tier) on the caches' device; an empty pool holds one
-    zero page.  The kernel checks build their inputs with it."""
-    B, S, KVH, D = k_cache.shape
-    if S % page_tokens:
-        raise ValueError(f"{S} tokens are not whole {page_tokens}-token pages")
-    NP = S // page_tokens
-    cold_pages = [int(c) // page_tokens for c in cold_tokens]
-    idx = ([], [])                       # (slot, page) per physical page
-    table = [[0] * NP for _ in range(B)]
-    tier = [[0] * NP for _ in range(B)]
-    for i in range(NP):
-        for b in range(B):
-            t = 1 if i < cold_pages[b] else 0
-            table[b][i], tier[b][i] = len(idx[t]), t
-            idx[t].append((b, i))
-    dev = k_cache.device
-
-    def gather(cache, pages):
-        if not pages:
-            return torch.zeros((1, page_tokens, KVH, D), dtype=cache.dtype,
-                               device=dev)
-        paged = cache.reshape(B, NP, page_tokens, KVH, D)
-        bs = torch.tensor([b for b, _ in pages], device=dev)
-        ps = torch.tensor([i for _, i in pages], device=dev)
-        return paged[bs, ps]
-
-    return (gather(k_cache, idx[0]), gather(v_cache, idx[0]),
-            gather(k_cache, idx[1]), gather(v_cache, idx[1]),
-            torch.tensor(table, dtype=torch.int32, device=dev),
-            torch.tensor(tier, dtype=torch.int32, device=dev))
-
-
 # ------------------------------------------------------------ mamba2 SSD ----
 
 def ssd_ref(x, dt, A, Bm, Cm, *, h0=None):
@@ -364,6 +327,16 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, *, chunk: int = 64, h0=None):
             torch.einsum("bthp,btn,bth->bhpn", xc[:, k], Bc[:, k], w)
     y = (y + torch.stack(y_inter, dim=1)).reshape(B, K * Q, H, P)[:, :S]
     return y.to(x.dtype), h
+
+
+def ssd_decode_ref(h, xt, dtt, A, bt, ct):
+    """One decode step.  h: (B,H,P,N); xt: (B,H,P); dtt: (B,H); bt, ct:
+    (B,N).  Returns (y (B,H,P) in xt's dtype, h' float32)."""
+    a = torch.exp(dtt.float() * A)
+    h = h.float() * a[..., None, None] + torch.einsum(
+        "bhp,bn,bh->bhpn", xt.float(), bt.float(), dtt.float())
+    y = torch.einsum("bhpn,bn->bhp", h, ct.float())
+    return y.to(xt.dtype), h
 
 
 def round_operand(t, operands: str):

@@ -1,11 +1,18 @@
-"""GQA attention with causal / sliding-window masks, logit softcap, RoPE, and
-the persistent page pools as the KV cache (port of the GQA half of
-``repro/models/attention.py``).
+"""GQA attention with causal / sliding-window masks, logit softcap, RoPE and
+KV caches (port of the GQA half of ``repro/models/attention.py``; the
+prefix-LM mask and QK-norm come with the families that use them, ROADMAP
+item 9).
 
-Three forms: no cache (a full-sequence forward), pool prefill (one admitted
-slot's prompt chunk written into its physical pages) and pool decode (one
-token per slot, read back through ``ops.paged_decode_attention``).  The
-pool tensors are updated in place where the reference used ``.at[].set``.
+Forms: no cache (a full-sequence forward); a dense cache {"k", "v"}
+(B, Smax, KV*hd), written at a scalar offset (prefill, lockstep decode) or
+at a per-slot offset (continuous batching) and read whole under the mask,
+or, with ``cfg.use_paged_decode`` and a page view of per-slot boundaries,
+read through the pool layout by ``ops.paged_decode_attention``
+(``_paged_decode_core``); and the persistent page pools, in pool prefill
+(one admitted slot's prompt chunk written into its physical pages) and pool
+decode (one token per slot, read back through
+``ops.paged_decode_attention``).  Caches are updated in place where the
+reference used ``.at[].set``.
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ from torch import nn
 
 from repro_torch.configs.base import ATTN, LOCAL
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.paged_decode import gather_pools, pool_layout
 from repro_torch.models.layers import apply_rope, frozen, softcap
 
 NEG_INF = -2.0 ** 20
@@ -64,9 +72,11 @@ class Attention(nn.Module):
 
     def forward(self, cfg, x, positions, *, kind: str = ATTN, cache=None,
                 cache_index=None, paged_view=None):
-        """x: (B, Sq, d).  ``cache``: one layer's pools {"k_hot", "v_hot",
-        "k_cold", "v_cold"} (kvcache.PagedKVPools) or None.  With a cache,
-        ``paged_view["prefill"]`` selects pool prefill, else pool decode."""
+        """x: (B, Sq, d).  ``cache``: None, a dense {"k", "v"} cache, or one
+        layer's pools {"k_hot", "v_hot", "k_cold", "v_cold"}
+        (kvcache.PagedKVPools), for which ``paged_view["prefill"]`` selects
+        pool prefill, else pool decode.  ``cache_index``: the write offset,
+        a scalar or a (B,) tensor of per-slot offsets (0 when None)."""
         B, Sq, _ = x.shape
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         G = H // KV
@@ -75,15 +85,18 @@ class Attention(nn.Module):
         q, k, v = self.qkv(cfg, x, positions)
         q = q.reshape(B, Sq, KV, G, hd)
 
-        if cache is not None:
-            if "k_hot" not in cache:
-                raise NotImplementedError(
-                    "dense KV caches are not ported yet (ROADMAP, modules to "
-                    "port: item 7); the port serves from the page pools")
+        if cache is not None and "k_hot" in cache:
             core = _pool_prefill_core if paged_view.get("prefill") \
                 else _pool_decode_core
             out = core(cfg, q, k, v, cache, cache_index, paged_view, window,
                        positions)
+        elif cache is not None:
+            if set(cache) != {"k", "v"}:
+                raise NotImplementedError(
+                    f"a cache with leaves {sorted(cache)} is not ported yet "
+                    "(ROADMAP, modules to port: item 9)")
+            out = _dense_core(cfg, q, k, v, cache, cache_index, paged_view,
+                              window, positions)
         else:
             pos = positions[0] if positions.dim() > 1 else positions
             bias = attn_bias(positions, pos, window=window)
@@ -91,6 +104,68 @@ class Attention(nn.Module):
                 bias = bias[None]
             out = _gqa_core(q, k, v, bias, cfg.attn_softcap)
         return out.reshape(B, Sq, H * hd) @ self.wo
+
+
+def _dense_core(cfg, q, k, v, cache, cache_index, paged_view, window,
+                positions):
+    """Attention over a dense cache {"k", "v"} (B, Smax, KV*hd): the new
+    rows are written in place, row-wise at a (B,) ``cache_index`` (each
+    slot at its own length) or as one slice at a scalar offset, then every
+    query attends over the whole buffer under ``attn_bias`` (rows past a
+    query's position are masked).  With ``cfg.use_paged_decode``, a
+    ``paged_view`` and one query token, the updated cache is read through
+    the pool layout instead (``_paged_decode_core``)."""
+    B, Sq, KV, G, hd = q.shape
+    k_all, v_all = cache["k"], cache["v"]
+    kf, vf = k.reshape(B, Sq, KV * hd), v.reshape(B, Sq, KV * hd)
+    ci = 0 if cache_index is None else cache_index
+    if torch.is_tensor(ci) and ci.dim() >= 1:
+        rows = torch.arange(B, device=q.device)
+        k_all[rows, ci.long()] = kf[:, 0]
+        v_all[rows, ci.long()] = vf[:, 0]
+    else:
+        off = int(ci)
+        k_all[:, off:off + Sq] = kf
+        v_all[:, off:off + Sq] = vf
+    Smax = k_all.shape[1]
+    if (paged_view is not None and cfg.use_paged_decode and Sq == 1
+            and cache_index is not None):
+        return _paged_decode_core(cfg, q, k_all, v_all, cache_index,
+                                  paged_view, window)
+    bias = attn_bias(positions, torch.arange(Smax, device=q.device),
+                     window=window)
+    if bias.dim() == 2:
+        bias = bias[None]
+    return _gqa_core(q, k_all.reshape(B, Smax, KV, hd),
+                     v_all.reshape(B, Smax, KV, hd), bias, cfg.attn_softcap)
+
+
+def _paged_decode_core(cfg, q, k_all, v_all, cache_index, paged_view,
+                       window):
+    """Decode attention over a dense cache read through the pool layout:
+    the updated cache is split at each slot's cold boundary into hot pools
+    (on the cache's device) and cold pools (pinned host memory on a card),
+    addressed by a per-slot page table, and read by
+    ``ops.paged_decode_attention``.  ``paged_view`` carries the per-slot
+    ``boundaries`` (ints) and ``page_tokens``, or a precomputed
+    ``layout`` (``paged_decode.pool_layout``), shared by every layer of a
+    step."""
+    B, Sq, KV, G, hd = q.shape
+    Smax = k_all.shape[1]
+    page = paged_view["page_tokens"]
+    layout = paged_view.get("layout")
+    if layout is None:
+        layout = pool_layout(paged_view["boundaries"], Smax // page, page,
+                             device=q.device)
+    k_hot, v_hot, k_cold, v_cold = gather_pools(
+        k_all.reshape(B, Smax, KV, hd), v_all.reshape(B, Smax, KV, hd),
+        layout, page)
+    ci = torch.as_tensor(cache_index, dtype=torch.int32, device=q.device)
+    lengths = (ci if ci.dim() >= 1 else ci.expand(B)) + 1
+    return kernel_ops.paged_decode_attention(
+        q.reshape(B, KV * G, hd), k_hot, v_hot, k_cold, v_cold, layout[0],
+        layout[1], lengths, window=window,
+        softcap_val=cfg.attn_softcap)
 
 
 def _pool_prefill_core(cfg, q, k, v, cache, cache_index, paged_view, window,

@@ -1,27 +1,168 @@
-"""Persistent KV page pools for serving (port of the pools half of
-``repro/models/kvcache.py``): the refcounted ``PageTable`` allocator, the
-``PagedKVPools`` storage the paged decode kernel reads, and
-``kv_token_bytes``.
+"""Cache construction for serving (port of ``repro/models/kvcache.py``):
+the dense per-layer caches and their tiered forms, the refcounted
+``PageTable`` allocator, and the ``PagedKVPools`` storage the paged decode
+kernel reads.
 
-Hot pools live in device memory and cold pools in pinned host memory, which
-the decode kernel reads directly.  Every write into a cold pool is a
-stream-ordered ``copy_(..., non_blocking=True)`` issued from the device side
-of the current stream, never a CPU-side store: a cold page freed and
-reallocated while an earlier decode kernel still reads it is protected by
-stream order alone.
+A dense cache is a list with one entry per layer, prologue first, as the
+port's loop over layers runs them (the reference stacks the period layers
+on a leading axis; the port has no such axis): an attention layer holds
+{"k", "v"} (B, max_seq, KV*hd), a MAMBA layer {"h", "conv"}
+(``ssm.init_mamba_cache``).  The "k" and "v" leaves are the sequence
+leaves the tiered forms split; the reference recognises them by shape, the
+port by name.  The reference's ``.at[].set`` splices are in-place writes
+here, and a ``None`` leaf is a tier that holds no copy of that leaf.
+
+Tiers: the *concat* layout (``TieredCache``) splits every sequence leaf at
+one global cold boundary; the *paged-merged* layout
+(``PagedTieredCache``) keeps full-size hot and cold trees and a per-slot
+boundary; the *pools* layout (``PagedKVPools``) keeps the attention
+layers' KV as pages.  Cold storage is pinned host memory when the cache
+lives on a CUDA card, and the cache itself on the CPU (``to_host`` is then
+the identity, as the reference's is when the backend has no host memory
+kind).  Every write into pinned memory is a copy issued on the current
+stream, never a CPU-side store, so stream order protects pages a kernel
+still reads.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.configs.base import ATTN, LOCAL, MAMBA, SHARED_ATTN
+from repro_torch.models import ssm as ssm_mod
+
+ATTN_KINDS = (ATTN, LOCAL, SHARED_ATTN)
+SEQ_KEYS = ("k", "v")            # the sequence leaves of a dense cache
+
+
+def init_layer_cache(cfg, kind: str, batch: int, max_seq: int, dtype,
+                     device):
+    if kind in ATTN_KINDS:
+        # KV heads folded into one dim, as the reference's
+        D = cfg.num_kv_heads * cfg.head_dim
+        return {"k": torch.zeros(batch, max_seq, D, dtype=dtype,
+                                 device=device),
+                "v": torch.zeros(batch, max_seq, D, dtype=dtype,
+                                 device=device)}
+    if kind == MAMBA:
+        return ssm_mod.init_mamba_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
+
+
+def init_cache(cfg, batch: int, max_seq: int, dtype, device) -> list:
+    """One zeroed cache entry per layer, prologue first."""
+    return [init_layer_cache(cfg, cfg.layer_kind(l), batch, max_seq, dtype,
+                             device) for l in range(cfg.num_layers)]
+
+
+def _map(fn, tree):
+    """``fn`` over the leaves of a per-layer cache list; None stays None."""
+    return [{k: None if a is None else fn(a) for k, a in layer.items()}
+            for layer in tree]
+
+
+def to_host(tree):
+    """Every leaf in host memory: pinned copies of CUDA tensors (a copy on
+    the current stream), CPU tensors as they are."""
+    def host(a):
+        if not a.is_cuda:
+            return a
+        out = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+        return out.copy_(a, non_blocking=True)
+    return _map(host, tree)
+
+
+def to_device(tree, device):
+    """Every leaf on ``device`` (a copy on the current stream)."""
+    return _map(lambda a: a.to(device, non_blocking=True), tree)
+
 
 def kv_token_bytes(cfg, dtype_bytes: int = 2) -> float:
-    """Mean KV-cache bytes per token per layer (every layer of a dense
-    ATTN/LOCAL stack holds K and V), so ``kv_token_bytes(cfg) *
-    cfg.num_layers`` is the model's per-token KV growth."""
-    return float(2 * cfg.num_kv_heads * cfg.head_dim * dtype_bytes)
+    """Mean KV-cache bytes per token per layer, averaged over ALL layers
+    (stateful kinds hold O(1) state and add nothing), so
+    ``kv_token_bytes(cfg) * cfg.num_layers`` is the model's per-token KV
+    growth, computed as the reference computes it."""
+    def one(kind):
+        if kind in ATTN_KINDS:
+            return 2 * cfg.num_kv_heads * cfg.head_dim * dtype_bytes
+        return 0.0
+    total = sum(one(k) for k in cfg.prologue) + \
+        cfg.num_periods * sum(one(k) for k in cfg.period)
+    return total / cfg.num_layers if cfg.num_layers else 0.0
+
+
+def split_seq_cache(caches, cold_len: int):
+    """Split every sequence leaf at ``cold_len``: (cold prefix, a view of
+    ``caches``; hot window, a copy, so it holds no more than the window).
+    Other leaves stay whole in the hot tree; their cold leaf is None."""
+    cold = [{k: a[:, :cold_len] if k in SEQ_KEYS else None
+             for k, a in layer.items()} for layer in caches]
+    hot = [{k: a[:, cold_len:].contiguous() if k in SEQ_KEYS else a
+            for k, a in layer.items()} for layer in caches]
+    return cold, hot
+
+
+def merge_seq_cache(cold, hot):
+    """Inverse of split_seq_cache, on the hot tree's device: reading a
+    host-resident cold leaf here is the streamed cold-KV fetch."""
+    return [{k: h if c[k] is None else
+             torch.cat([c[k].to(h.device, non_blocking=True), h], dim=1)
+             for k, h in hl.items()} for c, hl in zip(cold, hot)]
+
+
+def splice_slot(big_tree, one_tree, slot: int):
+    """Write a batch-1 cache into row ``slot`` of a batched cache, in place
+    (full, cold and hot trees alike; None leaves pass).  Returns
+    ``big_tree``."""
+    for big, one in zip(big_tree, one_tree):
+        for k, a in big.items():
+            if a is not None:
+                a[slot].copy_(one[k][0], non_blocking=True)
+    return big_tree
+
+
+def copy_slot_rows(dst_tree, src_tree, slot: int, lo: int, hi: int):
+    """dst[slot, lo:hi] = src[slot, lo:hi] on every sequence leaf, in
+    place; other leaves and None pass.  The per-slot demotion and re-host
+    primitive: only the named slot's rows move.  ``dst`` may be a cold
+    slice whose sequence is shorter; rows [lo, hi) must be valid in both.
+    Returns ``dst_tree``."""
+    for dst, src in zip(dst_tree, src_tree):
+        for k in SEQ_KEYS:
+            if dst.get(k) is not None:
+                dst[k][slot, lo:hi].copy_(src[k][slot, lo:hi],
+                                          non_blocking=True)
+    return dst_tree
+
+
+@dataclass
+class TieredCache:
+    """A cache split into a host-resident cold prefix and a fast hot
+    window (the concat layout)."""
+    cold: Any
+    hot: Any
+    cold_len: int
+    max_seq: int
+
+    def merged(self):
+        return merge_seq_cache(self.cold, self.hot)
+
+
+def init_tiered_cache(cfg, batch: int, max_seq: int, cold_len: int, dtype,
+                      device) -> TieredCache:
+    """The cold KV prefix in host memory; the hot window and every
+    stateful cache in device memory."""
+    cold_len = max(0, min(int(cold_len), max_seq))
+    return retier(init_cache(cfg, batch, max_seq, dtype, device), max_seq,
+                  cold_len)
+
+
+def retier(caches, max_seq: int, cold_len: int) -> TieredCache:
+    """Split an existing full cache (e.g. fresh from prefill) into tiers."""
+    cold, hot = split_seq_cache(caches, cold_len)
+    return TieredCache(to_host(cold), hot, cold_len, max_seq)
 
 
 class PageTable:
@@ -216,6 +357,17 @@ class PageTable:
         self.version += 1
         return (cold_phys, src, copied)
 
+    def splice_slot(self, slot: int, tokens: int, cold_tokens: int) -> int:
+        """Refill ``slot`` with a fresh request: free its pages, then
+        allocate ceil(tokens/page) pages with the first ``cold_tokens``
+        worth cold.  Returns the number of cold pages allocated."""
+        self.free_slot(slot)
+        n = -(-tokens // self.page_tokens) if tokens else 0
+        n_cold = min(n, cold_tokens // self.page_tokens)
+        for i in range(n):
+            self.alloc(slot, 1 if i < n_cold else 0)
+        return n_cold
+
     def check(self) -> None:
         """Raise on a broken structural invariant (used by the tests)."""
         import collections as _c
@@ -243,10 +395,77 @@ class PageTable:
                 raise AssertionError(f"stale twin memo {src} -> {twin}")
 
 
+@dataclass
+class PagedTieredCache:
+    """Cache with per-slot cold boundaries at page granularity (the
+    paged-merged layout).
+
+    ``hot`` is the full-size device tree every decode step writes into;
+    ``cold`` holds host copies of each slot's rows below its boundary
+    (sequence leaves only, None elsewhere).  ``boundaries`` (B,) int32 on
+    the hot tree's device is slot b's cold-token count, a multiple of
+    ``page_tokens`` and monotone within one residency; ``host_boundaries``
+    mirrors it, so the engine's bookkeeping never reads the device."""
+    cold: Any
+    hot: Any
+    boundaries: torch.Tensor
+    page_tokens: int
+    max_seq: int
+    host_boundaries: list
+
+    def merged(self):
+        """Masked where-merge on the device: rows below each slot's
+        boundary read the cold (host) copy, which is the streamed cold-KV
+        fetch, the rows above it the hot tree.  Equal to the dense cache,
+        since every row was copied from the dense values when it changed
+        tier."""
+        dev = self.boundaries.device
+        pos = torch.arange(self.max_seq, device=dev)
+        mask = (pos[None, :] < self.boundaries[:, None])[..., None]
+        return [{k: h if c[k] is None else
+                 torch.where(mask, c[k].to(dev, non_blocking=True), h)
+                 for k, h in hl.items()} for c, hl in zip(self.cold,
+                                                          self.hot)]
+
+    def set_boundary(self, slot: int, cold_tokens: int):
+        if cold_tokens % self.page_tokens:
+            raise ValueError(f"boundary {cold_tokens} is not whole "
+                             f"{self.page_tokens}-token pages")
+        self.host_boundaries[slot] = int(cold_tokens)
+        self.boundaries[slot] = int(cold_tokens)
+
+    def demote_rows(self, slot: int, new_cold_tokens: int) -> int:
+        """Advance slot's boundary: copy rows [old, new) from the hot tree
+        into the cold one; only this slot's rows move.  Returns the tokens
+        moved."""
+        old = self.host_boundaries[slot]
+        if new_cold_tokens <= old:
+            return 0
+        copy_slot_rows(self.cold, self.hot, slot, old, new_cold_tokens)
+        self.set_boundary(slot, new_cold_tokens)
+        return new_cold_tokens - old
+
+
+def init_paged_cache(cfg, batch: int, max_seq: int, page_tokens: int, dtype,
+                     device) -> PagedTieredCache:
+    """Boundaries start at zero (everything hot); the cold tree mirrors the
+    sequence leaves in host memory."""
+    if max_seq % page_tokens:
+        raise ValueError(f"max_seq {max_seq} is not a whole number of "
+                         f"{page_tokens}-token pages")
+    hot = init_cache(cfg, batch, max_seq, dtype, device)
+    cold = to_host([{k: a if k in SEQ_KEYS else None for k, a in l.items()}
+                    for l in hot])
+    return PagedTieredCache(cold, hot,
+                            torch.zeros(batch, dtype=torch.int32,
+                                        device=device),
+                            page_tokens, max_seq, [0] * batch)
+
+
 class PagedKVPools:
     """Persistent physical KV page pools — the storage paged decode reads.
 
-    For the ``L`` attention layers the storage is
+    For the ``L`` attention layers (ATTN, LOCAL, SHARED_ATTN) the storage is
 
       k_hot / v_hot    (L, n_hot+1, page, KV*hd)   device memory
       k_cold / v_cold  (L, n_cold,  page, KV*hd)   pinned host memory
@@ -254,10 +473,12 @@ class PagedKVPools:
                                                    the device is the CPU)
 
     addressed through one layer-independent :class:`PageTable`.  ``tree``
-    holds one ``{"k_hot", "v_hot", "k_cold", "v_cold"}`` dict of per-layer
-    views, the cache the model's forward reads and writes in place.  The
-    hot page at index ``garbage`` (= n_hot) absorbs the lockstep writes of
-    inactive slots.
+    holds one entry per layer of the stack, the cache the model's forward
+    reads and writes in place: a ``{"k_hot", "v_hot", "k_cold", "v_cold"}``
+    dict of views into pool ``pool_of[layer]`` for an attention layer, and
+    the layer's dense batched state (``init_layer_cache``) for any other
+    kind.  The hot page at index ``garbage`` (= n_hot) absorbs the lockstep
+    writes of inactive slots.
 
     ``stats`` counts ``repacks`` (never in this design), ``table_uploads``
     (layout deltas), ``page_copies`` (demote / CoW data movement) and
@@ -275,7 +496,11 @@ class PagedKVPools:
         self.num_pages = max_seq // page_tokens
         self.table = PageTable(slots, self.num_pages, page_tokens)
         self.garbage = self.table.n_hot          # scratch page, never mapped
-        L, D = cfg.num_layers, cfg.num_kv_heads * cfg.head_dim
+        kinds = [cfg.layer_kind(l) for l in range(cfg.num_layers)]
+        # layer -> its pool, for the attention layers only
+        self.pool_of = {l: i for i, l in enumerate(
+            l for l, k in enumerate(kinds) if k in ATTN_KINDS)}
+        L, D = len(self.pool_of), cfg.num_kv_heads * cfg.head_dim
         hot = (L, self.table.n_hot + 1, page_tokens, D)
         cold = (L, self.table.n_cold, page_tokens, D)
         pin = self.device.type == "cuda"
@@ -283,9 +508,12 @@ class PagedKVPools:
         self.v_hot = torch.zeros(hot, dtype=dtype, device=self.device)
         self.k_cold = torch.zeros(cold, dtype=dtype, pin_memory=pin)
         self.v_cold = torch.zeros(cold, dtype=dtype, pin_memory=pin)
-        self.tree = [{"k_hot": self.k_hot[l], "v_hot": self.v_hot[l],
-                      "k_cold": self.k_cold[l], "v_cold": self.v_cold[l]}
-                     for l in range(L)]
+        self.tree = [
+            {"k_hot": self.k_hot[i], "v_hot": self.v_hot[i],
+             "k_cold": self.k_cold[i], "v_cold": self.v_cold[i]}
+            if (i := self.pool_of.get(l)) is not None else
+            init_layer_cache(cfg, kind, slots, max_seq, dtype, self.device)
+            for l, kind in enumerate(kinds)]
         self._cached_arrays = None
         self._cached_version = -1
         # event recorded after the last stream-ordered cold-pool write; a
@@ -363,6 +591,38 @@ class PagedKVPools:
             self.v_hot[:, new] = self.v_hot[:, src]
         self.stats["page_copies"] += 1
         return True
+
+    def admit_rows(self, fresh, slot: int, pages) -> None:
+        """Write whole pages of a batch-1 prefilled dense cache ``fresh``
+        (per-layer {"k", "v"} (1, max_seq, KV*hd)) into the slot's private
+        hot pages, in place.  Shared pages are skipped by the caller: their
+        physical pages already hold the same data."""
+        pages = list(pages)
+        if not pages:
+            return
+        if any(self.table.tier[slot][i] != 0 for i in pages):
+            raise ValueError("admitted pages land in the hot pool")
+        if pages != list(range(pages[0], pages[-1] + 1)):
+            raise ValueError("admitted pages are one run of logical pages")
+        pg = self.page_tokens
+        phys = torch.tensor([self.table.table[slot][i] for i in pages],
+                            device=self.device)
+        lo, hi = pages[0] * pg, (pages[-1] + 1) * pg
+        for l, i in self.pool_of.items():
+            for name in ("k", "v"):
+                rows = fresh[l][name][0, lo:hi]
+                pool = self.k_hot if name == "k" else self.v_hot
+                pool[i, phys] = rows.reshape(len(pages), pg, -1)
+        self.stats["admit_page_writes"] += len(pages)
+
+    def splice_other(self, fresh, slot: int) -> None:
+        """Row-splice the non-attention layers' caches of a batch-1 cache
+        into the tree, in place, as ``splice_slot`` does on a dense
+        cache."""
+        for l, entry in enumerate(self.tree):
+            if l not in self.pool_of:
+                for k, a in entry.items():
+                    a[slot].copy_(fresh[l][k][0])
 
     def demote_boundary(self, slot: int) -> bool:
         """Advance the slot's cold boundary one page.  Pool data moves

@@ -1,10 +1,11 @@
 """Top-level language model: embeddings -> layer stack -> head, the
-forward / suffix-prefill entry points the serving engine calls, and the
-causal LM loss (port of ``repro/models/model.py`` for dense ATTN/LOCAL
-stacks and the zamba2 hybrid).
+forward / prefill / decode-step / suffix-prefill entry points the serving
+engine calls, and the causal LM loss (port of ``repro/models/model.py`` for
+dense ATTN/LOCAL stacks and the zamba2 hybrid).
 
-With pool caches (kvcache.PagedKVPools) the forward writes the new KV into
-the pools in place, so the entry points return logits only.
+``forward`` updates the caches it is given in place (dense KV rows, the
+Mamba state entries, pool pages) and returns the logits; ``prefill`` and
+``decode_step`` return ``(logits, caches)``, as the reference's do.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from torch import nn
 
 from repro_torch.configs.base import SHARED_ATTN
 from repro_torch.device import resolve
-from repro_torch.models import transformer
+from repro_torch.models import kvcache, transformer
 from repro_torch.models.layers import (embed, frozen, init_weights, rmsnorm,
                                        unembed)
 
@@ -54,12 +55,12 @@ class Model(nn.Module):
                         dtype=dtype))
 
     def forward(self, cfg, tokens, positions, *, caches=None,
-                cache_index=None, paged_view=None):
+                cache_index=None, decode=False, paged_view=None):
         x = embed(self.table, tokens)
         x = transformer.stack_forward([*self.prologue, *self.layers], cfg,
                                       x, positions,
                                       caches=caches, cache_index=cache_index,
-                                      paged_view=paged_view)
+                                      decode=decode, paged_view=paged_view)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
         return unembed(self.table if self.head is None else self.head, x)
 
@@ -80,10 +81,13 @@ def forward(params, cfg, batch, *, caches=None, cache_index=None,
             decode: bool = False, positions=None, paged_view=None):
     """Logits (B, S, padded_vocab) for ``batch["tokens"]`` (B, S).
 
-    decode=True: one token per slot at positions ``cache_index`` (a (B,)
-    tensor of per-slot write offsets), reading and writing the pools in
-    ``caches`` through ``paged_view``.  Otherwise positions default to
-    0..S-1 (suffix prefill passes its own)."""
+    ``caches`` (one entry per layer: ``kvcache.init_cache`` or
+    ``PagedKVPools.tree``) are updated in place.  decode=True: one token
+    per slot at positions ``cache_index`` (a scalar, or a (B,) tensor of
+    per-slot write offsets); ``paged_view`` carries the pools' page table,
+    or with ``cfg.use_paged_decode`` the per-slot boundaries a dense cache
+    is read through.  Otherwise positions default to 0..S-1 (suffix
+    prefill passes its own)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     if positions is None:
@@ -93,7 +97,8 @@ def forward(params, cfg, batch, *, caches=None, cache_index=None,
         else:
             positions = torch.arange(S, device=tokens.device).expand(B, S)
     return params(cfg, tokens, positions, caches=caches,
-                  cache_index=cache_index, paged_view=paged_view)
+                  cache_index=cache_index, decode=decode,
+                  paged_view=paged_view)
 
 
 @torch.no_grad()
@@ -108,6 +113,25 @@ def loss_fn(params, cfg, batch):
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
     return (logz - gold).mean()
+
+
+def prefill(params, cfg, batch, max_seq=None):
+    """Run the whole prompt into a fresh dense cache of ``max_seq`` (default
+    S) rows.  Returns (last row's logits (B, V), caches)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    caches = kvcache.init_cache(cfg, B, max_seq or S, param_dtype(cfg),
+                                tokens.device)
+    logits = forward(params, cfg, batch, caches=caches)
+    return logits[:, -1], caches
+
+
+def decode_step(params, cfg, tokens, caches, cache_index):
+    """One token for every sequence: ``tokens`` (B, 1) at ``cache_index``
+    (a scalar or (B,)).  Returns (logits (B, V), caches)."""
+    logits = forward(params, cfg, {"tokens": tokens}, caches=caches,
+                     cache_index=cache_index, decode=True)
+    return logits[:, -1], caches
 
 
 def prefill_suffix(params, cfg, batch, *, caches, start: int, paged_view):

@@ -4,7 +4,8 @@ stacks and the zamba2 hybrid).  The reference lowers the stack as a
 layers, then over the period layers, period layer ``j`` being slot
 ``j % period_len`` of period ``j // period_len``.  A SHARED_ATTN slot holds
 the one shared block object itself, so all its layers use one set of
-weights."""
+weights.  Caches are one entry per layer: attention layers write theirs in
+place; a MAMBA layer's new state replaces the entries of its cache dict."""
 from __future__ import annotations
 
 import torch
@@ -29,7 +30,7 @@ class Block(nn.Module):
         self.mlp = MLP(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
 
     def forward(self, cfg, x, positions, *, cache=None, cache_index=None,
-                paged_view=None):
+                decode=False, paged_view=None):
         h = rmsnorm(x, self.ln1, cfg.norm_eps)
         x = x + self.attn(cfg, h, positions, kind=self.kind, cache=cache,
                           cache_index=cache_index, paged_view=paged_view)
@@ -48,13 +49,15 @@ class MambaLayer(nn.Module):
         self.mamba = MambaBlock(cfg, device=device, dtype=dtype)
 
     def forward(self, cfg, x, positions, *, cache=None, cache_index=None,
-                paged_view=None):
+                decode=False, paged_view=None):
+        """With a cache {"h", "conv"}: a prefill scans from its state, a
+        decode steps it; either way the new state replaces the dict's
+        entries (the rows of every slot, active or not, as the reference's
+        lockstep decode does)."""
+        y, state = self.mamba(cfg, rmsnorm(x, self.ln1, cfg.norm_eps),
+                              cache=cache, decode=decode)
         if cache is not None:
-            raise NotImplementedError(
-                "MAMBA layers run without a cache only; the cached zamba2 "
-                "path is not ported yet (ROADMAP, modules to port: items 7 "
-                "and 9)")
-        y, _ = self.mamba(cfg, rmsnorm(x, self.ln1, cfg.norm_eps))
+            cache.update(state)
         return x + y
 
 
@@ -69,11 +72,13 @@ def make_layer(cfg, kind: str, *, device, dtype):
 
 
 def stack_forward(layers, cfg, x, positions, *, caches=None,
-                  cache_index=None, paged_view=None):
-    """Run every layer in order (prologue first); ``caches`` is one pool
-    entry per layer."""
+                  cache_index=None, decode=False, paged_view=None):
+    """Run every layer in order (prologue first); ``caches`` is one cache
+    entry per layer (a dense cache, or ``PagedKVPools.tree``), updated in
+    place."""
     for l, block in enumerate(layers):
         x = block(cfg, x, positions,
                   cache=caches[l] if caches is not None else None,
-                  cache_index=cache_index, paged_view=paged_view)
+                  cache_index=cache_index, decode=decode,
+                  paged_view=paged_view)
     return x

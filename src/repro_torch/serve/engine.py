@@ -1,36 +1,55 @@
-"""Continuous-batching serving engine on the persistent-pools layout (port
-of ``repro/serve/engine.py::ContinuousBatcher`` with ``paged=True`` and
-``cfg.use_paged_decode``, the one layout ported: here it is unconditional).
+"""Batched serving engine: prefill and lockstep decode over KV caches (port
+of ``repro/serve/engine.py``).
 
-The physical page pools (models/kvcache.PagedKVPools) ARE the cache: hot
-pages in device memory, cold pages in pinned host memory, one refcounted
-PageTable mapping every slot's logical pages.  Admission is a per-slot state
-machine (``queued -> prefilling -> active``): prompts are prefilled in
-page-aligned chunks straight into the slot's pages, and a request with a
-``prefix_key`` maps the donor's full prompt pages instead of computing them.
-Decode writes each token's KV through the table and reads the pools with
-the paged decode kernel; each slot's cold boundary advances one page at a
-time as its hot window slides, under the plan's per-slot windows.
+``make_serve_step`` (one token for the whole batch against a filled cache)
+and ``generate`` (prefill, then greedy or temperature sampling) drive a
+dense cache; ``ContinuousBatcher`` refills finished slots from request
+queues and keeps its cache in one of four layouts, selected as the
+reference selects them:
 
-``sim_migration_bytes`` counts every byte moved device->host, and
-``counters()`` exports the same integer books the reference engine keeps;
-``predict_pool_counters`` replays them from the plan alone, and
-``serve_trace_for`` profiles a request stream for ``runtime.plan``.
-The dense and concat layouts and the paged-merged layout are not ported yet
-(ROADMAP, modules to port: item 7).
+  all-HBM (``plan=None``)   one dense cache in device memory.
+  concat  (``plan``, ``paged=False``)   one *global* cold boundary
+      (``plan.cold_len``): the cold prefix of every slot in host memory,
+      read back by concatenation (kvcache.TieredCache).
+  paged-merged (``paged=True``)   *per-slot* boundaries at page grain
+      (``plan.cold_len_slot``), kvcache.PagedTieredCache plus a PageTable;
+      the dense hot tree stays the working copy, the masked merge reads it.
+  pools (``paged=True`` + ``cfg.use_paged_decode``)   the persistent page
+      pools (kvcache.PagedKVPools) ARE the cache: hot pages in device
+      memory, cold pages in pinned host memory, one refcounted PageTable.
+      Decode writes each token's KV through the table and reads the pools
+      with the paged decode kernel.  A pure-attention stack admits by a
+      per-slot state machine (``queued -> prefilling -> active``) whose
+      page-aligned chunks prefill straight into the slot's pages, and a
+      request with a ``prefix_key`` maps the donor's full prompt pages
+      instead of computing them; any other stack (zamba2's) admits by one
+      dense prefill whose rows and state are then written into the pools.
+
+Every other layout admits by one dense prefill spliced into its cache.
+``sim_migration_bytes`` counts every byte moved device->host, so the
+layouts' migration traffic compares directly; ``counters()`` exports the
+integer books the reference engine keeps; ``predict_pool_counters``
+replays the pools layout's from the plan alone, and ``serve_trace_for``
+profiles a request stream for ``runtime.plan``.
 """
 from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 
-from repro_torch.configs.base import ATTN, LOCAL
 from repro_torch.core import hmsim
 from repro_torch.device import resolve
 from repro_torch.models import kvcache, model
+
+
+@dataclass
+class ServeConfig:
+    max_seq: int = 2048
+    temperature: float = 0.0     # 0 = greedy
+    eos_id: int = -1             # -1: never stop early
 
 
 @dataclass
@@ -49,21 +68,45 @@ class _PrefillJob:
     last: Any = None             # last computed row's logits (1, vocab)
 
 
+def make_prefill(cfg):
+    """(params, batch) -> (last row's logits, caches)."""
+    def prefill(params, batch):
+        return model.prefill(params, cfg, batch)
+    return prefill
+
+
+def make_serve_step(cfg):
+    """(params, tokens (B, 1), caches, index) -> (logits, caches); the
+    caches are updated in place."""
+    def step(params, tokens, caches, index):
+        return model.decode_step(params, cfg, tokens, caches, index)
+    return step
+
+
+def sample(logits, generator, temperature: float):
+    """Greedy (argmax) at temperature 0, else one draw per row from
+    softmax(logits / temperature) with ``generator``."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[..., 0]
+
+
 class ContinuousBatcher:
     """Slot-based continuous batching over a fixed B-slot decode batch: all
     slots decode in lockstep against per-slot lengths, and finished or
     empty slots are refilled from per-tenant request queues.  ``plan`` (a
     ``runtime.PlacementPlan``) sets the page size, every slot's hot window,
-    the per-step prefill budget and the slots' tenants."""
+    the per-step prefill budget and the slots' tenants; without one the
+    cache is all-HBM.  The layout follows ``plan``, ``paged`` and
+    ``cfg.use_paged_decode`` (see the module's docstring)."""
 
-    def __init__(self, params, cfg, batch_slots: int, max_seq: int, plan,
-                 device=None):
-        kinds = set(cfg.prologue) | set(cfg.period)
-        if not kinds <= {ATTN, LOCAL}:
-            raise NotImplementedError(
-                f"{cfg.name}: the engine serves ATTN/LOCAL stacks only; the "
-                "cached path of other layer kinds is not ported yet "
-                "(ROADMAP, modules to port: items 7 and 9)")
+    def __init__(self, params, cfg, batch_slots: int, max_seq: int,
+                 scfg: Optional[ServeConfig] = None, plan=None,
+                 paged: bool = False, slot_tenants=None,
+                 prefill_chunk_tokens: Optional[int] = None, device=None):
+        if paged and plan is None:
+            raise ValueError("paged=True requires a plan (plan=...)")
         self.device = resolve(device)
         p_dev = next(params.parameters()).device
         if p_dev != self.device:
@@ -71,17 +114,26 @@ class ContinuousBatcher:
                              f"{self.device}")
         self.params, self.cfg = params, cfg
         self.B, self.max_seq = batch_slots, max_seq
+        self.scfg = scfg or ServeConfig(max_seq=max_seq)
         self.plan = plan
-        self.prefill_chunk_tokens = int(plan.prefill_chunk_tokens)
-        # a tenant's requests admit only into the tenant's own slots
-        self.slot_tenants = list(plan.slot_tenants) if plan.slot_tenants \
-            else None
+        # at most this many prompt tokens of pending prefill per step (0:
+        # each admission in one shot); the plan's by default
+        if prefill_chunk_tokens is None:
+            prefill_chunk_tokens = plan.prefill_chunk_tokens \
+                if plan is not None else 0
+        self.prefill_chunk_tokens = int(prefill_chunk_tokens)
+        # a tenant's requests admit only into the tenant's own slots;
+        # ``slot_tenants=`` lets an all-HBM run replay the same admissions
+        if slot_tenants is None and plan is not None:
+            slot_tenants = plan.slot_tenants
+        self.slot_tenants = list(slot_tenants) if slot_tenants else None
         if self.slot_tenants and len(self.slot_tenants) != batch_slots:
             raise ValueError(
                 f"slot_tenants has {len(self.slot_tenants)} entries for "
                 f"{batch_slots} batch slots (plan/batch geometry mismatch)")
         self.tenant_hot_peak: dict = {}        # tenant -> peak hot pool bytes
         self._tenant_note_version = -1         # last-sampled table version
+        self.cold_len = plan.cold_len(max_seq) if plan is not None else 0
         dt = model.param_dtype(cfg)
         self._row_bytes = kvcache.kv_token_bytes(
             cfg, torch.finfo(dt).bits // 8) * cfg.num_layers
@@ -91,13 +143,28 @@ class ContinuousBatcher:
         # in the next step's entry: sum(series) == total always
         self.step_migration_bytes: list = []
         self._mig_accounted = 0.0
-        page = max(1, plan.page_tokens)
-        if max_seq % page:                     # buffer must tile in pages
-            page = next(p for p in range(page, 0, -1) if max_seq % p == 0)
-        self.page_tokens = page
-        self.pool = kvcache.PagedKVPools(cfg, batch_slots, max_seq, page, dt,
-                                         self.device)
-        self.ptable = self.pool.table
+        self.paged = self.tiered = self.caches = self.ptable = None
+        self.pool = None
+        if paged:
+            page = max(1, plan.page_tokens)
+            if max_seq % page:                 # buffer must tile in pages
+                page = next(p for p in range(page, 0, -1) if max_seq % p == 0)
+            self.page_tokens = page
+            if cfg.use_paged_decode:
+                self.pool = kvcache.PagedKVPools(cfg, batch_slots, max_seq,
+                                                 page, dt, self.device)
+                self.ptable = self.pool.table
+            else:
+                self.paged = kvcache.init_paged_cache(
+                    cfg, batch_slots, max_seq, page, dt, self.device)
+                self.ptable = kvcache.PageTable(batch_slots, max_seq // page,
+                                                page)
+        elif self.cold_len > 0:
+            self.tiered = kvcache.init_tiered_cache(
+                cfg, batch_slots, max_seq, self.cold_len, dt, self.device)
+        else:
+            self.caches = kvcache.init_cache(cfg, batch_slots, max_seq, dt,
+                                             self.device)
         self.lengths = torch.zeros(batch_slots, dtype=torch.int32,
                                    device=self.device)
         self.active = [False] * batch_slots
@@ -123,6 +190,16 @@ class ContinuousBatcher:
         self.prefill_compute_tokens = 0        # prompt rows actually run
         self.prefill_skipped_tokens = 0        # rows skipped via shared pages
         self.decode_steps = 0                  # steps that ran a decode
+        # pool-direct prefill (chunks straight into the pages) needs every
+        # layer's cache to be a pool: pure-attention stacks only; any other
+        # stack on the pools admits by one dense prefill (_admit_dense)
+        self._pool_prefill_ok = self.pool is not None and all(
+            cfg.layer_kind(l) in kvcache.ATTN_KINDS
+            for l in range(cfg.num_layers))
+        if self.prefill_chunk_tokens and not self._pool_prefill_ok:
+            raise ValueError(
+                "prefill_chunk_tokens requires the persistent-pools layout "
+                "with a pure-attention stack (pool-direct prefill)")
 
     def submit(self, tokens, num_tokens: int, prefix_key=None, tenant=None):
         """Queue a request (``tokens``: 1-D prompt ids).  ``prefix_key``
@@ -166,7 +243,7 @@ class ContinuousBatcher:
         """Fold each tenant's current hot-pool footprint (distinct physical
         hot pages across its slots) into its peak; only after a table
         mutation."""
-        if not self.slot_tenants:
+        if not self.slot_tenants or self.ptable is None:
             return
         if self.ptable.version == self._tenant_note_version:
             return
@@ -205,8 +282,9 @@ class ContinuousBatcher:
                 self.sim_migration_bytes += self.page_tokens * self._row_bytes
 
     def _admit(self):
-        """Bind queued requests to free slots, then advance pending
-        prefill."""
+        """Bind queued requests to free slots and advance pending prefill:
+        pool-direct stacks go through the admission state machine
+        (``_drain_prefill``), every other layout admits one-shot."""
         for slot in range(self.B):
             if self.active[slot] or slot in self._jobs:
                 continue
@@ -214,11 +292,94 @@ class ContinuousBatcher:
             if item is None:
                 continue
             _, tokens, tok_host, budget, prefix_key, tenant = item
-            self._jobs[slot] = _PrefillJob(tokens, tok_host,
-                                           int(tokens.shape[-1]), budget,
-                                           prefix_key, tenant)
+            S = int(tokens.shape[-1])
+            if self._pool_prefill_ok:
+                self._jobs[slot] = _PrefillJob(tokens, tok_host, S, budget,
+                                               prefix_key, tenant)
+            else:
+                self._admit_dense(slot, tokens, tok_host, S, budget,
+                                  prefix_key)
         if self._jobs:
             self._drain_prefill()
+
+    def _admit_dense(self, slot: int, tokens, tok_host, S: int, budget: int,
+                     prefix_key):
+        """One-shot admission: a dense full-prompt prefill, then the
+        layout's splice of its cache."""
+        last, fresh = model.prefill(self.params, self.cfg,
+                                    {"tokens": tokens[None]},
+                                    max_seq=self.max_seq)
+        if self.pool is not None:
+            self._admit_pool(slot, tok_host, fresh, S, prefix_key)
+        elif self.paged is not None:
+            # per-slot boundary: only THIS slot's cold pages are re-hosted
+            cold = self._slot_cold_target(slot, S)
+            self.ptable.splice_slot(slot, S, cold)
+            kvcache.splice_slot(self.paged.hot, fresh, slot)
+            self.paged.set_boundary(slot, 0)
+            if cold:
+                self.paged.demote_rows(slot, cold)
+            self.sim_migration_bytes += cold * self._row_bytes
+        elif self.tiered is not None:
+            fc, fh = kvcache.split_seq_cache(fresh, self.cold_len)
+            kvcache.splice_slot(self.tiered.cold, fc, slot)
+            kvcache.splice_slot(self.tiered.hot, fh, slot)
+            # global boundary: the full cold prefix re-hosts on refill
+            self.sim_migration_bytes += self.cold_len * self._row_bytes
+        else:
+            kvcache.splice_slot(self.caches, fresh, slot)
+        self.prefill_compute_tokens += S
+        self._step_prefill += S
+        self._activate(slot, S, last, budget)
+
+    def _admit_pool(self, slot: int, tok_host, fresh, S: int, prefix_key):
+        """Admit a dense prefill into the pools: free the slot's page refs,
+        map shared-prefix full pages onto the donor's, write the rest of the
+        prefilled rows into fresh private pages and the other layers' state
+        into the tree, then demote page by page to the plan's target."""
+        shared = self._share_prefix(slot, tok_host, prefix_key)
+        n = -(-S // self.page_tokens)
+        self._alloc_admit_pages(slot, n)
+        self.pool.admit_rows(fresh, slot, range(shared, n))
+        self.pool.splice_other(fresh, slot)
+        self._demote_to_target(slot, S)
+
+    def _share_prefix(self, slot: int, tok_host, prefix_key,
+                      cap: Optional[int] = None) -> int:
+        """Free the slot's pages and the donor registrations that die with
+        them; map the full pages of the prompt's common prefix with the
+        key's donor (pages the donor holds, at most ``cap``) onto the
+        donor's physical pages, refcounted; register this prompt as the
+        key's donor.  Returns the pages shared (never the page decode
+        writes into: a shared page is read-only)."""
+        for key in [k for k, (s, _) in self._prefix_donor.items()
+                    if s == slot]:
+            del self._prefix_donor[key]
+        self.ptable.free_slot(slot)
+        if prefix_key is None:
+            return 0
+        shared = 0
+        donor = self._prefix_donor.get(prefix_key)
+        if donor is not None and donor[0] != slot and \
+                self.ptable.n_pages[donor[0]] > 0:
+            lcp = 0
+            for a, b in zip(tok_host, donor[1]):
+                if a != b:
+                    break
+                lcp += 1
+            shared = min(lcp // self.page_tokens,
+                         self.ptable.n_pages[donor[0]])
+            if cap is not None:
+                shared = min(shared, cap)
+            if shared:
+                self.ptable.share(slot, donor[0], shared)
+        self._prefix_donor[prefix_key] = (slot, tok_host)
+        return shared
+
+    def _alloc_admit_pages(self, slot: int, n: int) -> None:
+        """Grow ``slot`` to ``n`` hot pages for an admission."""
+        for _ in range(self.ptable.n_pages[slot], n):
+            self.ptable.alloc(slot, 0)
 
     def _activate(self, slot: int, S: int, last, budget: int):
         """Flip the slot active; the prompt's last-row logits decode its
@@ -258,32 +419,14 @@ class ContinuousBatcher:
                     self._finish_job(slot, job)
 
     def _start_job(self, slot: int, job: _PrefillJob):
-        """First touch of a job: free the slot's old pages, map shared-prefix
-        full pages onto the donor's (their compute is skipped), and register
-        this prompt as the key's new donor."""
+        """First touch of a job: free the slot's old pages and map the
+        shared-prefix full pages onto the donor's (their compute is
+        skipped)."""
         pg = self.page_tokens
-        for key in [k for k, (s, _) in self._prefix_donor.items()
-                    if s == slot]:
-            del self._prefix_donor[key]
-        self.ptable.free_slot(slot)
-        shared = 0
-        if job.prefix_key is not None:
-            donor = self._prefix_donor.get(job.prefix_key)
-            if donor is not None and donor[0] != slot and \
-                    self.ptable.n_pages[donor[0]] > 0:
-                lcp = 0
-                for a, b in zip(job.tok_host, donor[1]):
-                    if a != b:
-                        break
-                    lcp += 1
-                # full pages of common prefix, pages the donor holds, and
-                # strictly below the prompt's last token (the suffix pass
-                # computes at least the next-token row)
-                shared = min(lcp // pg, self.ptable.n_pages[donor[0]],
-                             (job.S - 1) // pg)
-                if shared:
-                    self.ptable.share(slot, donor[0], shared)
-            self._prefix_donor[job.prefix_key] = (slot, job.tok_host)
+        # strictly below the prompt's last token: the suffix pass computes
+        # at least the next-token row
+        shared = self._share_prefix(slot, job.tok_host, job.prefix_key,
+                                    (job.S - 1) // pg)
         job.shared_pages = shared
         job.done = shared * pg
         job.started = True
@@ -295,8 +438,7 @@ class ContinuousBatcher:
         earlier chunks."""
         pg = self.page_tokens
         first = self.ptable.n_pages[slot]
-        for _ in range(first, -(-end // pg)):
-            self.ptable.alloc(slot, 0)
+        self._alloc_admit_pages(slot, -(-end // pg))
         self.pool.stats["admit_page_writes"] += self.ptable.n_pages[slot] \
             - first
         table, tier = self.pool.arrays()
@@ -337,6 +479,50 @@ class ContinuousBatcher:
         self._note_tenant_pages()
         return torch.argmax(logits[:, -1, :self.cfg.vocab_size], dim=-1)
 
+    def _dense_decode_step(self):
+        """One decode forward on a dense layout (all-HBM, concat or
+        paged-merged) over the merged view of the cache, then the layout's
+        bookkeeping: the write lands in the hot tree, and a slot's rows
+        crossing its cold boundary move to host memory.  Returns the
+        decoded tokens (B,)."""
+        if self.paged is not None:
+            caches = self.paged.merged()
+        elif self.tiered is not None:
+            caches = self.tiered.merged()
+        else:
+            caches = self.caches
+        logits = model.forward(
+            self.params, self.cfg, {"tokens": self.last_tok[:, None]},
+            caches=caches, cache_index=self.lengths, decode=True)
+        if self.paged is not None:
+            self.paged.hot = caches
+            # each active slot's own boundary: a page leaving the slot's hot
+            # window is re-hosted, rows and table alike
+            for s in range(self.B):
+                if not self.active[s]:
+                    continue
+                new_len = self._host_len[s] + 1
+                while self.ptable.n_pages[s] * self.page_tokens < new_len:
+                    self.ptable.alloc(s, 0)    # decode grew into a new page
+                target = self._slot_cold_target(s, new_len)
+                moved = self.paged.demote_rows(s, target)
+                while self.ptable.cold_tokens(s) < target:
+                    self.ptable.demote(s, self.ptable.cold_pages(s))
+                self.sim_migration_bytes += moved * self._row_bytes
+            self._note_tenant_pages()
+        elif self.tiered is not None:
+            self.tiered.hot = kvcache.split_seq_cache(caches,
+                                                      self.cold_len)[1]
+            # a write inside the cold prefix (a short slot) re-hosts that
+            # slot's row only
+            for s in range(self.B):
+                if self.active[s] and self._host_len[s] < self.cold_len:
+                    pos = self._host_len[s]
+                    kvcache.copy_slot_rows(self.tiered.cold, caches, s, pos,
+                                           pos + 1)
+                    self.sim_migration_bytes += self._row_bytes
+        return torch.argmax(logits[:, -1, :self.cfg.vocab_size], dim=-1)
+
     def step(self):
         """Admission, then one lockstep decode step across all active
         slots; each slot writes its KV at its own length.  Returns False
@@ -352,7 +538,10 @@ class ContinuousBatcher:
                 self._mig_accounted = self.sim_migration_bytes
                 return True
             return False
-        tok = self._pool_decode_step()
+        if self.pool is not None:
+            tok = self._pool_decode_step()
+        else:
+            tok = self._dense_decode_step()
         self.decode_steps += 1
         self.last_tok = tok
         self.lengths = self.lengths + self._active_inc
@@ -364,7 +553,7 @@ class ContinuousBatcher:
             self._host_len[slot] += 1
             self.outputs[slot].append(tok_host[slot])
             self.budget[slot] -= 1
-            if self.budget[slot] <= 0:
+            if self.budget[slot] <= 0 or tok_host[slot] == self.scfg.eos_id:
                 self.active[slot] = False
         if self.active != was_active:
             self._refresh_active()
@@ -383,6 +572,9 @@ class ContinuousBatcher:
         attributed to the next step's ``step_migration_bytes`` entry,
         exactly as ``predict_pool_counters(..., plan_schedule=...)``
         replays it."""
+        if self.pool is None:
+            raise ValueError("apply_plan requires the persistent-pools "
+                             "layout (paged=True, cfg.use_paged_decode)")
         if hasattr(new_plan, "changes"):       # a PlanDelta, not a plan
             new_plan = self.plan.apply_delta(new_plan)
         page = max(1, new_plan.page_tokens)
@@ -418,14 +610,15 @@ class ContinuousBatcher:
         out = {"sim_migration_bytes": self.sim_migration_bytes,
                "step_migration_bytes": list(self.step_migration_bytes),
                "tenant_hot_peak": dict(self.tenant_hot_peak),
-               "table_version": self.ptable.version,
+               "table_version": self.ptable.version if self.ptable else 0,
                "prefill_compute_tokens": self.prefill_compute_tokens,
                "prefill_skipped_tokens": self.prefill_skipped_tokens,
                "prefill_read_bytes":
                    self.prefill_skipped_tokens * self._row_bytes,
                "step_prefill_tokens": list(self.step_prefill_tokens),
                "decode_steps": self.decode_steps}
-        out.update(self.pool.stats)
+        if self.pool is not None:
+            out.update(self.pool.stats)
         return out
 
     def run(self):
@@ -842,3 +1035,25 @@ def serve_trace_for(cfg, requests: Sequence[tuple], *, slots: int,
         flops_per_token=2.0 * n_params,
         weight_bytes=float(n_params) * dtype_bytes,
         shared_prefix_tokens=shared_prefix_tokens)
+
+
+def generate(params, cfg, prompts, num_tokens: int,
+             scfg: Optional[ServeConfig] = None, generator=None):
+    """Prefill ``prompts["tokens"]`` (B, S) into a dense cache, then decode
+    ``num_tokens`` tokens per row in lockstep.  Returns (B, num_tokens).
+    Temperature sampling draws from ``generator`` (a ``torch.Generator``
+    on the prompts' device); JAX's random stream is not reproduced."""
+    scfg = scfg or ServeConfig()
+    tokens = prompts["tokens"]
+    S = tokens.shape[1]
+    max_seq = max(scfg.max_seq, S + num_tokens)
+    last, caches = model.prefill(params, cfg, prompts, max_seq=max_seq)
+    step_fn = make_serve_step(cfg)
+    tok = sample(last[..., :cfg.vocab_size], generator, scfg.temperature)
+    outs = [tok]
+    for i in range(num_tokens - 1):
+        logits, caches = step_fn(params, tok[:, None], caches, S + i)
+        tok = sample(logits[..., :cfg.vocab_size], generator,
+                     scfg.temperature)
+        outs.append(tok)
+    return torch.stack(outs, dim=1)

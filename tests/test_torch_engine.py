@@ -88,7 +88,8 @@ def setup(r1_patch):
                                 use_paged_decode=True)
     params_j, _ = split_params(ref_model.init_params(jax.random.PRNGKey(0),
                                                      cfg_j))
-    cfg_t = get_config("smollm-360m").reduced()
+    cfg_t = dataclasses.replace(get_config("smollm-360m").reduced(),
+                                use_paged_decode=True)
     params_t = params_from_jax(cfg_t, jax.tree.map(np.asarray, params_j),
                                device="cpu")
     trace = ref_engine.serve_trace_for(ref_config("smollm-360m"),
@@ -157,13 +158,13 @@ def runs(setup):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(model, "forward", _recording(model, log_t, lambda r: r))
             b_t = ContinuousBatcher(params_t, cfg_t, SLOTS, MAX_SEQ,
-                                    plan=plan_t, device="cpu")
+                                    plan=plan_t, paged=True, device="cpu")
             for toks, d, key, tn in case["reqs"]:
                 b_t.submit(torch.from_numpy(toks), d, prefix_key=key,
                            tenant=tn)
             out_t = _drive(b_t)
         b_h = ContinuousBatcher(params_t, cfg_t, SLOTS, MAX_SEQ, plan=all_hot,
-                                device="cpu")
+                                paged=True, device="cpu")
         for toks, d, key, tn in case["reqs"]:
             b_h.submit(torch.from_numpy(toks), d, prefix_key=key, tenant=tn)
         out_h = _drive(b_h)

@@ -115,7 +115,8 @@ def test_mamba_block_matches_reference(setup):
     want, new_cache = ref_ssm.mamba_block(
         params_j["stack"]["prologue"][0]["mamba"], cfg_j, jnp.asarray(x),
         cache=cache)
-    got, h = params_t.prologue[0].mamba(cfg_t, torch.from_numpy(x))
+    got, state = params_t.prologue[0].mamba(cfg_t, torch.from_numpy(x))
+    h = state["h"]
     _, H, P, N, _ = ssm.dims(cfg_t)
     assert h.shape == (2, H, P, N) and h.dtype == torch.float32
     _close(got, want)

@@ -2,6 +2,7 @@
 chip_smoke.py loads JAX or the reference package, and the entry points
 refuse to fall back to the CPU when no card is present."""
 import ast
+import dataclasses
 import json
 import os
 import pkgutil
@@ -33,7 +34,11 @@ def test_port_modules_import_no_jax_and_no_reference():
             "repro_torch.kernels.ssd", "repro_torch.models.ssm",
             "repro_torch.configs.zamba2_7b",
             "repro_torch.kernels.flash_attention",
-            "repro_torch.kernels.decode_attention"} <= set(mods)
+            "repro_torch.kernels.decode_attention",
+            "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+            "repro_torch.models.kvcache", "repro_torch.models.attention",
+            "repro_torch.models.transformer", "repro_torch.models.model",
+            "repro_torch.configs.base"} <= set(mods)
     assert {f"repro_torch.runtime.{m}" for m in (
         "objects", "costmodel", "tiergraph", "policies", "plan", "online",
         "synthetic")} <= set(mods)
@@ -68,14 +73,18 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
 
 def test_entry_points_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = get_config("smollm-360m").reduced()
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              use_paged_decode=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init_params(cfg)
     params = model.init_params(cfg, device="cpu")
     plan = PlacementPlan(hot_window=16, page_tokens=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        ContinuousBatcher(params, cfg, 2, 32, plan=plan)
-    ContinuousBatcher(params, cfg, 2, 32, plan=plan, device="cpu")
+        ContinuousBatcher(params, cfg, 2, 32, plan=plan, paged=True)
+    ContinuousBatcher(params, cfg, 2, 32, plan=plan, paged=True,
+                      device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ContinuousBatcher(params, cfg, 2, 32)      # all-HBM
     hybrid = get_config("zamba2-7b").reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init_params(hybrid)
@@ -83,20 +92,30 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_unported_layouts_raise():
-    """The pools are the one cache layout ported: a dense per-slot cache
-    raises, naming the ROADMAP item that ports it.  An incremental re-plan
-    is ported and applies only against the plan it was diffed from."""
+    """All four engine layouts are ported; a cache of a kind that is not (a
+    latent MLA cache) raises, naming the ROADMAP item that ports it.  As in
+    the reference, paged=True needs a plan and a re-plan applies to the
+    pools only; an incremental re-plan applies only against the plan it was
+    diffed from."""
     cfg = get_config("smollm-360m").reduced()
     params = model.init_params(cfg, device="cpu")
-    dense = {"k": torch.zeros(1, 8, cfg.num_kv_heads, cfg.head_dim),
-             "v": torch.zeros(1, 8, cfg.num_kv_heads, cfg.head_dim)}
+    latent = {"ckv": torch.zeros(1, 8, 32), "krope": torch.zeros(1, 8, 8)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.forward(params, cfg, {"tokens": torch.zeros(1, 1, dtype=int)},
-                      caches=[dense] * cfg.num_layers,
+                      caches=[latent] * cfg.num_layers,
                       cache_index=torch.zeros(1, dtype=torch.int32),
                       decode=True)
-    b = ContinuousBatcher(params, cfg, 2, 32,
-                          plan=PlacementPlan(page_tokens=4), device="cpu")
+    with pytest.raises(ValueError, match="requires a plan"):
+        ContinuousBatcher(params, cfg, 2, 32, paged=True, device="cpu")
+    plan = PlacementPlan(page_tokens=4)
+    for paged in (False, True):              # concat and paged-merged
+        b = ContinuousBatcher(params, cfg, 2, 32, plan=plan, paged=paged,
+                              device="cpu")
+        with pytest.raises(ValueError, match="persistent-pools"):
+            b.apply_plan(plan)
+    b = ContinuousBatcher(params, dataclasses.replace(
+        cfg, use_paged_decode=True), 2, 32, plan=plan, paged=True,
+        device="cpu")
     with pytest.raises(ValueError, match="emission order"):
         b.apply_plan(PlanDelta(base_digest="0" * 16, changes={}))
 
@@ -112,15 +131,20 @@ def test_port_names_no_tpu_machine():
 
 
 def test_cached_hybrid_path_raises():
-    """The zamba2 hybrid runs without a cache only: the engine refuses it,
-    and a MAMBA layer given a cache raises, naming the ROADMAP items."""
-    cfg = get_config("zamba2-7b").reduced()
+    """The zamba2 hybrid serves on every layout, but on the pools it admits
+    by one dense prefill, so a prefill chunk budget is refused, as the
+    reference refuses it; a MAMBA decode needs one token and a cache."""
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(),
+                              use_paged_decode=True)
     params = model.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(params, cfg, 2, 32,
-                          plan=PlacementPlan(page_tokens=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    plan = PlacementPlan(page_tokens=4, prefill_chunk_tokens=8)
+    with pytest.raises(ValueError, match="prefill_chunk_tokens"):
+        ContinuousBatcher(params, cfg, 2, 32, plan=plan, paged=True,
+                          device="cpu")
+    b = ContinuousBatcher(params, cfg, 2, 32, plan=plan, paged=True,
+                          prefill_chunk_tokens=0, device="cpu")
+    assert not b._pool_prefill_ok
+    with pytest.raises(ValueError, match="one token and a cache"):
         model.forward(params, cfg, {"tokens": torch.zeros(1, 1, dtype=int)},
-                      caches=[{}] * cfg.num_layers,
                       cache_index=torch.zeros(1, dtype=torch.int32),
                       decode=True)

@@ -51,7 +51,7 @@ def k1_case(B, S, H, KVH, D, page, seed=11, free_last=False):
     kd = torch.from_numpy(rng.standard_normal((B, S, KVH, D), np.float32))
     vd = torch.from_numpy(rng.standard_normal((B, S, KVH, D), np.float32))
     lengths = [S - 1 - (5 * b) % (S // 2) for b in range(B)]
-    kh, vh, kc, vc, tab, tier = ref.pack_kv_pools(
+    kh, vh, kc, vc, tab, tier = pd.pack_kv_pools(
         kd, vd, [n // 2 for n in lengths], page)
     for b, n in enumerate(lengths):
         used = 0 if free_last and b == B - 1 else -(-n // page)

@@ -114,7 +114,7 @@ def test_pack_kv_pools_matches_reference():
     vc = rng.standard_normal((3, 64, 2, 16), np.float32)
     cold = [16, 0, 40]
     want = pack_kv_pools(jnp.asarray(kc), jnp.asarray(vc), cold, 8)
-    got = ref.pack_kv_pools(torch.from_numpy(kc), torch.from_numpy(vc), cold,
-                            8)
+    got = pd.pack_kv_pools(torch.from_numpy(kc), torch.from_numpy(vc), cold,
+                           8)
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w))

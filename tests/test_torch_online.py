@@ -137,7 +137,8 @@ def replan_run(r1_patch):
                                 use_paged_decode=True)
     params_j, _ = split_params(ref_model.init_params(jax.random.PRNGKey(0),
                                                      cfg_j))
-    cfg_t = get_config("smollm-360m").reduced()
+    cfg_t = dataclasses.replace(get_config("smollm-360m").reduced(),
+                                use_paged_decode=True)
     params_t = params_from_jax(cfg_t, jax.tree.map(np.asarray, params_j),
                                device="cpu")
     rng = np.random.default_rng(3)
@@ -153,11 +154,12 @@ def replan_run(r1_patch):
                                   for t, d, tn in toks], ref_sched)
     reqs_t = [(torch.from_numpy(t), d, tn) for t, d, tn in toks]
     b = ContinuousBatcher(params_t, cfg_t, SLOTS, MAX_SEQ, plan=plan_a,
-                          device="cpu")
+                          paged=True, device="cpu")
     out, moved = _drive(b, reqs_t, sched)
     all_hot = dataclasses.replace(plan_a, slot_hot_windows=[MAX_SEQ] * SLOTS)
     out_h, _ = _drive(ContinuousBatcher(params_t, cfg_t, SLOTS, MAX_SEQ,
-                                        plan=all_hot, device="cpu"), reqs_t)
+                                        plan=all_hot, paged=True,
+                                        device="cpu"), reqs_t)
     lens = [(len(t), d, tn) for t, d, tn in toks]
     pred = {}
     for name, ns, p, s in (("ref", REF, ref_a, ref_sched),
