@@ -69,7 +69,35 @@ Phases, each printing its own lines:
      launches == decode steps x 16 (the shared block's uses), counters ==
      predict_pool_counters(dense_admit=True); prefill ms per admission,
      decode tokens/s, the pure-decode step, peak memory and a profile;
-  5. the attention entry points ops.flash_attention (K2) and
+  5. the training side:
+     5a. ops.ssd under autograd (K4's forward, the plain version's
+         backward) against the plain version's forward and backward over
+         the reference's SSD sweep, with h0, and at zamba2-7b's layer: y,
+         h and every input gradient within K4's limits, K4 launches ==
+         forward calls; K4's forward time beside the plain backward's;
+     5b. smollm-360m and zamba2-7b reduced in fp32, the card against the
+         CPU from the same parameters: loss and gradients in the four
+         Sentinel modes at MI 1 and 2, the offload counter (carries and
+         bytes) against estimate_offload_traffic, K4's launches; and adamw.update with
+         its moments streamed from pinned host memory against the same
+         update with them on the card (identical);
+     5c. smollm-360m at full width and depth (bf16, B 8 x S 1024): the
+         training CLI for 2 steps; the step profiled on the meta device and
+         planned on H100_COST; 6 steps in each mode (full, remat, save_hbm,
+         offload at the planned MI) from one state: losses and gradient
+         norms agree step by step, and a planted fault (one block's carry
+         zeroed) moves the gradient norm past that limit; offload's
+         carries out and back == estimate_offload_traffic, offload's peak
+         below full's and its rise below save_hbm's by the carries it
+         moved off the card; step time, tokens/s, peak memory and
+         device-busy share of each mode, offload's time and memory over
+         full's;
+     5d. zamba2-7b at full width and depth (bf16, B 1 x S 4096), offload at
+         the planned MI with the AdamW moments in pinned host memory, 2
+         steps on a repeated batch: the loss finite and falling, K4 65
+         times a forward and 64 a recompute; step time, adamw.update's
+         time, peak memory, pinned host bytes;
+  6. the attention entry points ops.flash_attention (K2) and
      ops.decode_attention (K3), which no model path of the reference calls:
      - both kernels against their plain versions over the reference's
        sweeps in f32 and bf16, window/softcap cases, Sq < Skv, ragged Sq,
@@ -108,6 +136,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2194,6 +2223,557 @@ def k3_record(serving, long_run):
                  "splits", "one_split_ms"), long_timed))}
 
 
+# ------------------------------------------------------------- training ----
+
+SMOLLM_TRAIN = (8, 1024)             # B x S of phase 5c
+ZAMBA_TRAIN = (1, 4096)              # B x S of phase 5d
+TRAIN_STEPS = 6                      # steps a mode in phase 5c
+MODES = ("full", "remat", "save_hbm", "offload")
+# phase 5b: float32 on the card (no TF32) against the CPU, as phase 4's
+# reduced check holds the logits
+SMALL_LOSS_TOL = dict(atol=1e-4, rtol=0.0)
+SMALL_GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
+# phase 5c: each mode's loss and gradient norm (before clipping) against
+# the full mode's, step by step.  The modes run the same kernels on the
+# same inputs (a block's recompute repeats its forward), and the card reads
+# them equal to the bit; the limits leave room for a reordered reduction
+# only.  A planted fault, one block's carry zeroed before its recompute,
+# must move the gradient norm past its limit, or the gate could not see a
+# wrong gradient.
+MODE_LOSS_RTOL = 2.0 ** -16
+MODE_GNORM_RTOL = 2.0 ** -10
+
+
+def k4_grad_inputs(shape, dtype, seed, *, with_h0=False, model_layout=False):
+    """Leaf tensors for the SSD scan under autograd (drawn as k4_case draws
+    them; ``model_layout``: one (B, S, H*P + 2N) leaf that x, B and C are
+    slices of, as in MambaBlock) and a function of the leaves giving the
+    scan's inputs."""
+    import torch
+    import torch.nn.functional as F
+    B, S, H, P, N, chunk = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*sh):
+        return torch.randn(*sh, generator=g, device="cuda")
+
+    if model_layout:
+        leaves = {"xBC": (randn(B, S, H * P + 2 * N) * 0.5).to(dtype)}
+    else:
+        leaves = {k: (randn(*sh) * 0.5).to(dtype) for k, sh in (
+            ("x", (B, S, H, P)), ("Bm", (B, S, N)), ("Cm", (B, S, N)))}
+    leaves["dt"] = F.softplus(randn(B, S, H)).to(dtype)
+    leaves["A"] = -torch.exp(randn(H) * 0.3)
+    if with_h0:
+        leaves["h0"] = randn(B, H, P, N) * 0.5
+
+    def inputs(lv):
+        if model_layout:
+            xbc = lv["xBC"]
+            x = xbc[..., :H * P].reshape(B, S, H, P)
+            Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+        else:
+            x, Bm, Cm = lv["x"], lv["Bm"], lv["Cm"]
+        return (x, lv["dt"], lv["A"], Bm, Cm), dict(chunk=chunk,
+                                                   h0=lv.get("h0"))
+    up = (randn(B, S, H, P), randn(B, H, P, N))    # dL/dy, dL/dh
+    return leaves, inputs, up
+
+
+def _grad_close(got, want, what):
+    """A gradient against the plain version's, scaled by the larger of 1
+    and the plain gradient's largest magnitude, within K4's limits for its
+    dtype (gradients sum over the sequence, so their scale grows with S)."""
+    scale = max(1.0, float(want.float().abs().max()))
+    return scale * _k4_close(got / scale, want / scale, what)
+
+
+def check_ssd_autograd(card):
+    """Phase 5a: ops.ssd under autograd on the card (K4's forward, the plain
+    version's backward) against ssd_chunked_ref's forward and backward on
+    the same leaves and upstream gradients, over the reference's SSD sweep
+    in f32 and bf16, a start state h0, and zamba2-7b's layer (S 4096, H
+    112, P = N = 64, bf16, the model's layout): y, h and the gradient of
+    every leaf held to K4's limits.  K4's launches must equal the forward
+    calls.  Then, at zamba2's layer, K4's forward time beside the plain
+    backward's (the gradient through the autograd function: the plain scan
+    recomputed and differentiated).  Returns those times."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd as k4
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(s, dt, {}) for s in K4_SWEEP for dt in (f32, bf16)]
+    cases += [((2, 64, 4, 16, 16, 16), dt, {"with_h0": True})
+              for dt in (f32, bf16)]
+    cases += [(K4_FULL, bf16, {"model_layout": True})]
+    reset_counts()
+    forwards, worst = 0, {}
+    for i, (shape, dtype, opt) in enumerate(cases):
+        leaves, inputs, (wy, wh) = k4_grad_inputs(shape, dtype, 300 + i,
+                                                  **opt)
+        out = {}
+        for name, fn in (("kernel", ops.ssd), ("plain", ref.ssd_chunked_ref)):
+            lv = {k: v.detach().clone().requires_grad_() for k, v in
+                  leaves.items()}
+            args, kw = inputs(lv)
+            y, h = fn(*args, **kw)
+            loss = (y.float() * wy).sum() + (h * wh).sum()
+            grads = torch.autograd.grad(loss, list(lv.values()))
+            out[name] = (y.detach(), h.detach(), dict(zip(lv, grads)))
+            forwards += name == "kernel"
+        torch.cuda.synchronize()
+        what = f"autograd {shape} {dtype} {opt}"
+        errs = [_k4_close(out["kernel"][0], out["plain"][0], what + " y"),
+                _k4_close(out["kernel"][1], out["plain"][1], what + " h")]
+        errs += [_grad_close(out["kernel"][2][k], out["plain"][2][k],
+                             f"{what} d{k}") for k in leaves]
+        key = "full" if shape == K4_FULL else str(dtype).split(".")[-1]
+        worst[key] = max(worst.get(key, 0.0), max(errs))
+    launches = k4.ssd.launches
+    if launches != forwards:
+        raise AssertionError(f"ssd autograd: {launches} K4 launches for "
+                             f"{forwards} forward calls")
+    print(f"ssd autograd check: {len(cases)} cases (sweep f32 and bf16, h0, "
+          f"zamba2's layer bf16): y, h and every leaf's gradient == the "
+          f"plain version's forward and backward within K4's limits "
+          f"(gradients scaled by max(1, their largest magnitude)); max_abs_"
+          f"err " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) +
+          f"; {launches} K4 launches = {forwards} forward calls, none in the "
+          f"backward", flush=True)
+
+    leaves, inputs, (wy, _) = k4_grad_inputs(K4_FULL, bf16, 399,
+                                             model_layout=True)
+    lv = {k: v.requires_grad_() for k, v in leaves.items()}
+    args, kw = inputs(lv)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: ops.ssd(*args, **kw), reps=10)
+    y, _ = ops.ssd(*args, **kw)
+    gy = wy.to(y.dtype)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(
+        y, list(lv.values()), gy, retain_graph=True), reps=5)
+    plain_ms = time_ms(lambda: ref.ssd_chunked_ref(*args, **kw), reps=5)
+    print(f"ssd autograd time at zamba2's layer (B1 S4096 H112 P64 N64 "
+          f"bf16): K4 forward {fwd_ms:.4f} ms; plain backward (the scan "
+          f"recomputed and differentiated) {bwd_ms:.3f} ms, "
+          f"{bwd_ms / fwd_ms:.1f} times the forward; plain forward "
+          f"{plain_ms:.3f} ms [{card}]", flush=True)
+    return {"train_fwd_ms": fwd_ms, "train_plain_bwd_ms": bwd_ms}
+
+
+def _blocked_mambas(cfg, scfg):
+    """K4 launches of one train step: every Mamba layer once in the
+    forward, and the period layers' once more in their block's recompute
+    (the prologue runs outside the blocks, as in the reference)."""
+    from repro_torch.configs.base import MAMBA
+    n = _n_mamba(cfg)
+    recompute = n - sum(k == MAMBA for k in cfg.prologue)
+    return n + (recompute if scfg.uses_blocks else 0)
+
+
+def check_train_small():
+    """Phase 5b: smollm-360m and zamba2-7b reduced, fp32, parameters from
+    seed 0 on the CPU and the same values on the card: the loss and every
+    gradient on the card (K4 forward, plain backward) == on the CPU (plain
+    version), in all four modes at MI 1 and 2; the offload counter on the
+    card == estimate_offload_traffic, and K4's launches == Mamba layers
+    forward + recomputed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import offload
+    from repro_torch.core.profiler import TraceProfile
+    from repro_torch.kernels import ssd as k4
+    from repro_torch.models.model import init_params, loss_fn
+    worst = 0.0
+    runs = 0
+    for arch in ("smollm-360m", "zamba2-7b"):
+        cfg = get_config(arch).reduced()
+        cpu = init_params(cfg, seed=0, device="cpu", requires_grad=True)
+        gpu = copy.deepcopy(cpu).to("cuda")
+        toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 17))
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+                 "labels": torch.from_numpy(toks[:, 1:])}
+        prof = TraceProfile(num_periods=cfg.num_periods, num_steps=0)
+        for mode in MODES:
+            for mi in (1, 2):
+                scfg = offload.SentinelConfig(mode=mode, mi_periods=mi)
+                got = {}
+                for dev, p in (("cuda", gpu), ("cpu", cpu)):
+                    reset_counts()
+                    offload.reset_traffic()
+                    loss = loss_fn(p, cfg, {k: v.to(dev) for k, v in
+                                            batch.items()},
+                                   **offload.loss_kwargs(scfg))
+                    grads = torch.autograd.grad(loss, list(p.parameters()))
+                    got[dev] = (loss.detach().cpu(), [g.cpu() for g in grads],
+                                dict(offload.traffic), k4.ssd.launches)
+                what = f"{arch} reduced {mode} mi {mi}"
+                torch.testing.assert_close(
+                    got["cuda"][0], got["cpu"][0], **SMALL_LOSS_TOL,
+                    msg=lambda m: f"{what} loss: {m}")
+                for a, b in zip(got["cuda"][1], got["cpu"][1]):
+                    torch.testing.assert_close(
+                        a, b, **SMALL_GRAD_TOL,
+                        msg=lambda m: f"{what} grad: {m}")
+                    worst = max(worst, float((a - b).abs().max()))
+                carry = 2 * 16 * cfg.d_model * 4
+                want = offload.estimate_offload_traffic(
+                    prof, mi, carry)["bytes_offloaded"] \
+                    if mode == "offload" else 0
+                blocks = offload.estimate_offload_traffic(
+                    prof, mi, carry)["blocks"] if mode == "offload" else 0
+                tr = got["cuda"][2]
+                if tr["d2h"] + tr["h2d"] != want or \
+                        tr["out"] != tr["in"] or tr["in"] != blocks:
+                    raise AssertionError(f"{what}: offloaded {tr}, estimate "
+                                         f"{want} B in {blocks} carries")
+                if got["cuda"][3] != _blocked_mambas(cfg, scfg):
+                    raise AssertionError(f"{what}: {got['cuda'][3]} K4 "
+                                         f"launches")
+                runs += 1
+    print(f"small training check: {runs} runs (smollm-360m and zamba2-7b "
+          f"reduced, fp32, 4 modes x MI 1 and 2): loss and every gradient "
+          f"on the card == on the CPU (loss atol "
+          f"{SMALL_LOSS_TOL['atol']:g}; gradients atol "
+          f"{SMALL_GRAD_TOL['atol']:g} + rtol {SMALL_GRAD_TOL['rtol']:g}), "
+          f"max_abs_err {worst:.3e}; offload bytes == "
+          f"estimate_offload_traffic, K4 launches == Mamba layers forward "
+          f"+ recomputed", flush=True)
+
+
+def check_adamw_streamed():
+    """Phase 5b, the optimizer: adamw.update with its moments in pinned
+    host memory (streamed through the card leaf by leaf on the side
+    stream) against the same update with the moments on the card, three
+    steps of the same gradients, with and without the int8 compressor:
+    the same arithmetic on the same device, so parameters and state must
+    be identical, bit for bit."""
+    import torch
+    from repro_torch.optim import adamw
+    g = torch.Generator(device="cuda").manual_seed(11)
+    shapes = {"w_in": (960, 2560), "ln": (960,), "table": (4096, 960),
+              "w_out": (2560, 960)}
+    for compress in (False, True):
+        cfg = adamw.OptConfig(lr=1e-2, warmup_steps=1, total_steps=4,
+                              compress_grads=compress)
+        p0 = {k: torch.randn(sh, generator=g, device="cuda").to(
+            torch.bfloat16) for k, sh in shapes.items()}
+        grads = [{k: torch.randn(sh, generator=g, device="cuda").to(
+            torch.bfloat16) * 4 for k, sh in shapes.items()}
+            for _ in range(3)]
+        out = {}
+        for on_host in (False, True):
+            params = {k: v.clone() for k, v in p0.items()}
+            state = adamw.init(params, cfg, offload=on_host)
+            if on_host != state["m"]["ln"].is_pinned():
+                raise AssertionError("adamw: moments not placed as asked")
+            for gr in grads:
+                adamw.update(gr, state, params, cfg)
+            out[on_host] = (params, state)
+        for key in ("m", "v") + (("ef",) if compress else ()):
+            for k in shapes:
+                if not torch.equal(out[True][1][key][k].cuda(),
+                                   out[False][1][key][k]):
+                    raise AssertionError(f"adamw streamed {key}[{k}] differs")
+        for k in shapes:
+            if not torch.equal(out[True][0][k], out[False][0][k]):
+                raise AssertionError(f"adamw streamed params[{k}] differ")
+    print("adamw check: 3 steps with the moments streamed from pinned host "
+          "memory == with the moments on the card, bit for bit (params, "
+          "m, v, and ef with the int8 compressor)", flush=True)
+
+
+def plan_step(cfg, B, S, card, **kw):
+    """Profile one step of ``cfg`` on the meta device, plan it on H100_COST
+    at 0.3 of the profile's peak (the CLI's default) and turn the plan
+    into a SentinelConfig.  Returns (profile, plan, config)."""
+    from repro_torch import runtime
+    from repro_torch.core.offload import from_plan
+    from repro_torch.launch.train import profile_step
+    t0 = time.perf_counter()
+    prof = profile_step(cfg, B, S)
+    t1 = time.perf_counter()
+    plan = runtime.plan(prof, runtime.H100_COST, 0.3 * prof.peak_bytes())
+    scfg = from_plan(prof, plan, **kw)
+    print(f"{cfg.name} plan: profiled {len(prof.objects)} data objects of "
+          f"one B {B} x S {S} step on the meta device in {t1 - t0:.1f} s "
+          f"(peak {prof.peak_bytes() / 1e9:.3f} GB, RS "
+          f"{prof.rs_bytes(1) / 1e9:.3f} GB, matmul "
+          f"{prof.matmul_flops / 1e12:.3f} TFLOP); runtime.plan on H100_COST "
+          f"at 0.3 of the peak in {time.perf_counter() - t1:.1f} s: MI "
+          f"{plan.mi} steps -> {scfg.mi_periods} periods of "
+          f"{cfg.num_periods}", flush=True)
+    return prof, plan, scfg
+
+
+def train_smollm(card):
+    """Phase 5c: smollm-360m at full width and depth, bf16, B 8 x S 1024
+    from make_batch.  The training CLI once (2 steps: profile, plan,
+    loop.run); then the planned config in each of the four modes for
+    TRAIN_STEPS steps from the same state: the losses and gradient norms
+    step by step, the step time (median of the last 4), tokens/s, peak
+    device memory (and its rise above the memory held when the mode
+    starts), a profile of one more step (device-busy share, the top
+    device ops), and for offload the bytes that went to pinned host
+    memory and back in each step.  Then one offload step from the same
+    state with one block's carry zeroed before its recompute, and one with
+    it off by one bf16 rounding (planted faults).  Fails unless every
+    mode's losses and gradient norms are full's within MODE_LOSS_RTOL and
+    MODE_GNORM_RTOL, the zeroed carry's gradient norm is not, offload's bytes equal estimate_offload_traffic's
+    to the byte in every step, offload's peak is below full's, and its
+    rise is below save_hbm's (the same blocks with the carries on the
+    card) by all but the two carries its backward holds at a time."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import offload
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import loop
+    t0 = time.perf_counter()
+    cfg = get_config("smollm-360m")
+    B, S = SMOLLM_TRAIN
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        out = train.main(["--arch", cfg.name, "--steps", "2", "--batch",
+                          str(B), "--seq", str(S), "--ckpt-dir", ckpt_dir])
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"training CLI: losses {out['losses']}")
+    del out
+    torch.cuda.empty_cache()
+    prof, plan, planned = plan_step(cfg, B, S, card)
+    ocfg = OptConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    dcfg = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=S,
+                      global_batch=B)
+    batches = [make_batch(dcfg, s) for s in range(TRAIN_STEPS)]
+    state = loop.init_state(cfg, ocfg, seed=0)
+    init = [p.detach().clone() for p in state["params"].parameters()]
+    carry = B * S * cfg.d_model * 2
+    est = offload.estimate_offload_traffic(prof, planned.mi_periods, carry)
+
+    def restart():
+        with torch.no_grad():
+            for p, p0 in zip(state["params"].parameters(), init):
+                p.copy_(p0)
+            for k in ("m", "v"):
+                for t in state["opt"][k].values():
+                    t.zero_()
+            state["opt"]["count"].zero_()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    res = {}
+    for mode in MODES:
+        held = restart()
+        scfg = dataclasses.replace(planned, mode=mode)
+        step = loop.make_train_step(cfg, scfg, ocfg)
+        losses, gnorms, times, moved = [], [], [], []
+        for s in range(TRAIN_STEPS):
+            offload.reset_traffic()
+            ts = time.perf_counter()
+            state, m = step(state, batches[s])
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - ts)
+            moved.append(dict(offload.traffic))
+        peak = torch.cuda.max_memory_allocated()
+        res[mode] = dict(losses=losses, gnorms=gnorms, peak=peak,
+                         rise=peak - held, moved=moved,
+                         ms=1e3 * float(np.median(times[2:])))
+        print(f"smollm-360m train {mode} (MI {scfg.mi_periods}): losses "
+              f"{', '.join(f'{x:.5f}' for x in losses)}; gradient norms "
+              f"{', '.join(f'{x:.6g}' for x in gnorms)}; step "
+              f"{res[mode]['ms']:.1f} ms (median of the last "
+              f"{TRAIN_STEPS - 2}: "
+              f"{', '.join(f'{1e3 * t:.1f}' for t in times)}), "
+              f"{B * S / (res[mode]['ms'] * 1e-3):.0f} tokens/s; peak device "
+              f"memory {peak / 1e9:.2f} GB ({peak - held} B above the "
+              f"{held} B held at the start)" +
+              (f"; {moved[0]['d2h']} B to pinned host and {moved[0]['h2d']} "
+               f"B back a step" if mode == "offload" else "") + f" [{card}]",
+              flush=True)
+        wall_us, rows = device_profile(lambda: step(state, batches[0]), 1)
+        print_profile(f"smollm-360m train {mode}", wall_us, rows, 1, card,
+                      top=8)
+
+    # planted faults: the middle block recomputes from a zeroed carry (the
+    # gate must see it), or from its carry off by one bf16 rounding, 2**-7
+    # of it (the smallest wrong carry: its reading is printed)
+    fault_block = est["blocks"] // 2
+    ref_loss, ref_gn = res["full"]["losses"][0], res["full"]["gnorms"][0]
+    get = offload.CarryStore.get
+    faults = {}
+    for name, wrong in (("zeroed", torch.zeros_like),
+                        ("off by 2**-7", lambda x: x * (1 + 2.0 ** -7))):
+        def planted(store, b, wrong=wrong):
+            x = get(store, b)
+            return wrong(x) if b == fault_block else x
+
+        restart()
+        offload.CarryStore.get = planted
+        try:
+            _, m = loop.make_train_step(cfg, planned, ocfg)(state,
+                                                            batches[0])
+            fault = (float(m["loss"]), float(m["grad_norm"]))
+        finally:
+            offload.CarryStore.get = get
+        faults[name] = abs(fault[1] - ref_gn) / ref_gn
+        print(f"smollm-360m train, planted fault (offload, block "
+              f"{fault_block} of {est['blocks']} recomputed from its carry "
+              f"{name}, step 0): loss {fault[0]:.5f} against full's "
+              f"{ref_loss:.5f} (|diff| {abs(fault[0] - ref_loss):.3e}); "
+              f"gradient norm {fault[1]:.6g} against {ref_gn:.6g}, "
+              f"{faults[name]:.3e} of it, "
+              f"{faults[name] / MODE_GNORM_RTOL:.1f} times the limit "
+              f"{MODE_GNORM_RTOL:g} [{card}]", flush=True)
+    if not faults["zeroed"] > MODE_GNORM_RTOL:
+        raise AssertionError(f"smollm-360m train: a zeroed carry moves the "
+                             f"gradient norm by {faults['zeroed']:.3e}, "
+                             f"inside the limit {MODE_GNORM_RTOL:g}")
+
+    loss_gap = gn_gap = 0.0
+    for mode in MODES[1:]:
+        for s in range(TRAIN_STEPS):
+            a, b = res[mode]["losses"][s], res["full"]["losses"][s]
+            g, h = res[mode]["gnorms"][s], res["full"]["gnorms"][s]
+            if not (np.isfinite(a) and abs(a - b) <= MODE_LOSS_RTOL * abs(b)
+                    and np.isfinite(g) and abs(g - h) <= MODE_GNORM_RTOL * h):
+                raise AssertionError(f"smollm-360m train: {mode} at step "
+                                     f"{s}: loss {a}, gradient norm {g}; "
+                                     f"full's {b}, {h}")
+            loss_gap = max(loss_gap, abs(a - b) / abs(b))
+            gn_gap = max(gn_gap, abs(g - h) / h)
+    for s, mv in enumerate(res["offload"]["moved"]):
+        if mv["d2h"] + mv["h2d"] != est["bytes_offloaded"] or \
+                mv["d2h"] != mv["h2d"] or \
+                mv["out"] != mv["in"] or mv["in"] != est["blocks"]:
+            raise AssertionError(f"smollm-360m offload step {s}: {mv}, "
+                                 f"estimate {est}")
+    if not res["offload"]["peak"] < res["full"]["peak"]:
+        raise AssertionError("smollm-360m: offload's peak is not below "
+                             "full's")
+    kept = res["save_hbm"]["rise"] - res["offload"]["rise"]
+    if kept < (est["blocks"] - 2) * carry:
+        raise AssertionError(f"smollm-360m: offload's peak rise is "
+                             f"{kept} B below save_hbm's, less than "
+                             f"{est['blocks'] - 2} carries of {carry} B")
+    print(f"smollm-360m train: the four modes agree step by step with full "
+          f"(loss: max {loss_gap:.3e} of it, limit {MODE_LOSS_RTOL:g}; "
+          f"gradient norm: max {gn_gap:.3e} of it, limit "
+          f"{MODE_GNORM_RTOL:g}); offload moved {est['bytes_offloaded']} B "
+          f"a step = estimate_offload_traffic ({est['blocks']} blocks x 2 x "
+          f"{carry} B carries), and its peak rise is {kept} B "
+          f"({kept / carry:.2f} carries) below save_hbm's; offload step / "
+          f"full step {res['offload']['ms'] / res['full']['ms']:.3f} at "
+          f"{res['offload']['peak'] / res['full']['peak']:.3f} of full's "
+          f"peak memory (save_hbm "
+          f"{res['save_hbm']['ms'] / res['full']['ms']:.3f}, remat "
+          f"{res['remat']['ms'] / res['full']['ms']:.3f}: one code path on "
+          f"the port, so their gap reads the step time's noise); phase 5c "
+          f"took {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    del state, init, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_zamba(card):
+    """Phase 5d: zamba2-7b at full width and depth (81 layers), bf16,
+    B 1 x S 4096, mode offload at the planned MI with the AdamW moments in
+    pinned host memory, 2 steps on one repeated batch.  Fails unless the
+    loss is finite and falls, and K4 ran 65 times in each forward and 64 in
+    each recompute.  Prints the step time, peak device memory, the pinned
+    host bytes (the carries a step, the moments), adamw.update's time and
+    a profile of a third step.  Returns the K4 launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import offload
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import ssd as k4
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    t0 = time.perf_counter()
+    cfg = get_config("zamba2-7b")
+    B, S = ZAMBA_TRAIN
+    prof, _, scfg = plan_step(cfg, B, S, card, offload_opt_state=True)
+    ocfg = adamw.OptConfig(total_steps=2, warmup_steps=1)
+    torch.cuda.empty_cache()
+    host_empty = getattr(torch._C, "_host_emptyCache", None)
+    if host_empty is not None:
+        host_empty()
+    ti = time.perf_counter()
+    state = loop.init_state(cfg, ocfg, seed=0, offload_opt_state=True)
+    moments = [t for k in ("m", "v") for t in state["opt"][k].values()]
+    if not all(t.is_pinned() for t in moments):
+        raise AssertionError("zamba2-7b: AdamW moments are not pinned")
+    moment_bytes = sum(t.numel() * t.element_size() for t in moments)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    print(f"zamba2-7b train state: {n_params / 1e9:.3f} B parameters on the "
+          f"card ({torch.cuda.memory_allocated() / 1e9:.1f} GB), "
+          f"{moment_bytes / 1e9:.1f} GB of f32 moments in pinned host "
+          f"memory, built in {time.perf_counter() - ti:.1f} s", flush=True)
+    batch = make_batch(DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                  seq_len=S, global_batch=B), 0)
+    step = loop.make_train_step(cfg, scfg, ocfg)
+    update, upd_ms = adamw.update, []
+
+    def timed_update(*args, **kw):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = update(*args, **kw)
+        torch.cuda.synchronize()
+        upd_ms.append(1e3 * (time.perf_counter() - ts))
+        return out
+
+    adamw.update = timed_update
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times, moved = [], [], []
+    try:
+        for _ in range(2):
+            offload.reset_traffic()
+            ts = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - ts))
+            moved.append(dict(offload.traffic))
+    finally:
+        adamw.update = update
+    launches = k4.ssd.launches
+    peak = torch.cuda.max_memory_allocated()
+    wall_us, rows = device_profile(lambda: step(state, batch), 1)
+    print_profile("zamba2-7b train (a third step)", wall_us, rows, 1, card,
+                  top=12)
+    want = 2 * _blocked_mambas(cfg, scfg)
+    if launches != want:
+        raise AssertionError(f"zamba2-7b train: {launches} K4 launches, "
+                             f"want {want}")
+    if not (all(np.isfinite(losses)) and losses[1] < losses[0]):
+        raise AssertionError(f"zamba2-7b train: losses {losses}")
+    carry = B * S * cfg.d_model * 2
+    est = offload.estimate_offload_traffic(prof, scfg.mi_periods, carry)
+    if any(mv["d2h"] + mv["h2d"] != est["bytes_offloaded"] or
+           mv["in"] != est["blocks"] for mv in moved):
+        raise AssertionError(f"zamba2-7b offload: {moved}, estimate {est}")
+    print(f"zamba2-7b train (offload, MI {scfg.mi_periods} of "
+          f"{cfg.num_periods} periods, all 81 layers, moments on the host): "
+          f"losses {losses[0]:.5f} -> {losses[1]:.5f} on a repeated batch "
+          f"(finite, falling); step {', '.join(f'{t:.1f}' for t in times)} "
+          f"ms, {B * S / (times[-1] * 1e-3):.0f} tokens/s; adamw.update "
+          f"{', '.join(f'{t:.1f}' for t in upd_ms)} ms of it; peak device "
+          f"memory {peak / 1e9:.2f} GB; pinned host: {moved[-1]['d2h']} B of "
+          f"carries a step ({est['blocks']} blocks, out and back = "
+          f"estimate_offload_traffic) and {moment_bytes} B of moments; "
+          f"{launches} K4 launches = 2 steps x ({_n_mamba(cfg)} forward + "
+          f"{want // 2 - _n_mamba(cfg)} recomputed: the prologue's Mamba "
+          f"layer runs outside the blocks); phase 5d took "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    del state, moments, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2249,6 +2829,15 @@ def main() -> int:
         "zamba2-7b serving prefill (phase 4b)": zamba_serve["k4"]}
     k3 = k3_record(k3_serving, k3_long_cache(card))
     print(f"zamba2 phases took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    k4.update(check_ssd_autograd(card))
+    check_train_small()
+    check_adamw_streamed()
+    train_smollm(card)
+    k4["launches_by_path"]["zamba2-7b training, offload (phase 5d)"] = \
+        train_zamba(card)
+    print(f"training phases took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(card)

@@ -1,3 +1,4 @@
-from repro_torch.configs.base import ModelConfig, get_config, register
+from repro_torch.configs.base import (ModelConfig, get_config, list_archs,
+                                      register)
 
-__all__ = ["ModelConfig", "get_config", "register"]
+__all__ = ["ModelConfig", "get_config", "list_archs", "register"]

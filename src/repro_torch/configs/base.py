@@ -141,6 +141,12 @@ def get_config(name: str) -> ModelConfig:
     return _REGISTRY[name]
 
 
+def list_archs():
+    if not _REGISTRY:
+        _load_all()
+    return sorted(_REGISTRY)
+
+
 def _load_all():
     # import the per-arch modules for their registration side effect
     from repro_torch.configs import smollm_360m, zamba2_7b  # noqa: F401

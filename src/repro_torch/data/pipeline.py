@@ -1,0 +1,80 @@
+"""Synthetic token pipeline with host-side prefetch (port of
+``repro/data/pipeline.py``).
+
+Deterministic per (seed, step): recovery after a failure replays the exact
+same batches, and ``_host_batch`` gives the reference's bytes for the same
+config and step.  ``make_batch`` puts a batch on one device (the
+reference's sharded placement waits for the port's mesh, ROADMAP item 11).
+The reference's codebook labels and prefix embeddings are not ported: no
+model of the port reads them yet.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from dataclasses import dataclass
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    seed: int = 0
+    vocab_size: int = 32_000
+    seq_len: int = 1024
+    global_batch: int = 8
+
+
+def _host_batch(cfg: DataConfig, step: int) -> dict:
+    """Full logical batch for `step` (numpy, deterministic)."""
+    rng = np.random.default_rng(np.uint64(cfg.seed * 1_000_003 + step))
+    tokens = rng.integers(0, cfg.vocab_size,
+                          size=(cfg.global_batch, cfg.seq_len), dtype=np.int32)
+    labels = np.roll(tokens, -1, axis=1)   # next token
+    return {"tokens": tokens, "labels": labels.astype(np.int32)}
+
+
+def make_batch(cfg: DataConfig, step: int, device=None) -> dict:
+    """The batch of ``step`` as tensors on ``device`` (default: the CUDA
+    card; raises without one unless ``device="cpu"``)."""
+    dev = resolve(device)
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in _host_batch(cfg, step).items()}
+
+
+class Prefetcher:
+    """Background-thread prefetch of the next `depth` batches."""
+
+    def __init__(self, cfg: DataConfig, start_step: int = 0, depth: int = 2,
+                 device=None):
+        self.cfg = cfg
+        self.device = resolve(device)
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = start_step
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        step = self._step
+        while not self._stop.is_set():
+            try:
+                self.q.put((step, make_batch(self.cfg, step, self.device)),
+                           timeout=0.1)
+                step += 1
+            except queue.Full:
+                continue
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        return self.q.get()
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=1.0)

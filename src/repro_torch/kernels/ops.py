@@ -58,7 +58,10 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, h0=None):
     with or without h0.  The kernel takes whole chunks (S a multiple of
     min(chunk, S)), so a ragged S is padded here, on every device, with
     dt = 0, which leaves the state as it is (decay 1, no input), and y is
-    cut back to S."""
+    cut back to S.  Differentiable on every device: the CPU (and the meta
+    device a profile traces on) runs the plain version under autograd; a
+    CUDA x runs the kernel forward and the plain version's backward
+    (kernels/ssd.py)."""
     S = x.shape[1]
     pad = (-S) % min(chunk, S)
     if pad:

@@ -24,6 +24,12 @@ everything else (f32, P or N of 4 mod 8, other strides) runs the SIMT
 kernel.  Either way one call counts as one launch.  This wrapper takes
 CUDA inputs only: the plain version for CPU tensors is
 ``kernels/ref.py::ssd_chunked_ref``, chosen by ``kernels/ops.py``.
+
+Under autograd (``ssd`` is a ``torch.autograd.Function``) the forward is
+the kernel and the backward is the plain version's: it runs
+``ssd_chunked_ref`` again on the saved inputs with grad enabled and
+returns its gradients for x, dt, A, Bm, Cm and h0.  The reference has no
+backward kernel either: it differentiates its jnp oracle.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import functools
 import torch
 
 from repro_torch.device import sm_count
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 INTERNAL_CHUNK = 64          # kQ in csrc/ssd.cu
 MAX_DIM = 64                 # P and N at most this, multiples of 4
@@ -145,8 +151,36 @@ def path(x, Bm, Cm) -> str:
 def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, h0=None):
     """Launch the kernel ``path`` picks on the current stream; returns (y,
     h).  Raises on any input the kernels do not take, and on a failed
-    launch."""
-    return _launch(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    launch.  Differentiable: see ``_Scan``."""
+    return _Scan.apply(x, dt, A, Bm, Cm, h0, chunk)
+
+
+class _Scan(torch.autograd.Function):
+    """The SSD scan under autograd: the kernel forward, the plain
+    version's backward (``ssd_chunked_ref`` recomputed with grad, at the
+    call's chunk).  Either output may go unused (a train step reads y
+    only)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0, chunk):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, h0)
+        return _launch(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        need = ctx.needs_input_grad[:6]
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        wrt = [t for t, n in zip(ins, need) if n]
+        with torch.enable_grad():
+            y, h = ref.ssd_chunked_ref(*ins[:5], chunk=ctx.chunk, h0=ins[5])
+        outs = [(o, g) for o, g in ((y, gy), (h, gh)) if g is not None]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in outs], wrt, [g for _, g in outs],
+            allow_unused=True) if outs else [None] * len(wrt))
+        return tuple(next(got) if n else None for n in need) + (None,)
 
 
 def _launch(x, dt, A, Bm, Cm, *, chunk, h0, kernel=None, block_heads=None,

@@ -14,7 +14,9 @@ from torch import nn
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A parameter for inference: no autograd graph is ever built."""
+    """A parameter that takes no gradient until the model is built for
+    training (``init_params(requires_grad=True)``): serving builds no
+    autograd graph."""
     return nn.Parameter(t, requires_grad=False)
 
 

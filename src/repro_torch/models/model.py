@@ -1,11 +1,15 @@
 """Top-level language model: embeddings -> layer stack -> head, the
 forward / prefill / decode-step / suffix-prefill entry points the serving
-engine calls, and the causal LM loss (port of ``repro/models/model.py`` for
-dense ATTN/LOCAL stacks and the zamba2 hybrid).
+engine calls, and the causal LM loss the train step differentiates (port of
+``repro/models/model.py`` for dense ATTN/LOCAL stacks and the zamba2
+hybrid).
 
 ``forward`` updates the caches it is given in place (dense KV rows, the
 Mamba state entries, pool pages) and returns the logits; ``prefill`` and
-``decode_step`` return ``(logits, caches)``, as the reference's do.
+``decode_step`` return ``(logits, caches)``, as the reference's do.  They
+serve: ``forward`` runs under ``no_grad``.  ``loss_fn`` shares its body
+and builds the autograd graph, with Sentinel's block structure
+(``transformer.stack_forward``).
 """
 from __future__ import annotations
 
@@ -55,25 +59,50 @@ class Model(nn.Module):
                         dtype=dtype))
 
     def forward(self, cfg, tokens, positions, *, caches=None,
-                cache_index=None, decode=False, paged_view=None):
+                cache_index=None, decode=False, paged_view=None, **sentinel):
+        """``sentinel``: ``stack_forward``'s ``remat_policy``,
+        ``unroll_periods``, ``mi_periods`` and ``tag_block_out``."""
         x = embed(self.table, tokens)
         x = transformer.stack_forward([*self.prologue, *self.layers], cfg,
                                       x, positions,
                                       caches=caches, cache_index=cache_index,
-                                      decode=decode, paged_view=paged_view)
+                                      decode=decode, paged_view=paged_view,
+                                      **sentinel)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
         return unembed(self.table if self.head is None else self.head, x)
 
 
-def init_params(cfg, seed: int = 0, device=None) -> Model:
+def init_params(cfg, seed: int = 0, device=None, *,
+                requires_grad: bool = False) -> Model:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (default: the CUDA card; raises without one unless ``device="cpu"``)."""
+    (default: the CUDA card; raises without one unless ``device="cpu"``).
+    ``requires_grad``: parameters a train step differentiates (serving
+    leaves them off).  On ``device="meta"`` the model holds shapes only,
+    for ``core.profiler.trace_profile``."""
     dev = resolve(device)
     params = Model(cfg, device=dev, dtype=param_dtype(cfg))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    init_weights(params, cfg, gen)
-    return params
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        init_weights(params, cfg, gen)
+    return params.requires_grad_(requires_grad)
+
+
+def _logits(params, cfg, batch, *, caches=None, cache_index=None,
+            decode: bool = False, positions=None, paged_view=None,
+            **sentinel):
+    """The body of ``forward`` and ``loss_fn``."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if positions is None:
+        if decode:
+            ci = torch.as_tensor(cache_index, device=tokens.device)
+            positions = ci[:, None] if ci.dim() >= 1 else ci.expand(B, S)
+        else:
+            positions = torch.arange(S, device=tokens.device).expand(B, S)
+    return params(cfg, tokens, positions, caches=caches,
+                  cache_index=cache_index, decode=decode,
+                  paged_view=paged_view, **sentinel)
 
 
 @torch.no_grad()
@@ -88,28 +117,26 @@ def forward(params, cfg, batch, *, caches=None, cache_index=None,
     or with ``cfg.use_paged_decode`` the per-slot boundaries a dense cache
     is read through.  Otherwise positions default to 0..S-1 (suffix
     prefill passes its own)."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    if positions is None:
-        if decode:
-            ci = torch.as_tensor(cache_index, device=tokens.device)
-            positions = ci[:, None] if ci.dim() >= 1 else ci.expand(B, S)
-        else:
-            positions = torch.arange(S, device=tokens.device).expand(B, S)
-    return params(cfg, tokens, positions, caches=caches,
-                  cache_index=cache_index, decode=decode,
-                  paged_view=paged_view)
+    return _logits(params, cfg, batch, caches=caches,
+                   cache_index=cache_index, decode=decode,
+                   positions=positions, paged_view=paged_view)
 
 
-@torch.no_grad()
-def loss_fn(params, cfg, batch):
+def loss_fn(params, cfg, batch, *, remat_policy=None, unroll_periods=False,
+            mi_periods: int = 1, tag_block_out: bool = False):
     """Causal LM loss: the mean NLL of ``batch["labels"]`` (B, S) under the
     forward's logits, with the padded vocab entries masked out of the
-    softmax.  There is no MoE, so no auxiliary loss; no backward pass
-    either (the forward runs under ``no_grad``)."""
-    logits = forward(params, cfg, batch).float()
+    softmax.  There is no MoE, so no auxiliary loss.  It builds the
+    autograd graph when grad is enabled and the parameters require it; the
+    keywords are the reference's (``core.offload.loss_kwargs`` gives them
+    for a ``SentinelConfig``) and change memory, never the value."""
+    logits = _logits(params, cfg, batch, remat_policy=remat_policy,
+                     unroll_periods=unroll_periods, mi_periods=mi_periods,
+                     tag_block_out=tag_block_out).float()
     if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] += -1e9     # in place: a local tensor
+        pad = torch.zeros(cfg.padded_vocab, device=logits.device)
+        pad[cfg.vocab_size:] = -1e9
+        logits = logits + pad
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
     return (logz - gold).mean()

@@ -5,13 +5,18 @@ layers, then over the period layers, period layer ``j`` being slot
 ``j % period_len`` of period ``j // period_len``.  A SHARED_ATTN slot holds
 the one shared block object itself, so all its layers use one set of
 weights.  Caches are one entry per layer: attention layers write theirs in
-place; a MAMBA layer's new state replaces the entries of its cache dict."""
+place; a MAMBA layer's new state replaces the entries of its cache dict.
+
+A train step runs the period layers as Sentinel's blocks of ``mi_periods``
+periods (``stack_forward``, ``core/offload.py``)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ATTN, MAMBA, SHARED_ATTN
+from repro_torch.core import profiler
+from repro_torch.core.offload import CarryStore
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, frozen, rmsnorm
 from repro_torch.models.ssm import MambaBlock
@@ -72,13 +77,87 @@ def make_layer(cfg, kind: str, *, device, dtype):
 
 
 def stack_forward(layers, cfg, x, positions, *, caches=None,
-                  cache_index=None, decode=False, paged_view=None):
+                  cache_index=None, decode=False, paged_view=None,
+                  remat_policy=None, unroll_periods: bool = False,
+                  mi_periods: int = 1, tag_block_out: bool = False):
     """Run every layer in order (prologue first); ``caches`` is one cache
     entry per layer (a dense cache, or ``PagedKVPools.tree``), updated in
-    place."""
-    for l, block in enumerate(layers):
-        x = block(cfg, x, positions,
-                  cache=caches[l] if caches is not None else None,
-                  cache_index=cache_index, decode=decode,
-                  paged_view=paged_view)
+    place.
+
+    Sentinel (core/offload.py), for a step that builds the autograd graph
+    without caches:
+      - remat_policy: a blocked mode ("offload", "save_hbm", "remat";
+        None runs the layers as they are and autograd saves everything).
+        The prologue runs first, unblocked, as the reference's does; then
+        the period layers run as ``num_periods / mi_periods`` blocks (a
+        count that does not divide is refused), each a ``_Block``: its
+        forward keeps its carry-in (the previous block's output, or the
+        prologue's) and nothing else, its backward recomputes it.
+      - tag_block_out: the carry is named for the policy, so "offload"
+        keeps it in pinned host memory (``CarryStore``); otherwise it
+        stays on the device.
+      - unroll_periods: mark each period for ``profiler.trace_profile``
+        (the reference's ``period_{i}`` scopes); no blocks.
+    """
+    def run(lo, hi, x):
+        for l in range(lo, hi):
+            x = layers[l](cfg, x, positions,
+                          cache=caches[l] if caches is not None else None,
+                          cache_index=cache_index, decode=decode,
+                          paged_view=paged_view)
+        return x
+
+    n_pro, span = len(cfg.prologue), cfg.period_len
+    P = cfg.num_periods
+    if unroll_periods:
+        x = profiler.mark(x, 0, 2 * P + 2)           # embedding gradient
+        x = run(0, n_pro, x)
+        for p in range(P):
+            # forward period p at step p + 1; below this mark the backward
+            # moves on to period p - 1 (the prologue's belongs to period 0's)
+            x = profiler.mark(x, p + 1, 2 * P + 1 - max(p - 1, 0))
+            x = run(n_pro + p * span, n_pro + (p + 1) * span, x)
+        return profiler.mark(x, P + 1, P + 2)        # head and loss
+    if remat_policy is None or caches is not None or \
+            not torch.is_grad_enabled():
+        return run(0, len(layers), x)
+    if mi_periods < 1 or P % mi_periods:
+        raise ValueError(f"num_periods {P} not divisible by migration "
+                         f"interval {mi_periods}")
+    x = run(0, n_pro, x)
+    store = CarryStore("host" if remat_policy == "offload" and tag_block_out
+                       else "device")
+    width = mi_periods * span
+    for b in range(P // mi_periods):
+        lo = n_pro + b * width
+        weights = {id(w): w for layer in layers[lo:lo + width]
+                   for w in layer.parameters() if w.requires_grad}
+        x = _Block.apply(lambda x, lo=lo: run(lo, lo + width, x), store, b,
+                         x, *weights.values())
     return x
+
+
+class _Block(torch.autograd.Function):
+    """One Sentinel block of the period layers: the forward runs them
+    without a graph and keeps only the carry-in (``CarryStore.put``); the
+    backward fetches it back (``CarryStore.get``, which starts the
+    previous block's fetch), runs the layers again with grad and returns
+    the gradients of the carry-in and of the block's weights.  A weight
+    that several blocks use (zamba2's shared block) gets each block's
+    share, which autograd sums."""
+
+    @staticmethod
+    def forward(ctx, run, store, b, x, *weights):
+        ctx.run, ctx.store, ctx.b, ctx.weights = run, store, b, weights
+        store.put(b, x)
+        return run(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        need_x = ctx.needs_input_grad[3]
+        x = ctx.store.get(ctx.b).detach().requires_grad_(need_x)
+        with torch.enable_grad():
+            y = ctx.run(x)
+        wrt = ((x,) if need_x else ()) + ctx.weights
+        grads = torch.autograd.grad(y, wrt, gy, allow_unused=True)
+        return (None, None, None) + ((None,) if not need_x else ()) + grads

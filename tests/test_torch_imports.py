@@ -43,7 +43,10 @@ def test_port_modules_import_no_jax_and_no_reference():
         "objects", "costmodel", "tiergraph", "policies", "plan", "online",
         "synthetic")} <= set(mods)
     assert {f"repro_torch.core.{m}" for m in (
-        "hardware", "profiler", "allocator", "hmsim")} <= set(mods)
+        "hardware", "profiler", "allocator", "hmsim", "offload")} <= set(mods)
+    assert {"repro_torch.optim.adamw", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.ckpt", "repro_torch.train.loop",
+            "repro_torch.launch.train"} <= set(mods)
     # importing builds and loads no kernel: nvcc runs at a kernel's first
     # call only (this machine may have none)
     code = ("import importlib, json, sys\n"
@@ -89,6 +92,31 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init_params(hybrid)
     model.init_params(hybrid, device="cpu")
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The train loop's state, its batches and the training CLI run on the
+    card unless given the CPU."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.loop import init_state
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("smollm-360m").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(cfg, OptConfig())
+    state = init_state(cfg, OptConfig(), device="cpu")
+    assert all(p.requires_grad for p in state["params"].parameters())
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_batch(dcfg, 0)
+    assert make_batch(dcfg, 0, device="cpu")["tokens"].device.type == "cpu"
+    argv = ["--reduced", "--steps", "2", "--seq", "8", "--batch", "2",
+            "--ckpt-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(argv)
+    out = train.main(argv + ["--device", "cpu"])
+    assert len(out["losses"]) == 2
 
 
 def test_unported_layouts_raise():
