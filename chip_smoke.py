@@ -12,8 +12,10 @@ Phases, each printing its own lines:
      - K1 (paged decode) over the reference's shape sweep, window/softcap
        cases, split counts given through the C argument (ranges wholly
        before a window among them), the full-width shape with and
-       without a window and zamba2-7b's shared-block shape (B 8, H = KVH =
-       32, D 112, 2048-token slots), with hot pages on the card, cold pages
+       without a window, each half of its slots gathered as a decode
+       shard of phase 3d-2 launches it (its own split count at B 4), and
+       zamba2-7b's shared-block shape (B 8, H = KVH = 32, D 112,
+       2048-token slots), with hot pages on the card, cold pages
        in pinned host memory and unmapped (FREE) table entries;
      - K4 (Mamba2 SSD scan) over the reference's SSD sweep, a start state,
        S < chunk, a bf16 P of 12 and the full-width zamba2-7b layer (S 4096,
@@ -50,6 +52,25 @@ Phases, each printing its own lines:
      the card, K1 must run once per decode step and layer, and the
      engine's integer counters must equal predict_pool_counters'; decode
      tokens/s and the pure-decode step time beside the plan's prediction;
+  3d. the disaggregated engine at the same width, weights and requests:
+     3d-1, one shard (prefill and decode alias the card) on 3b's first
+     plan with prefill_chunk_tokens 0: tokens identical to the colocated
+     pools engine's on that plan, no repack, the mesh ledger (xdev bytes
+     above 0, per-edge bytes, hot peaks, migration series) equal to
+     predict_pool_counters(dense_admit=True), K1 == decode steps x 32;
+     3d-2, two decode shards aliased on the card (devices=[cuda:0] * 4,
+     groups 2 + 2) on a plan_serving(decode_devices=2) plan, every slot
+     re-homed to the other shard before step 22: every ledger edge (both
+     shard-to-shard edges above 0), the hot peaks and the migration
+     series equal predict_pool_counters(plan_schedule=...), K1 == the
+     shards with an active slot summed over decode steps x 32, and the
+     tokens that agree with 3d-1's counted (not gated); then the same on
+     smollm-360m reduced in fp32 on the card against the CPU (tokens and
+     ledger) and a colocated all-hot run (tokens); each run's decode
+     tokens/s and pure-decode step; 3d-3, price_disagg on H100_COST for
+     phase 3's trace and the reference's prefill-heavy mix; 3d-4, the
+     serving CLI (python -m repro_torch.launch.serve --arch smollm-360m
+     -n 32) at full width, which must exit 0;
   4. zamba2-7b: its reduced fp32 variant on the card against the CPU
      (logits and loss, and the tokens of a small pools-layout serving run),
      then the full width in bf16 (random weights from
@@ -133,6 +154,7 @@ import copy
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -315,6 +337,25 @@ def check_kernels():
                 full[dt] = (c, err)
             else:
                 worst[dt] = max(worst[dt], err)
+    # the disaggregated engine's shape (phase 3d-2): each of two decode
+    # shards launches K1 on its half of the slots, q and table rows
+    # gathered, against B-slot pools, so the wrapper takes its split count
+    # from B / 2; both halves, the unmapped slot in one of them
+    halves = [torch.arange(h, SLOTS, 2, device="cuda") for h in (0, 1)]
+    sub = {}
+    for dt in (torch.float32, torch.bfloat16):
+        c = full[dt][0]
+        for h, idx in enumerate(halves):
+            args, plain = list(k1_args(c)), list(k1_args(c, True))
+            for a in (args, plain):
+                for j in (0, 5, 6, 7):                 # q, table, tier, len
+                    a[j] = a[j][idx]
+            out = pd.paged_decode_attention(*args)
+            want = ref.paged_decode_attention_ref(*plain)
+            torch.cuda.synchronize()
+            err = _attn_close(out, want, f"k1 shard half {h} of "
+                                         f"{FULL_WIDTH} {dt}")[0]
+            sub[dt] = max(sub.get(dt, 0.0), err)
     # zamba2-7b's shared-block shape, lengths of the serving prompts
     zl = [int(n) for n in np.random.default_rng(4).integers(
         200, 1533, SLOTS)]
@@ -336,9 +377,17 @@ def check_kernels():
           f"tile) {z_plan}", flush=True)
     B, S, _, KVH = FULL_WIDTH[:4]
     full_plan = pd.plan(full[torch.bfloat16][0]["q"], KVH, PAGE, S // PAGE)
+    sub_plan = pd.plan(full[torch.bfloat16][0]["q"][halves[0]], KVH, PAGE,
+                       S // PAGE)
+    print(f"k1 disaggregated shard shape: slots {SLOTS // 2} of {SLOTS} "
+          f"gathered from {FULL_WIDTH}, both halves == plain, max_abs_err "
+          f"f32 {sub[torch.float32]:.3e} within {_tol_text(torch.float32)}, "
+          f"bf16 {sub[torch.bfloat16]:.3e} within "
+          f"{_tol_text(torch.bfloat16)}; (splits, KV heads a CTA, tile) "
+          f"{sub_plan} against {full_plan} at {SLOTS} slots", flush=True)
     wide = "; ".join(f"{s} {str(dt)[6:]}: {g} KV heads a CTA, tile {t}"
                      for (s, dt), (_, g, t) in plans.items())
-    print(f"k1 check: {len(cases) + 4} cases match the plain version, cold "
+    print(f"k1 check: {len(cases) + 8} cases match the plain version, cold "
           f"pages read from pinned host memory by cp.async; splits 1-8 "
           f"given, and the wrapper's (splits, KV heads a CTA, tile) "
           f"{full_plan} at the full width; wide heads ({wide}); "
@@ -405,29 +454,37 @@ def requests(vocab: int, seed: int = 0):
 
 
 def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device,
-          schedule=(), paged=True, on_engine=None):
+          schedule=(), paged=True, on_engine=None, disagg=False,
+          devices=None):
     """Run one engine to completion (the pools layout where ``cfg`` has
     ``use_paged_decode`` and ``paged``; see serve/engine.py for the other
-    layouts).  ``schedule`` lists ``(step, plan or PlanDelta)`` re-plans,
-    each applied before the engine step of that index; ``on_engine(b)``
-    runs on the new engine before its first step.  Returns a dict: sorted
-    outputs ``out``, the engine ``b``, the K1 and K4 launches ``k1`` and
-    ``k4`` of the run, ``cold_steps`` (decode steps that ran with cold pages
-    mapped), ``wall`` seconds, ``step_s`` (seconds of each pure decode
-    step) and ``moved`` (bytes each re-plan moved)."""
+    layouts; with ``disagg`` a DisaggregatedEngine over ``devices``, its
+    own default when None).  ``schedule`` lists ``(step, plan or
+    PlanDelta)`` re-plans, each applied before the engine step of that
+    index; ``on_engine(b)`` runs on the new engine before its first step.
+    Returns a dict: sorted outputs ``out`` and the same in the order the
+    requests finished ``seq``, the engine ``b``, the K1 and K4 launches
+    ``k1`` and ``k4`` of the run, ``cold_steps`` (decode steps that ran
+    with cold pages mapped), ``wall`` seconds, ``step_s`` (seconds of each
+    pure decode step) and ``moved`` (bytes each re-plan moved)."""
     import torch
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import ssd as k4
+    from repro_torch.serve.disagg import DisaggregatedEngine
     from repro_torch.serve.engine import ContinuousBatcher
-    b = ContinuousBatcher(params, cfg, slots, max_seq, plan=plan,
-                          paged=paged, device=device)
+    if disagg:
+        b = DisaggregatedEngine(params, cfg, slots, max_seq, plan=plan,
+                                devices=devices)
+    else:
+        b = ContinuousBatcher(params, cfg, slots, max_seq, plan=plan,
+                              paged=paged, device=device)
     if on_engine is not None:
         on_engine(b)
     for toks, key in reqs:
         b.submit(torch.as_tensor(toks), decode, prefix_key=key)
     results, cold_steps, step_s, moved = [], 0, [], []
     pending = sorted(schedule, key=lambda e: e[0])
-    if device == "cuda":
+    if b.device.type == "cuda":
         torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -450,7 +507,7 @@ def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device,
                 results.append(tuple(b.outputs[i]))
                 b.outputs[i] = []
     wall = time.perf_counter() - t0
-    return {"out": sorted(results), "b": b,
+    return {"out": sorted(results), "seq": results, "b": b,
             "k1": pd.paged_decode_attention.launches, "k4": k4.ssd.launches,
             "cold_steps": cold_steps, "wall": wall, "step_s": step_s,
             "moved": moved}
@@ -708,7 +765,8 @@ def check_planned_serving(params, cfg, reqs, card):
     apply the delta a third of the way in, against an all-hot run.  Fails
     unless the tokens equal the all-hot run's, the delta demoted pages on
     the card, K1 ran once per decode step and layer, and the engine's
-    integer counters equal predict_pool_counters' replay."""
+    integer counters equal predict_pool_counters' replay.  Returns the
+    first plan and the profiled trace, for phase 3d."""
     import torch
     from repro_torch import runtime
     from repro_torch.models import kvcache, model
@@ -809,6 +867,254 @@ def check_planned_serving(params, cfg, reqs, card):
           f"({plan_a.predicted_decode_throughput:.1f} tokens/s) [{card}]",
           flush=True)
     print(f"phase 3b took {time.perf_counter() - t0:.1f} s", flush=True)
+    return plan_a, trace
+
+
+# ---------------------------------------------------------- disaggregated ----
+
+DISAGG_REPLAN_AT = 22            # phase 3d-2 re-homes slots before this step
+# tests/test_disagg.py's prefill-heavy mix: (prompt, decode tokens)
+HEAVY_MIX = [(480, 24), (512, 16), (448, 32), (500, 20)]
+
+
+def _count_shard_forwards(b, counts):
+    """Wrap ``b``'s decode step so each call appends the number of decode
+    shards with an active slot: the sub-batch forwards the step runs, each
+    one K1 launch a layer."""
+    step = b._pool_decode_step
+
+    def counted():
+        counts.append(len({b.slot_devices[s] if b.slot_devices else 0
+                           for s in range(b.B) if b.active[s]}))
+        return step()
+    b._pool_decode_step = counted
+
+
+def _ledger(b) -> dict:
+    c = b.counters()
+    return {k: c[k] for k in ("edge_migration_bytes", "device_hot_peak",
+                              "sim_migration_bytes", "step_migration_bytes",
+                              "xdev_migration_bytes")}
+
+
+def _pred_ledger(pred) -> dict:
+    return {"edge_migration_bytes": pred["edge_migration_bytes"],
+            "device_hot_peak": pred["device_hot_peak"],
+            "sim_migration_bytes": pred["migration_bytes"],
+            "step_migration_bytes": pred["step_migration_bytes"],
+            "xdev_migration_bytes": pred["xdev_migration_bytes"]}
+
+
+def _step_ms(run) -> float:
+    return 1e3 * float(np.mean(run["step_s"]))
+
+
+def check_disagg(params, cfg, reqs, plan_a, trace, card):
+    """Phase 3d, the disaggregated engine at phase 3's width, weights and
+    requests.  3d-1: one shard (devices=None: prefill and decode alias the
+    card) on phase 3b's plan with prefill_chunk_tokens 0, against the
+    colocated pools engine on the same plan: identical tokens, no repack,
+    the mesh ledger and K1's launches exact.  3d-2: two decode shards
+    aliased on the card (devices=[cuda:0] * 4) on a plan_serving plan for
+    two shards, every slot re-homed to the other shard before engine step
+    DISAGG_REPLAN_AT: every ledger edge, the per-shard hot peaks and the
+    migration series equal predict_pool_counters', K1 once a layer per
+    shard with an active slot; then the reduced fp32 scenario on the card
+    against the CPU and a colocated run.  3d-3: price_disagg on H100_COST.
+    3d-4: the serving CLI at full width.  Returns K1's launches on the two
+    full-width paths."""
+    import torch
+    from repro_torch import runtime
+    from repro_torch.runtime import H100_COST
+    from repro_torch.serve.disagg import price_disagg
+    from repro_torch.serve.engine import (predict_pool_counters,
+                                          serve_trace_for)
+    t0 = time.perf_counter()
+    L = cfg.num_layers
+    preq = [(tuple(int(x) for x in t), DECODE, None, k) for t, k in reqs]
+    run = dict(max_seq=MAX_SEQ, slots=SLOTS, decode=DECODE, device="cuda")
+
+    # 3d-1: one shard against the colocated pools engine
+    plan1 = dataclasses.replace(plan_a, prefill_chunk_tokens=0)
+    col = serve(params, cfg, plan1, reqs, **run)
+    one = serve(params, cfg, plan1, reqs, disagg=True, **run)
+    b1 = one["b"]
+    common = dict(slots=SLOTS, max_seq=MAX_SEQ, page_tokens=b1.page_tokens,
+                  row_bytes=b1._row_bytes, dense_admit=True)
+    pred1 = predict_pool_counters(preq, plan1, **common)
+    cnt1 = b1.counters()
+    b1.mesh_table.check()
+    print(f"disagg one shard: {b1.n_shards} shard, prefill "
+          f"{b1.prefill_device} and decode {b1.decode_device}, "
+          f"{cnt1['decode_steps']} decode steps, {one['k1']} K1 launches, "
+          f"xdev {b1.xdev_migration_bytes:.0f} B (predicted "
+          f"{pred1['xdev_migration_bytes']:.0f} B), sim_migration_bytes "
+          f"{b1.sim_migration_bytes:.0f} (colocated "
+          f"{col['b'].sim_migration_bytes:.0f}), repacks {cnt1['repacks']}",
+          flush=True)
+    if one["out"] != col["out"]:
+        same = sum(a == b for o, p in zip(one["out"], col["out"])
+                   for a, b in zip(o, p))
+        raise AssertionError(f"disagg one shard: tokens differ from the "
+                             f"colocated pools engine ({same} agree)")
+    if not (cnt1["repacks"] == 0 and b1.xdev_migration_bytes > 0
+            and b1.xdev_migration_bytes == pred1["xdev_migration_bytes"]
+            and b1.sim_migration_bytes == col["b"].sim_migration_bytes
+            and _ledger(b1) == _pred_ledger(pred1)):
+        raise AssertionError(f"disagg one shard: ledger {_ledger(b1)} != "
+                             f"predicted {_pred_ledger(pred1)}")
+    if one["k1"] != cnt1["decode_steps"] * L:
+        raise AssertionError(f"disagg one shard: {one['k1']} K1 launches "
+                             f"for {cnt1['decode_steps']} decode steps")
+    for name, r in (("colocated pools", col), ("disagg one shard", one)):
+        tokens = sum(len(o) - 1 for o in r["out"])
+        print(f"{name} time: {tokens / r['wall']:.1f} decode tokens/s over "
+              f"the run ({r['wall']:.3f} s, prefill included), mean pure "
+              f"decode step {_step_ms(r):.3f} ms over {len(r['step_s'])} "
+              f"steps [{card}]", flush=True)
+    print("disagg one shard check: tokens == colocated pools engine; "
+          "repacks 0; xdev, sim_migration_bytes and the ledger == "
+          f"predict_pool_counters(dense_admit=True); K1 == decode steps x {L}",
+          flush=True)
+
+    # 3d-2: two decode shards aliased on the card, re-homed mid-run
+    plan2 = runtime.plan_serving(trace, H100_COST, 0.2 * trace.peak_kv_bytes(),
+                                 objective="latency", decode_devices=2)
+    moved_plan = dataclasses.replace(
+        plan2, slot_devices=[1 - d for d in plan2.slot_devices])
+    schedule = [(DISAGG_REPLAN_AT, moved_plan)]
+    forwards = []
+    two = serve(params, cfg, plan2, reqs, disagg=True,
+                devices=[torch.device("cuda", 0)] * 4, schedule=schedule,
+                on_engine=lambda e: _count_shard_forwards(e, forwards), **run)
+    b2 = two["b"]
+    common["page_tokens"] = b2.page_tokens
+    pred2 = predict_pool_counters(preq, plan2, plan_schedule=schedule,
+                                  **common)
+    cnt2 = b2.counters()
+    b2.mesh_table.check()
+    edges = b2.edge_migration_bytes
+    print(f"disagg two shards: groups {len(b2.prefill_devices)} + "
+          f"{len(b2.decode_devices)} on {b2.decode_device}, page "
+          f"{b2.page_tokens}, slot windows {plan2.slot_hot_windows}, "
+          f"slot_devices {plan2.slot_devices} -> {moved_plan.slot_devices} "
+          f"before step {DISAGG_REPLAN_AT} (moved {two['moved']} B); "
+          f"{cnt2['decode_steps']} decode steps, {sum(forwards)} shard "
+          f"forwards, {two['k1']} K1 launches; edges "
+          f"{ {f'{s}->{d}': v for (s, d), v in edges.items()} }; hot peaks "
+          f"{cnt2['device_hot_peak']}", flush=True)
+    if not (b2.n_shards == 2 and len(b2.prefill_devices) == 2):
+        raise AssertionError("disagg two shards: the groups are not 2 + 2")
+    if _ledger(b2) != _pred_ledger(pred2):
+        raise AssertionError(f"disagg two shards: ledger {_ledger(b2)} != "
+                             f"predicted {_pred_ledger(pred2)}")
+    if not (edges.get(("dev0", "dev1"), 0) > 0
+            and edges.get(("dev1", "dev0"), 0) > 0 and cnt2["repacks"] == 0):
+        raise AssertionError("disagg two shards: no slot was re-homed each "
+                             "way, or a repack ran")
+    if len(forwards) != cnt2["decode_steps"] or two["k1"] != sum(forwards) * L:
+        raise AssertionError(f"disagg two shards: {two['k1']} K1 launches "
+                             f"for {sum(forwards)} shard forwards x {L}")
+    if len(two["out"]) != len(reqs) or \
+            any(len(o) != DECODE for o in two["out"]):
+        raise AssertionError("disagg two shards: malformed outputs")
+    same = sum(a == b for o, p in zip(two["seq"], one["seq"])
+               for a, b in zip(o, p))
+    print(f"disagg two shards check: every edge, the hot peaks, "
+          f"sim_migration_bytes and the step series == predict_pool_counters"
+          f"(dense_admit=True, plan_schedule); K1 == shard forwards x {L}; "
+          f"{same} of {sum(len(o) for o in one['seq'])} tokens agree with "
+          f"the one-shard run (not gated: K1's split count follows the "
+          f"batch it is given, here each shard's sub-batch, so bf16 partial "
+          f"softmaxes merge in another order; phase 2 holds K1 to its plain "
+          f"version at this sub-batch shape)", flush=True)
+    tokens = sum(len(o) - 1 for o in two["out"])
+    print(f"disagg two shards time: {tokens / two['wall']:.1f} decode "
+          f"tokens/s over the run ({two['wall']:.3f} s, prefill included), "
+          f"mean pure decode step {_step_ms(two):.3f} ms over "
+          f"{len(two['step_s'])} steps, {_step_ms(two) / _step_ms(one):.3f} "
+          f"times the one-shard step [{card}]", flush=True)
+    check_disagg_small()
+
+    # 3d-3: the planner's price of the trade on this card's cost model
+    heavy = serve_trace_for(cfg, HEAVY_MIX, slots=4, layer_group=8)
+    for name, tr in (("phase 3's trace", trace), ("prefill-heavy mix", heavy)):
+        r = price_disagg(tr, H100_COST, 0.2 * tr.peak_kv_bytes())
+        c, d = r["colocated"].tokens_per_s, r["disagg"].tokens_per_s
+        print(f"price_disagg on {H100_COST.name}, {name}: colocated "
+              f"{c:.1f} tokens/s, disaggregated {d:.1f} tokens/s "
+              f"({d / c:.4f} of colocated: "
+              f"{'disaggregation' if d >= c else 'colocation'} wins), KV "
+              f"stream {r['edge_bytes']:.0f} B over the prefill->decode "
+              f"edge", flush=True)
+
+    # 3d-4: the serving CLI, as a user runs it
+    t1 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "smollm-360m", "-n", "32"], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if res.returncode != 0 or "tok/s" not in res.stdout:
+        raise AssertionError(f"serving CLI exited {res.returncode}: "
+                             f"{res.stdout[-1000:]} {res.stderr[-2000:]}")
+    print(f"serving CLI: {res.stdout.strip().splitlines()[-2]} (exit 0, "
+          f"{time.perf_counter() - t1:.1f} s with start-up) [{card}]",
+          flush=True)
+    print(f"phase 3d took {time.perf_counter() - t0:.1f} s", flush=True)
+    return one["k1"], two["k1"]
+
+
+def check_disagg_small():
+    """Phase 3d-2 on smollm-360m reduced in fp32 (tests/
+    test_disagg_multidev.py's scenario: 4 slots of 32 tokens, page 4, six
+    requests sharing a 9-token prefix, slots re-homed [0,0,1,1] ->
+    [1,0,1,0] before step 3), with two decode shards aliased on the card
+    and on the CPU from the same parameters: the card's tokens and ledger
+    equal the CPU's, and its tokens a colocated all-hot run's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.plan import PlacementPlan
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              use_paged_decode=True)
+    params_cpu = init_params(cfg, seed=0, device="cpu")
+    params_gpu = copy.deepcopy(params_cpu).to("cuda")
+    rng = np.random.default_rng(3)
+    pref = rng.integers(0, cfg.vocab_size, 9)
+    reqs = [(np.concatenate([pref, rng.integers(0, cfg.vocab_size, n - 9)]),
+             "sys") for n in (12, 13, 11, 12, 14, 12)]
+    plan = PlacementPlan(hot_window=16, page_tokens=4,
+                         slot_hot_windows=[8] * 4, slot_devices=[0, 0, 1, 1])
+    plan2 = dataclasses.replace(plan, slot_hot_windows=[4, 8, 4, 8],
+                                slot_devices=[1, 0, 1, 0])
+    run = dict(max_seq=32, slots=4, decode=6)
+    got, forwards = {}, []
+    for dev, p in ((torch.device("cuda", 0), params_gpu),
+                   (torch.device("cpu"), params_cpu)):
+        got[dev.type] = serve(
+            p, cfg, plan, reqs, device=dev, disagg=True, devices=[dev] * 4,
+            schedule=[(3, plan2)],
+            on_engine=(lambda e: _count_shard_forwards(e, forwards))
+            if dev.type == "cuda" else None, **run)
+    col = serve(params_gpu, cfg, dataclasses.replace(
+        plan, hot_window=32, slot_hot_windows=None, slot_devices=None), reqs,
+        device="cuda", **run)
+    g, c = got["cuda"], got["cpu"]
+    if g["out"] != c["out"] or _ledger(g["b"]) != _ledger(c["b"]):
+        raise AssertionError("disagg reduced: card tokens or ledger differ "
+                             "from the CPU's")
+    if g["out"] != col["out"]:
+        raise AssertionError("disagg reduced: two-shard tokens differ from "
+                             "the colocated all-hot run")
+    edges = g["b"].edge_migration_bytes
+    if not (g["k1"] == sum(forwards) * cfg.num_layers and
+            edges.get(("dev0", "dev1"), 0) > 0):
+        raise AssertionError(f"disagg reduced: {g['k1']} K1 launches for "
+                             f"{sum(forwards)} shard forwards, edges {edges}")
+    g["b"].mesh_table.check()
+    print(f"disagg reduced check: fp32 two-shard tokens and ledger on the "
+          f"card == on the CPU; tokens == colocated all-hot; {g['k1']} K1 "
+          f"launches == shard forwards x {cfg.num_layers}", flush=True)
 
 
 # ---------------------------------------------------------------- timing ----
@@ -2807,7 +3113,10 @@ def main() -> int:
     k3_serving = k3_on_serving(engine, card)
     del engine
     measure_machine(served[1], card)
-    check_planned_serving(served[0], served[1], served[3], card)
+    plan_a, trace = check_planned_serving(served[0], served[1], served[3],
+                                          card)
+    disagg_k1 = check_disagg(served[0], served[1], served[3], plan_a, trace,
+                             card)
     del served
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2823,7 +3132,10 @@ def main() -> int:
     k1["launches_by_path"] = {
         "smollm-360m serving, pools (phase 3)": launches,
         "_paged_decode_core, one decode step (phase 3c)": core_launches,
-        "zamba2-7b serving, pools (phase 4b)": zamba_serve["k1"]}
+        "zamba2-7b serving, pools (phase 4b)": zamba_serve["k1"],
+        "smollm-360m disaggregated, one shard (phase 3d-1)": disagg_k1[0],
+        "smollm-360m disaggregated, two aliased shards (phase 3d-2)":
+            disagg_k1[1]}
     k4["launches_by_path"] = {
         "zamba2-7b forwards (phase 4)": k4["launches"],
         "zamba2-7b serving prefill (phase 4b)": zamba_serve["k4"]}

@@ -1,7 +1,8 @@
 """Cache construction for serving (port of ``repro/models/kvcache.py``):
 the dense per-layer caches and their tiered forms, the refcounted
-``PageTable`` allocator, and the ``PagedKVPools`` storage the paged decode
-kernel reads.
+``PageTable`` allocator, the ``MeshPageTable`` that puts one table per
+device under one slot namespace (the disaggregated engine's), and the
+``PagedKVPools`` storage the paged decode kernel reads.
 
 A dense cache is a list with one entry per layer, prologue first, as the
 port's loop over layers runs them (the reference stacks the period layers
@@ -229,6 +230,11 @@ class PageTable:
     def is_shared(self, slot: int, page_idx: int) -> bool:
         return self.refcount(slot, page_idx) > 1
 
+    def pages_in_use(self) -> int:
+        """Distinct physical pages currently allocated across both pools."""
+        return (self.n_hot - len(self.hot_free)
+                + self.n_cold - len(self.cold_free))
+
     def as_arrays(self, device):
         """(page_table, page_tier) int32 tensors (slots, pages_per_slot) on
         ``device``, for kernels/paged_decode.py."""
@@ -395,6 +401,202 @@ class PageTable:
                 raise AssertionError(f"stale twin memo {src} -> {twin}")
 
 
+class MeshPageTable:
+    """N per-device ``PageTable``s under one global logical slot namespace
+    (the port's own copy of ``repro.models.kvcache.MeshPageTable``).
+
+    The allocator view of a device mesh: device ``d``'s hot pool is its own
+    device memory, its cold pool a region of the one shared host memory.
+    Global slot ids are ``gslot = offset[d] + local_slot`` (offsets
+    cumulative over per-device slot counts), so every logical slot names
+    exactly one ``(device, slot)`` pair.
+
+    Intra-device operations (alloc/share/cow/demote/free) delegate to the
+    owning table unchanged.  ``migrate_slot`` is the cross-device tier
+    transition: a slot's pages move to a slot on another device, hot pages
+    crossing the device<->device edge, cold pages re-homing *inside* host
+    memory (their bytes never touch a device link).  A shared page's mover
+    pays a full private copy on the destination -- the source physical page
+    lives on for its remaining sharers -- so after migration every migrated
+    page is exclusive.
+
+    Byte conservation: every migrated page's payload is attributed to
+    exactly one ledger entry -- ``edge_bytes[(src_dev, dst_dev)]`` for hot
+    pages, ``host_internal_bytes`` for cold -- and the per-device
+    ``bytes_out``/``bytes_in`` ledgers always equal the edge sums
+    (``check()``).  The table moves no data: the caller copies the pages.
+    """
+
+    def __init__(self, tables, names=None, page_bytes: float = 1.0):
+        if not tables:
+            raise ValueError("MeshPageTable needs at least one PageTable")
+        self.tables = list(tables)
+        self.names = list(names) if names is not None else \
+            [f"dev{d}" for d in range(len(self.tables))]
+        if len(self.names) != len(self.tables):
+            raise ValueError(f"{len(self.tables)} tables but "
+                             f"{len(self.names)} names")
+        if len(set(self.names)) != len(self.names):
+            raise ValueError(f"duplicate device names: {self.names}")
+        pts = {t.page_tokens for t in self.tables}
+        if len(pts) != 1:
+            raise ValueError(f"tables disagree on page_tokens: {pts}")
+        self.page_tokens = pts.pop()
+        self.page_bytes = float(page_bytes)
+        self.offsets = [0]
+        for t in self.tables:
+            self.offsets.append(self.offsets[-1] + t.slots)
+        self.edge_bytes: Dict[tuple, float] = {}
+        self.host_internal_bytes = 0.0
+        self.bytes_out = {n: 0.0 for n in self.names}
+        self.bytes_in = {n: 0.0 for n in self.names}
+
+    # ------------------------------------------------------ the namespace --
+    @property
+    def num_devices(self) -> int:
+        return len(self.tables)
+
+    @property
+    def slots(self) -> int:
+        """Global logical slots across the mesh."""
+        return self.offsets[-1]
+
+    def gslot(self, dev: int, slot: int) -> int:
+        if not 0 <= slot < self.tables[dev].slots:
+            raise ValueError(f"device {dev}: no slot {slot}")
+        return self.offsets[dev] + slot
+
+    def owner(self, gslot: int) -> tuple:
+        """The unique ``(device, local_slot)`` a global slot names."""
+        if not 0 <= gslot < self.slots:
+            raise ValueError(f"global slot {gslot} outside [0, {self.slots})")
+        d = next(d for d in range(len(self.tables))
+                 if gslot < self.offsets[d + 1])
+        return d, gslot - self.offsets[d]
+
+    def _at(self, gslot: int):
+        d, s = self.owner(gslot)
+        return self.tables[d], d, s
+
+    # ------------------------------------------- delegated intra-device ops --
+    def n_pages(self, gslot: int) -> int:
+        t, _, s = self._at(gslot)
+        return t.n_pages[s]
+
+    def cold_pages(self, gslot: int) -> int:
+        t, _, s = self._at(gslot)
+        return t.cold_pages(s)
+
+    def refcount(self, gslot: int, page_idx: int) -> int:
+        t, _, s = self._at(gslot)
+        return t.refcount(s, page_idx)
+
+    def alloc(self, gslot: int, tier: int) -> int:
+        t, _, s = self._at(gslot)
+        return t.alloc(s, tier)
+
+    def share(self, dst: int, src: int, n: int) -> int:
+        """Prefix sharing -- intra-device only: a shared physical page can
+        only be mapped by slots on the device whose pool holds it."""
+        td, dd, sd = self._at(dst)
+        _, ds, ss = self._at(src)
+        if dd != ds:
+            raise ValueError(
+                f"share across devices ({self.names[ds]} -> "
+                f"{self.names[dd]}): physical pages cannot alias across "
+                "HBMs — migrate_slot copies instead")
+        return td.share(sd, ss, n)
+
+    def cow(self, gslot: int, page_idx: int):
+        t, _, s = self._at(gslot)
+        return t.cow(s, page_idx)
+
+    def demote(self, gslot: int, page_idx: int) -> tuple:
+        t, _, s = self._at(gslot)
+        return t.demote(s, page_idx)
+
+    def free_slot(self, gslot: int) -> int:
+        t, _, s = self._at(gslot)
+        return t.free_slot(s)
+
+    # -------------------------------------------- the cross-device transition --
+    def migrate_slot(self, src: int, dst: int) -> dict:
+        """Move every page of global slot ``src`` to global slot ``dst`` on
+        another device, appending after ``dst``'s existing pages (a shared
+        prefix admitted on the destination stays put; only the private tail
+        crosses).  Tiers are preserved per page.  Validates capacity and the
+        destination's cold-prefix invariant up front, so it either moves the
+        whole slot or raises without mutating.  Returns
+        ``{"pages", "hot_bytes", "cold_bytes"}``."""
+        st, sd, ss = self._at(src)
+        dt, dd, ds = self._at(dst)
+        if sd == dd:
+            raise ValueError(f"migrate_slot within device "
+                             f"{self.names[sd]}: use share/splice instead")
+        n = st.n_pages[ss]
+        n_cold = st.cold_pages(ss)
+        n_hot = n - n_cold
+        if dt.n_pages[ds] + n > dt.pages_per_slot:
+            raise ValueError(f"dst slot {ds} on {self.names[dd]}: "
+                             f"{dt.n_pages[ds]}+{n} pages exceed "
+                             f"pages_per_slot {dt.pages_per_slot}")
+        if n_cold and dt.n_pages[ds] > dt.cold_pages(ds):
+            raise ValueError(f"dst slot {ds} on {self.names[dd]}: cold "
+                             "pages would land above its hot pages")
+        if len(dt.hot_free) < n_hot or len(dt.cold_free) < n_cold:
+            raise ValueError(f"{self.names[dd]}: pool exhausted "
+                             f"(need {n_hot} hot / {n_cold} cold)")
+        edge = (self.names[sd], self.names[dd])
+        for i in range(n):
+            tier = st.tier[ss][i]
+            dt.alloc(ds, tier)
+            if tier == 0:
+                self.edge_bytes[edge] = self.edge_bytes.get(edge, 0.0) \
+                    + self.page_bytes
+                self.bytes_out[edge[0]] += self.page_bytes
+                self.bytes_in[edge[1]] += self.page_bytes
+            else:
+                # cold pools are regions of the one host memory: re-homing
+                # copies inside it, no device link is touched
+                self.host_internal_bytes += self.page_bytes
+        st.free_slot(ss)
+        return {"pages": n,
+                "hot_bytes": n_hot * self.page_bytes,
+                "cold_bytes": n_cold * self.page_bytes}
+
+    # ----------------------------------------------------------- invariants --
+    def pages_in_use(self) -> int:
+        return sum(t.pages_in_use() for t in self.tables)
+
+    def check(self) -> None:
+        """Each table's structural invariants plus the mesh ledgers: every
+        byte that left a device landed on exactly one edge.  Raises
+        AssertionError on a broken one."""
+        for t in self.tables:
+            t.check()
+        out_sum = {n: 0.0 for n in self.names}
+        in_sum = {n: 0.0 for n in self.names}
+        for (s, d), b in self.edge_bytes.items():
+            if s not in out_sum or d not in in_sum:
+                raise AssertionError(f"edge {(s, d)} names an unknown "
+                                     "device")
+            if b < 0:
+                raise AssertionError(f"edge {(s, d)}: negative bytes")
+            out_sum[s] += b
+            in_sum[d] += b
+        for name in self.names:
+            if out_sum[name] != self.bytes_out[name]:
+                raise AssertionError(
+                    f"{name}: {self.bytes_out[name]} bytes departed but "
+                    f"{out_sum[name]} attributed to edges")
+            if in_sum[name] != self.bytes_in[name]:
+                raise AssertionError(
+                    f"{name}: {self.bytes_in[name]} bytes arrived but "
+                    f"{in_sum[name]} attributed to edges")
+        if self.host_internal_bytes < 0:
+            raise AssertionError("negative host-internal bytes")
+
+
 @dataclass
 class PagedTieredCache:
     """Cache with per-slot cold boundaries at page granularity (the
@@ -531,7 +733,7 @@ class PagedKVPools:
             dst_pool[l, dst].copy_(page, non_blocking=True)
         if self.device.type == "cuda":
             self._cold_written = torch.cuda.Event()
-            self._cold_written.record()
+            self._cold_written.record(torch.cuda.current_stream(self.device))
 
     def sync_cold(self):
         """Wait until every issued cold-pool write has landed — before a
@@ -556,10 +758,15 @@ class PagedKVPools:
         return (torch.tensor([self.table.table[slot]], dtype=torch.long),
                 torch.tensor([self.table.tier[slot]], dtype=torch.long))
 
-    def paged_view(self, active_mask) -> dict:
+    def paged_view(self, active_mask, slots=None) -> dict:
         """The per-step view models/attention.py consumes; everything in it
-        is cached or a python constant."""
+        is cached or a python constant.  ``slots`` (a device index tensor)
+        narrows it to a sub-batch of slots, in that order, as one decode
+        shard of the disaggregated engine reads its pools;
+        ``active_mask`` is then the sub-batch's."""
         table_arr, tier_arr = self.arrays()
+        if slots is not None:
+            table_arr, tier_arr = table_arr[slots], tier_arr[slots]
         return {"page_table": table_arr, "page_tier": tier_arr,
                 "page_tokens": self.page_tokens, "active": active_mask,
                 "garbage_page": self.garbage}

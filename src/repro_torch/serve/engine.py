@@ -184,6 +184,11 @@ class ContinuousBatcher:
         self._active_inc = torch.zeros(batch_slots, dtype=torch.int32,
                                        device=self.device)
         self._prefix_donor: dict = {}          # prefix_key -> (slot, tokens)
+        # the one-shot admission's dense prefill, (params, batch) -> (last
+        # row's logits, cache): the seam the disaggregated engine wraps to
+        # run it on its prefill device
+        self._prefill = lambda p, batch: model.prefill(p, cfg, batch,
+                                                       max_seq=max_seq)
         self._jobs: dict = {}                  # slot -> _PrefillJob
         self._step_prefill = 0                 # prompt tokens run this step
         self.step_prefill_tokens: list = []
@@ -273,12 +278,18 @@ class ContinuousBatcher:
     def _slot_cold_target(self, slot: int, seq_len: int) -> int:
         return self.plan.cold_len_slot(slot, seq_len, self.page_tokens)
 
+    def _slot_pool(self, slot: int):
+        """The pools holding ``slot``'s pages (one decode shard's pools in
+        the disaggregated engine)."""
+        return self.pool
+
     def _demote_to_target(self, slot: int, seq_len: int):
         """Demote the slot's boundary page by page to the plan's target;
         twin-deduped shared pages advance it with zero copy."""
+        pool = self._slot_pool(slot)
         target = self._slot_cold_target(slot, seq_len)
-        while self.ptable.cold_tokens(slot) < target:
-            if self.pool.demote_boundary(slot):
+        while pool.table.cold_tokens(slot) < target:
+            if pool.demote_boundary(slot):
                 self.sim_migration_bytes += self.page_tokens * self._row_bytes
 
     def _admit(self):
@@ -306,9 +317,7 @@ class ContinuousBatcher:
                      prefix_key):
         """One-shot admission: a dense full-prompt prefill, then the
         layout's splice of its cache."""
-        last, fresh = model.prefill(self.params, self.cfg,
-                                    {"tokens": tokens[None]},
-                                    max_seq=self.max_seq)
+        last, fresh = self._prefill(self.params, {"tokens": tokens[None]})
         if self.pool is not None:
             self._admit_pool(slot, tok_host, fresh, S, prefix_key)
         elif self.paged is not None:
@@ -337,11 +346,14 @@ class ContinuousBatcher:
         map shared-prefix full pages onto the donor's, write the rest of the
         prefilled rows into fresh private pages and the other layers' state
         into the tree, then demote page by page to the plan's target."""
+        pool = self._slot_pool(slot)
         shared = self._share_prefix(slot, tok_host, prefix_key)
         n = -(-S // self.page_tokens)
         self._alloc_admit_pages(slot, n)
-        self.pool.admit_rows(fresh, slot, range(shared, n))
-        self.pool.splice_other(fresh, slot)
+        # the KV crosses to the pools' device here (no copy when it is there)
+        fresh = kvcache.to_device(fresh, pool.device)
+        pool.admit_rows(fresh, slot, range(shared, n))
+        pool.splice_other(fresh, slot)
         self._demote_to_target(slot, S)
 
     def _share_prefix(self, slot: int, tok_host, prefix_key,
@@ -352,32 +364,38 @@ class ContinuousBatcher:
         donor's physical pages, refcounted; register this prompt as the
         key's donor.  Returns the pages shared (never the page decode
         writes into: a shared page is read-only)."""
+        pool = self._slot_pool(slot)
+        table = pool.table
         for key in [k for k, (s, _) in self._prefix_donor.items()
                     if s == slot]:
             del self._prefix_donor[key]
-        self.ptable.free_slot(slot)
+        table.free_slot(slot)
         if prefix_key is None:
             return 0
         shared = 0
         donor = self._prefix_donor.get(prefix_key)
+        # physical pages alias only within one set of pools
         if donor is not None and donor[0] != slot and \
-                self.ptable.n_pages[donor[0]] > 0:
+                self._slot_pool(donor[0]) is pool and \
+                table.n_pages[donor[0]] > 0:
             lcp = 0
             for a, b in zip(tok_host, donor[1]):
                 if a != b:
                     break
                 lcp += 1
-            shared = min(lcp // self.page_tokens,
-                         self.ptable.n_pages[donor[0]])
+            shared = min(lcp // self.page_tokens, table.n_pages[donor[0]])
             if cap is not None:
                 shared = min(shared, cap)
             if shared:
-                self.ptable.share(slot, donor[0], shared)
+                table.share(slot, donor[0], shared)
         self._prefix_donor[prefix_key] = (slot, tok_host)
         return shared
 
     def _alloc_admit_pages(self, slot: int, n: int) -> None:
-        """Grow ``slot`` to ``n`` hot pages for an admission."""
+        """Grow ``slot`` to ``n`` hot pages for an admission (the seam the
+        disaggregated engine overrides: there the pages are staged on the
+        prefill device's table and cross to the decode side as a
+        ``MeshPageTable.migrate_slot`` transition)."""
         for _ in range(self.ptable.n_pages[slot], n):
             self.ptable.alloc(slot, 0)
 
@@ -660,8 +678,8 @@ def predict_pool_counters(requests: Sequence[tuple], plan, *, slots: int,
     physical pages, refcounted, cold twins deduping shared demotions), so
     ``admit_page_writes`` / ``xdev_migration_bytes`` count only the private
     tail and stay integer-exact for shared-prefix admits.  ``dense_admit``
-    replays the one-shot dense admission path (the reference's
-    disaggregated engine's ``_admit_pool``, ROADMAP item 8), whose
+    replays the one-shot dense admission path (the disaggregated engine's
+    ``_admit_pool``, ``serve/disagg.py``), whose
     shared-page cap differs from the pool-direct prefill scheduler's by the
     final-row carve-out.
 
@@ -670,8 +688,8 @@ def predict_pool_counters(requests: Sequence[tuple], plan, *, slots: int,
     each shard's distinct-hot-page byte peak, and ``edge_migration_bytes``
     ledgers every ``(src, dst)`` device edge — prefill->shard admit streams
     and shard->shard slot re-homings (a ``plan_schedule`` entry whose plan
-    moves an active slot's owner) — integer-exactly as the reference
-    disaggregated engine's ``MeshPageTable`` counts them.
+    moves an active slot's owner) — integer-exactly as the disaggregated
+    engine's ``MeshPageTable`` counts them (``serve/disagg.py``).
 
     The replay mirrors the engine's event order: per step, binding of queued
     requests to free slots (FIFO within each tenant), the prefill drain
@@ -991,8 +1009,7 @@ def predict_pool_counters(requests: Sequence[tuple], plan, *, slots: int,
     # traffic under prefill/decode disaggregation — every *private* admitted
     # page is prefilled on the prefill group and crosses the edge exactly
     # once; shared-prefix pages stay put on the decode side and never cross
-    # (the reference's serve/disagg.py MeshPageTable ledger matches it
-    # integer-exactly)
+    # (serve/disagg.py's MeshPageTable ledger matches it integer-exactly)
     return {"migration_bytes": mig, "page_copies": copies,
             "admit_page_writes": admit_writes, "tenant_hot_peak": peaks,
             "step_migration_bytes": step_mig,

@@ -47,6 +47,8 @@ def test_port_modules_import_no_jax_and_no_reference():
     assert {"repro_torch.optim.adamw", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.ckpt", "repro_torch.train.loop",
             "repro_torch.launch.train"} <= set(mods)
+    assert {"repro_torch.serve.disagg", "repro_torch.launch.mesh",
+            "repro_torch.launch.serve"} <= set(mods)
     # importing builds and loads no kernel: nvcc runs at a kernel's first
     # call only (this machine may have none)
     code = ("import importlib, json, sys\n"
@@ -117,6 +119,30 @@ def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         train.main(argv)
     out = train.main(argv + ["--device", "cpu"])
     assert len(out["losses"]) == 2
+
+
+def test_serving_cli_runs_on_the_cpu_when_asked(monkeypatch):
+    """The serving CLI at reduced size on the CPU, as a user runs it: it
+    exits 0 and prints its rate and tokens.  Without ``--device cpu`` it
+    needs a card."""
+    from repro_torch.launch import serve
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+         "--device", "cpu", "-n", "4", "--batch", "2", "--temperature",
+         "0.7"], capture_output=True, text=True, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    lines = res.stdout.strip().splitlines()
+    assert "8 tokens in" in lines[-2] and "tok/s batched) on cpu" in lines[-2]
+    assert len(json.loads(lines[-1])) == 4
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--reduced", "-n", "2"])
+    out = serve.main(["--reduced", "--device", "cpu", "-n", "3", "--batch",
+                      "2", "--temperature", "0.7", "--seed", "5"])
+    again = serve.main(["--reduced", "--device", "cpu", "-n", "3", "--batch",
+                        "2", "--temperature", "0.7", "--seed", "5"])
+    assert out.shape == (2, 3) and torch.equal(out, again)
 
 
 def test_unported_layouts_raise():
