@@ -15,8 +15,13 @@ Phases, each printing its own lines:
        without a window, each half of its slots gathered as a decode
        shard of phase 3d-2 launches it (its own split count at B 4), and
        zamba2-7b's shared-block shape (B 8, H = KVH = 32, D 112,
-       2048-token slots), with hot pages on the card, cold pages
-       in pinned host memory and unmapped (FREE) table entries;
+       2048-token slots), the attention families' serving shapes
+       (gemma2-2b's 8/4 heads of D 256 at softcap 50 with and without its
+       4096-token window over 8192-token slots, internlm2-1.8b's 16/8 of
+       128 and granite-moe-3b's 24/8 of 64 over 1024, gemma3-12b's 16/8 of
+       256 over 2048 with and without its 1024-token window), with hot
+       pages on the card, cold pages in pinned host memory and unmapped
+       (FREE) table entries;
      - K4 (Mamba2 SSD scan) over the reference's SSD sweep, a start state,
        S < chunk, a bf16 P of 12 and the full-width zamba2-7b layer (S 4096,
        H 112, P = N = 64), in f32 and bf16, each on the kernel the wrapper
@@ -118,7 +123,33 @@ Phases, each printing its own lines:
          steps on a repeated batch: the loss finite and falling, K4 65
          times a forward and 64 a recompute; step time, adamw.update's
          time, peak memory, pinned host bytes;
-  6. the attention entry points ops.flash_attention (K2) and
+  6. the attention families (ROADMAP item 9), each loaded alone and freed
+     before the next, bf16 from seed 0 at full width and depth, 8 slots,
+     page 16, 32 decode tokens a request:
+     6a. the five reduced fp32 configs on the card against the CPU (the
+         pools with a prefill chunk; deepseek-v2-lite on the pools with
+         chunk 0 and on concat): every forward's logits within atol 1e-4,
+         tokens and integer counters identical;
+     6b. gemma3-12b on the pools (2048-token slots, chunk 256, hot windows
+         256-480), 12 prompts of 300-1800 tokens, four over 1024 and four
+         sharing a 256-token prefix: tiered == all-hot tokens, K1 ==
+         decode steps x 48 with its LOCAL window and without, counters ==
+         predict_pool_counters;
+     6c. gemma2-2b on the pools (8192-token slots), 8 prompts of 500-6000
+         tokens, two over 4096: the same gates, K1 == steps x 26 with
+         softcap 50 in every launch, every logit within +-30; then the
+         serving CLI at full width (--arch gemma2-2b -n 16), exit 0;
+     6d. internlm2-1.8b and granite-moe-3b (40 experts, top 8) on the
+         pools (1024-token slots) over phase 3's requests: the same gates;
+     6e. deepseek-v2-lite (MLA, 64 experts top 6 and 2 shared, a dense
+         first layer) on all-HBM and concat (a global 256-token hot
+         window: the latent's cold prefix in pinned host memory), 12
+         prompts of 100-500 tokens: identical tokens, no kernel launch,
+         the latent 27 x 576 x 2 bytes a token;
+     each run's prefill ms per admission (a chunk on the pools), decode
+     tokens/s, pure-decode step, peak device memory and a profile of
+     decode steps;
+  7. the attention entry points ops.flash_attention (K2) and
      ops.decode_attention (K3), which no model path of the reference calls:
      - both kernels against their plain versions over the reference's
        sweeps in f32 and bf16, window/softcap cases, Sq < Skv, ragged Sq,
@@ -186,6 +217,17 @@ K1_WIDE = [(2, 128, 8, 1, 256, 16), (2, 64, 24, 24, 64, 16),
 # per KV head, of D 112, over the engine's 2048-token slots
 ZAMBA_MAX_SEQ = 2048
 K1_ZAMBA = (SLOTS, ZAMBA_MAX_SEQ, 32, 32, 112, PAGE)
+# K1 at the attention families' serving shapes (phase 6): gemma2-2b's
+# (8 query and 4 KV heads of D 256, softcap 50, its LOCAL layers' 4096-token
+# window) over 8192-token slots, internlm2-1.8b's and granite-moe-3b's over
+# 1024-token slots, each with its (window, softcap) cases; and gemma3-12b's
+# over 2048-token slots, timed with its LOCAL window and without
+K1_FAMILIES = {
+    "gemma2-2b": ((SLOTS, 8192, 8, 4, 256, PAGE), ((0, 50.0), (4096, 50.0))),
+    "internlm2-1.8b": ((SLOTS, MAX_SEQ, 16, 8, 128, PAGE), ((0, 0.0),)),
+    "granite-moe-3b": ((SLOTS, MAX_SEQ, 24, 8, 64, PAGE), ((0, 0.0),))}
+K1_GEMMA3 = (SLOTS, 2048, 16, 8, 256, PAGE)
+K1_GEMMA3_WINDOW = 1024
 KERNELS = ("paged_decode", "ssd", "decode_attention",
            "flash_attention")                     # csrc/<name>.cu
 
@@ -375,6 +417,7 @@ def check_kernels():
           f"{_tol_text(torch.float32)}, bf16 {zamba[torch.bfloat16][1]:.3e} "
           f"within {_tol_text(torch.bfloat16)}; (splits, KV heads a CTA, "
           f"tile) {z_plan}", flush=True)
+    families = check_k1_families()
     B, S, _, KVH = FULL_WIDTH[:4]
     full_plan = pd.plan(full[torch.bfloat16][0]["q"], KVH, PAGE, S // PAGE)
     sub_plan = pd.plan(full[torch.bfloat16][0]["q"][halves[0]], KVH, PAGE,
@@ -396,7 +439,66 @@ def check_kernels():
           f"{_tol_text(torch.float32)}; bf16 {worst[torch.bfloat16]:.3e} "
           f"(sweep) {full[torch.bfloat16][1]:.3e} (full width) within "
           f"{_tol_text(torch.bfloat16)}", flush=True)
-    return full[torch.bfloat16], zamba[torch.bfloat16]
+    return full[torch.bfloat16], zamba[torch.bfloat16], families
+
+
+def check_k1_families():
+    """K1 at the attention families' serving shapes, in f32 and bf16,
+    against its plain version: K1_FAMILIES with their windows and softcaps
+    (gemma2-2b's lengths run past its 4096-token window), then gemma3-12b's
+    shape with its 1024-token window and without.  Returns gemma3's bf16
+    case and its max abs error by window, for the timing."""
+    import torch
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(5)
+    for arch, (shape, options) in K1_FAMILIES.items():
+        S = shape[1]
+        lengths = [int(n) for n in rng.integers(S // 16, S - DECODE,
+                                                SLOTS)]
+        lengths[:2] = [S - DECODE, S // 2 + 3]       # past any window
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            c = k1_case(shape, dt, seed=97, lengths=lengths)
+            for window, cap in options:
+                out = pd.paged_decode_attention(*k1_args(c), window=window,
+                                                softcap_val=cap)
+                want = ref.paged_decode_attention_ref(
+                    *k1_args(c, True), window=window, softcap_val=cap)
+                torch.cuda.synchronize()
+                errs[str(dt)[6:], window, cap] = _attn_close(
+                    out, want, f"k1 {arch} shape {shape} {dt} w{window} "
+                               f"cap{cap}")[0]
+            del c
+        plan = pd.plan(torch.empty(SLOTS, shape[2], shape[4],
+                                   dtype=torch.bfloat16, device="cuda"),
+                       shape[3], PAGE, S // PAGE)
+        print(f"k1 {arch} shape {shape} (lengths {min(lengths)}-"
+              f"{max(lengths)}, cold pages pinned): == plain, max_abs_err "
+              + ", ".join(f"{d} w{w} cap{c:g} {e:.3e}"
+                          for (d, w, c), e in errs.items())
+              + f" (f32 within {_tol_text(torch.float32)}, bf16 within "
+              f"{_tol_text(torch.bfloat16)}); bf16 (splits, KV heads a CTA, "
+              f"tile) {plan}", flush=True)
+    lengths = [int(n) for n in rng.integers(300, 1833, SLOTS)]
+    lengths[0] = 1800
+    gemma3, errs = None, {}
+    for dt in (torch.float32, torch.bfloat16):
+        c = k1_case(K1_GEMMA3, dt, seed=96, lengths=lengths)
+        for window in (K1_GEMMA3_WINDOW, 0):
+            out = pd.paged_decode_attention(*k1_args(c), window=window)
+            want = ref.paged_decode_attention_ref(*k1_args(c, True),
+                                                  window=window)
+            torch.cuda.synchronize()
+            errs[dt, window] = _attn_close(out, want, f"k1 gemma3-12b shape "
+                                           f"{K1_GEMMA3} {dt} w{window}")[0]
+        if dt == torch.bfloat16:
+            gemma3 = (c, {w: errs[dt, w] for w in (K1_GEMMA3_WINDOW, 0)})
+    print(f"k1 gemma3-12b shape {K1_GEMMA3} (lengths {min(lengths)}-"
+          f"{max(lengths)}): == plain, max_abs_err " + ", ".join(
+              f"{str(d)[6:]} w{w} {e:.3e}" for (d, w), e in errs.items()),
+          flush=True)
+    return gemma3
 
 
 def _tol(dtype):
@@ -662,7 +764,7 @@ def check_paged_decode_core(params, cfg, b):
     B, KV, hd = b.B, cfg.num_kv_heads, cfg.head_dim
     G = cfg.num_heads // KV
     layer = params.layers[0]
-    h = rmsnorm(embed(params.table, tok), layer.ln1, cfg.norm_eps)
+    h = rmsnorm(embed(params.table, cfg, tok), layer.ln1, cfg.norm_eps)
     pos = lengths[:, None]
     q = layer.attn.qkv(cfg, h, pos)[0].reshape(B, 1, KV, G, hd)
     k_all, v_all = b.caches[0]["k"], b.caches[0]["v"]
@@ -1117,6 +1219,376 @@ def check_disagg_small():
           f"launches == shard forwards x {cfg.num_layers}", flush=True)
 
 
+# ------------------------------------------------ the attention families ----
+
+# phase 6: the families of ROADMAP item 9 the port serves beside smollm and
+# zamba2 (arch, its attention layers' K1 uses a decode step)
+FAMILIES = ("gemma2-2b", "gemma3-12b", "internlm2-1.8b",
+            "granite-moe-3b-a800m", "deepseek-v2-lite-16b")
+GEMMA3_MAX_SEQ, GEMMA2_MAX_SEQ = 2048, 8192
+# fp32 card-vs-CPU logits, as phase 4's reduced check holds them
+SMALL_LOGITS_TOL = dict(atol=1e-4, rtol=0.0)
+
+
+def _record_forwards(on_logits):
+    """Patch ``model.forward`` (the engine's, prefill_suffix's and
+    prefill's) to hand each call's logits to ``on_logits``.  Returns the
+    undo."""
+    from repro_torch.models import model
+    orig = model.forward
+
+    def forward(*args, **kw):
+        logits = orig(*args, **kw)
+        on_logits(logits)
+        return logits
+    model.forward = forward
+    return lambda: setattr(model, "forward", orig)
+
+
+def _record_k1_options(seen):
+    """Patch ``ops.paged_decode_attention`` (the attention layers' K1
+    entry) to note each call's (window, softcap).  Returns the undo."""
+    from repro_torch.kernels import ops
+    orig = ops.paged_decode_attention
+
+    def paged(*args, window=0, softcap_val=0.0, **kw):
+        seen[(window, softcap_val)] = seen.get((window, softcap_val), 0) + 1
+        return orig(*args, window=window, softcap_val=softcap_val, **kw)
+    ops.paged_decode_attention = paged
+    return lambda: setattr(ops, "paged_decode_attention", orig)
+
+
+def _pools_counters(b, reqs, decode, max_seq, chunk):
+    """The engine's integer books against predict_pool_counters' replay
+    (a dense admission's where the engine admits so); raises on a
+    difference."""
+    from repro_torch.serve.engine import predict_pool_counters
+    preq = [(tuple(int(x) for x in t), decode, None, k) for t, k in reqs]
+    pred = predict_pool_counters(
+        preq, b.plan, slots=b.B, max_seq=max_seq, page_tokens=b.page_tokens,
+        row_bytes=b._row_bytes, prefill_chunk_tokens=chunk,
+        dense_admit=not b._pool_prefill_ok)
+    cnt = b.counters()
+    got = {k: cnt[k] for k in ("sim_migration_bytes", "step_migration_bytes",
+                               "page_copies", "admit_page_writes")}
+    want = {"sim_migration_bytes": pred["migration_bytes"],
+            "step_migration_bytes": pred["step_migration_bytes"],
+            "page_copies": pred["page_copies"],
+            "admit_page_writes": pred["admit_page_writes"]}
+    if got != want:
+        raise AssertionError(f"{b.cfg.name}: engine counters {got} != "
+                             f"predict_pool_counters {want}")
+
+
+def _n_k1_layers(cfg):
+    """Layers whose decode reads the pools through K1 (MLA's latent stays
+    dense: none of deepseek's)."""
+    from repro_torch.models.kvcache import ATTN_KINDS
+    return sum(cfg.layer_kind(l) in ATTN_KINDS for l in range(cfg.num_layers))
+
+
+def small_family_requests(vocab):
+    """Phase 3's small set: three prompts sharing a 9-token prefix, one of
+    21 tokens."""
+    rng = np.random.default_rng(3)
+    sys_p = rng.integers(0, vocab, 9)
+    return [(np.concatenate([sys_p, rng.integers(0, vocab, 3 + i)]), "sys")
+            for i in range(3)] + [(rng.integers(0, vocab, 21), None)]
+
+
+def check_families_small(device="cuda"):
+    """Phase 6a: each family's reduced fp32 config served on ``device`` (the
+    kernels) and on the CPU (the plain path) from the same parameters, 2
+    slots of 32 tokens, page 4, hot windows 4 and 8: the pools with a
+    prefill chunk of 8 (deepseek: the pools with chunk 0, and concat, a
+    global hot window of 8).  Every forward's logits within
+    SMALL_LOGITS_TOL, the tokens and the integer counters identical, K1
+    once a decode step and attention layer on the card.  Returns K1's
+    launches summed over the runs on ``device``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.plan import PlacementPlan
+    counters = ("sim_migration_bytes", "step_migration_bytes", "page_copies",
+                "admit_page_writes", "table_uploads", "prefill_compute_tokens",
+                "prefill_skipped_tokens", "decode_steps")
+    total_k1, worst = 0, 0.0
+    for arch in FAMILIES:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  use_paged_decode=True)
+        params_cpu = init_params(cfg, seed=0, device="cpu")
+        params_dev = copy.deepcopy(params_cpu).to(device)
+        reqs = small_family_requests(cfg.vocab_size)
+        pools = PlacementPlan(hot_window=8, slot_hot_windows=[4, 8],
+                              page_tokens=4, prefill_chunk_tokens=8)
+        runs = {"pools": (cfg, pools, True)}
+        if cfg.kv_lora_rank:
+            runs = {"pools, chunk 0": (cfg, dataclasses.replace(
+                        pools, prefill_chunk_tokens=0), True),
+                    "concat": (dataclasses.replace(
+                        cfg, use_paged_decode=False),
+                        PlacementPlan(hot_window=8, page_tokens=4), False)}
+        for name, (c, plan, paged) in runs.items():
+            got = {}
+            for dev, p in ((device, params_dev), ("cpu", params_cpu)):
+                log = []
+                undo = _record_forwards(lambda l: log.append(l.float().cpu()))
+                try:
+                    got[dev] = serve(p, c, plan, reqs, max_seq=32, slots=2,
+                                     decode=10, device=dev, paged=paged)
+                finally:
+                    undo()
+                got[dev]["log"] = log
+            g, h = got[device], got["cpu"]
+            if g["out"] != h["out"] or len(g["log"]) != len(h["log"]):
+                raise AssertionError(f"reduced {arch} {name}: tokens on the "
+                                     f"card differ from the CPU's")
+            for a, b in zip(g["log"], h["log"]):
+                worst = max(worst, float((a - b).abs().max()))
+                torch.testing.assert_close(a, b, **SMALL_LOGITS_TOL)
+            cg, ch = g["b"].counters(), h["b"].counters()
+            if any(cg[k] != ch[k] for k in counters if k in ch):
+                raise AssertionError(f"reduced {arch} {name}: counters "
+                                     f"{cg} != the CPU's {ch}")
+            want_k1 = g["b"].decode_steps * _n_k1_layers(c) if paged else 0
+            if g["k1"] != want_k1 or (want_k1 and not g["cold_steps"]):
+                raise AssertionError(f"reduced {arch} {name}: {g['k1']} K1 "
+                                     f"launches (want {want_k1}), "
+                                     f"{g['cold_steps']} cold decode steps")
+            total_k1 += g["k1"]
+            print(f"small family check {arch} ({name}): fp32 tokens and "
+                  f"counters on the card == on the CPU, {len(g['log'])} "
+                  f"forwards' logits within atol "
+                  f"{SMALL_LOGITS_TOL['atol']:g}; K1 {g['k1']} launches",
+                  flush=True)
+    print(f"small family check: logits max_abs_err {worst:.3e} over the "
+          f"five families' runs", flush=True)
+    return total_k1
+
+
+def family_requests(vocab, lengths, seed, shared=4, prefix=256):
+    """Prompts of the given lengths; every third of the first ``3 *
+    shared`` (``shared`` of them) opens with one ``prefix``-token prefix."""
+    rng = np.random.default_rng(seed)
+    sys_p = rng.integers(0, vocab, prefix)
+    reqs = []
+    for i, n in enumerate(lengths):
+        if i % 3 == 1 and i < 3 * shared:
+            reqs.append((np.concatenate([sys_p, rng.integers(
+                0, vocab, int(n) - prefix)]), "sys"))
+        else:
+            reqs.append((rng.integers(0, vocab, int(n)), None))
+    return reqs
+
+
+def serve_family(arch, card, *, lengths, seed, max_seq, windows,
+                 layouts=("tiered", "all_hot"), chunk=256, shared=4,
+                 prefix=256, cli=None):
+    """One family at full width and depth (bf16, random weights from seed
+    0) on the card: ``layouts`` are "tiered" and "all_hot" (the pools, per
+    slot hot ``windows``, page 16, prefill chunk ``chunk``) or "all-HBM"
+    and "concat" (a global hot window of ``windows[0]`` tokens); ``shared``
+    prompts open with one ``prefix``-token prefix.  Every
+    run's tokens must equal the first's; on the pools K1 runs once a
+    decode step and attention layer and the counters equal
+    predict_pool_counters'; elsewhere K1 never runs.  Prints prefill ms
+    per admission, decode tokens/s, the mean pure-decode step, peak
+    device memory and a profile of decode steps.  Returns the first run's
+    K1 launches, the (window, softcap) pairs K1 took in it, its largest
+    |logit| and the engine's KV bytes a token."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.plan import PlacementPlan
+    t0 = time.perf_counter()
+    pools = layouts[0] == "tiered"
+    cfg = dataclasses.replace(get_config(arch), use_paged_decode=pools)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0)
+    n_params = sum(p.numel() for p in params.parameters())
+    reqs = family_requests(cfg.vocab_size, lengths, seed, shared, prefix)
+    if pools:
+        tiered = PlacementPlan(hot_window=max(windows), page_tokens=PAGE,
+                               slot_hot_windows=list(windows),
+                               prefill_chunk_tokens=chunk)
+        plans = {"tiered": tiered, "all_hot": dataclasses.replace(
+            tiered, hot_window=max_seq, slot_hot_windows=[max_seq] * SLOTS)}
+    else:
+        plans = {"all-HBM": None, "concat": PlacementPlan(
+            hot_window=windows[0], page_tokens=PAGE)}
+    admit_ms, seen, biggest = [], {}, []
+
+    def time_admissions(b):
+        name = "_run_chunk" if b._pool_prefill_ok else "_admit_dense"
+        admit = getattr(b, name)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            admit(*args)
+            torch.cuda.synchronize()
+            admit_ms.append(1e3 * (time.perf_counter() - ts))
+        setattr(b, name, timed)
+
+    def note_logits(logits):
+        m = logits.abs().amax()
+        biggest[:] = [m if not biggest else torch.maximum(biggest[0], m)]
+
+    runs, n_k1 = {}, _n_k1_layers(cfg)
+    for i, name in enumerate(layouts):
+        undo = [_record_k1_options(seen), _record_forwards(note_logits)] \
+            if i == 0 else []
+        try:
+            run = runs[name] = serve(
+                params, cfg, plans[name], reqs, max_seq=max_seq, slots=SLOTS,
+                decode=DECODE, device="cuda", paged=pools,
+                on_engine=time_admissions if i == 0 else None)
+        finally:
+            for u in undo:
+                u()
+        b = run["b"]
+        steps = b.decode_steps
+        if len(run["out"]) != len(reqs) or \
+                any(len(o) != DECODE for o in run["out"]) or \
+                any(not 0 <= t < cfg.vocab_size
+                    for o in run["out"] for t in o):
+            raise AssertionError(f"{arch} {name}: malformed outputs")
+        want_k1 = steps * n_k1 if pools else 0
+        if run["k1"] != want_k1:
+            raise AssertionError(f"{arch} {name}: {run['k1']} K1 launches "
+                                 f"for {steps} decode steps x {n_k1}")
+        if pools:
+            _pools_counters(b, reqs, DECODE, max_seq, chunk)
+        cnt = b.counters()
+        if name in ("tiered", "concat") and not b.sim_migration_bytes > 0 \
+                or name == "tiered" and not run["cold_steps"]:
+            raise AssertionError(f"{arch} {name}: nothing moved to host "
+                                 f"memory ({cnt})")
+        print(f"{arch} serve {name}: {len(run['out'])} requests, {steps} "
+              f"decode steps, K1 {run['k1']} = {steps} x {n_k1}, page_copies "
+              f"{cnt.get('page_copies', 0)}, {run['cold_steps']} decode steps "
+              f"with cold pages mapped, sim_migration_bytes "
+              f"{b.sim_migration_bytes:.0f}, KV {b._row_bytes:.0f} B a token, "
+              f"wall {run['wall']:.3f} s", flush=True)
+        run["row_bytes"] = b._row_bytes
+        del b
+        run.pop("b")
+        gc.collect()         # the timing wrapper holds the engine in a cycle
+    first, rest = runs[layouts[0]], [runs[n] for n in layouts[1:]]
+    if any(r["out"] != first["out"] for r in rest):
+        raise AssertionError(f"{arch}: {layouts[0]} tokens differ from "
+                             f"{layouts[1:]}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    decode_tokens = sum(len(o) - 1 for o in first["out"])
+    lens = [len(t) for t, _ in reqs]
+    books = "; counters == predict_pool_counters" if pools else ""
+    print(f"{arch} serve check: {' == '.join(layouts)} tokens; K1 == decode "
+          f"steps x {n_k1}{books}; prompts {min(lens)}-{max(lens)} tokens, "
+          f"{n_params / 1e9:.2f} B parameters", flush=True)
+    print(f"{arch} serve time: prefill {float(np.mean(admit_ms)):.1f} ms per "
+          f"admission (mean of {len(admit_ms)} "
+          f"{'chunks' if pools else 'admissions'}, "
+          f"{min(admit_ms):.1f}-{max(admit_ms):.1f}); "
+          f"{decode_tokens / first['wall']:.1f} decode tokens/s over the "
+          f"whole {layouts[0]} run ({first['wall']:.3f} s, prefill "
+          f"included); mean pure decode step "
+          f"{1e3 * float(np.mean(first['step_s'])):.3f} ms over "
+          f"{len(first['step_s'])} steps of {SLOTS} slots; peak device "
+          f"memory {peak:.1f} GB [{card}]", flush=True)
+    # budgets that keep the first slot decoding until the last is admitted
+    profile_decode(params, cfg, plans[layouts[-1] if not pools else "tiered"],
+                   reqs, card, steps=4, max_seq=max_seq, paged=pools,
+                   what=f"{arch} decode",
+                   decode=max_seq - max(len(t) for t, _ in reqs[:SLOTS]) - 1)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cli is not None:
+        cli()
+    print(f"{arch} phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return first["k1"], seen, float(biggest[0]) if biggest else 0.0, \
+        first["row_bytes"]
+
+
+def run_serving_cli(arch, n):
+    """The serving CLI at full width, as a user runs it; must exit 0."""
+    t1 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "-n", str(n)], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if res.returncode != 0 or "tok/s" not in res.stdout:
+        raise AssertionError(f"serving CLI ({arch}) exited "
+                             f"{res.returncode}: {res.stdout[-1000:]} "
+                             f"{res.stderr[-2000:]}")
+    return res.stdout.strip().splitlines()[-2], time.perf_counter() - t1
+
+
+def check_families(card):
+    """Phase 6, the attention families: 6a the reduced fp32 configs on the
+    card against the CPU; 6b gemma3-12b, 6c gemma2-2b (and the serving CLI
+    on it), 6d internlm2-1.8b and granite-moe-3b on the pools, 6e
+    deepseek-v2-lite on all-HBM and concat, each at full width and depth.
+    Returns K1's launches by path."""
+    t0 = time.perf_counter()
+    k1 = {"reduced families, card == CPU (phase 6a)": check_families_small()}
+    rng = np.random.default_rng(21)
+    # 6b: 12 prompts of 300-1800 tokens, four over 1024 (the LOCAL window
+    # bites in pool prefill and in K1), four sharing a 256-token prefix
+    g3 = [int(n) for n in rng.integers(300, 1025, 8)] + \
+        [int(n) for n in rng.integers(1100, 1801, 4)]
+    g3 = [g3[i] for i in rng.permutation(12)]
+    launches, seen, _, _ = serve_family(
+        "gemma3-12b", card, lengths=g3, seed=22, max_seq=GEMMA3_MAX_SEQ,
+        windows=[256 + 32 * s for s in range(SLOTS)])
+    if set(seen) != {(0, 0.0), (1024, 0.0)}:
+        raise AssertionError(f"gemma3-12b: K1 took {seen}")
+    k1["gemma3-12b serving, pools (phase 6b)"] = launches
+    # 6c: 8 prompts of 500-6000 tokens, two over 4096 (the window bites)
+    g2 = [int(n) for n in rng.integers(500, 4001, 6)] + [4600, 6000]
+    g2 = [g2[i] for i in rng.permutation(8)]
+    cli = {}
+    launches, seen, biggest, _ = serve_family(
+        "gemma2-2b", card, lengths=g2, seed=23, max_seq=GEMMA2_MAX_SEQ,
+        windows=[512 + 64 * s for s in range(SLOTS)],
+        cli=lambda: cli.update(line=run_serving_cli("gemma2-2b", 16)))
+    if set(seen) != {(0, 50.0), (4096, 50.0)}:
+        raise AssertionError(f"gemma2-2b: K1 took {seen}, not softcap 50 "
+                             f"in every launch with and without the window")
+    if not 0 < biggest <= 30.0:
+        raise AssertionError(f"gemma2-2b: a logit of {biggest} past the "
+                             f"final softcap of 30")
+    print(f"gemma2-2b check: every K1 launch with softcap 50 ({seen}); "
+          f"largest |logit| {biggest:.4f} <= 30", flush=True)
+    line, secs = cli["line"]
+    print(f"serving CLI gemma2-2b: {line} (exit 0, {secs:.1f} s with "
+          f"start-up) [{card}]", flush=True)
+    k1["gemma2-2b serving, pools (phase 6c)"] = launches
+    # 6d: phase 3's 12 requests (100-700 tokens, four sharing 256)
+    lens = [len(t) for t, _ in requests(49152)]
+    for arch in ("internlm2-1.8b", "granite-moe-3b-a800m"):
+        launches, seen, _, _ = serve_family(
+            arch, card, lengths=lens, seed=24, max_seq=MAX_SEQ,
+            windows=[128 + 16 * s for s in range(SLOTS)])
+        k1[f"{arch} serving, pools (phase 6d)"] = launches
+    # 6e: 12 prompts of 100-500 tokens (one dense admission prefill each,
+    # within the MoE group rule), the latent tiered to pinned host memory
+    launches, _, _, row_bytes = serve_family(
+        "deepseek-v2-lite-16b", card,
+        lengths=[int(n) for n in rng.integers(100, 501, 12)], seed=25,
+        max_seq=MAX_SEQ, windows=[256], layouts=("all-HBM", "concat"),
+        shared=0)
+    _assert_no_launch("deepseek-v2-lite serving")
+    if launches != 0 or row_bytes != 27 * 576 * 2:
+        raise AssertionError(f"deepseek: {launches} K1 launches, "
+                             f"{row_bytes} latent bytes a token")
+    print(f"deepseek-v2-lite check: concat == all-HBM tokens; no kernel "
+          f"launch; latent {row_bytes:.0f} B a token == 27 x 576 x 2",
+          flush=True)
+    print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return k1
+
+
 # ---------------------------------------------------------------- timing ----
 
 def time_ms(fn, reps=20, flush_bytes=64 << 20):
@@ -1256,18 +1728,20 @@ def print_profile(what, wall_us, rows, steps, card, unit="step", top=6):
 
 
 def profile_decode(params, cfg, plan, reqs, card, steps=8, *,
-                   max_seq=MAX_SEQ, what="decode"):
+                   max_seq=MAX_SEQ, what="decode", paged=True, decode=DECODE):
     """Where a decode step's time goes: torch.profiler over ``steps`` pure
-    decode steps of the tiered pools engine once all slots decode.  Prints
+    decode steps of the tiered pools engine (or, with ``paged`` False, the
+    plan's concat layout) once all slots decode, each with a budget of
+    ``decode`` tokens.  Prints
     the device-busy share (device time summed over all device kernels /
     wall time, profiler on) and the kernels that take the most device time.
     Returns the engine, its slots decoding, for the K3 phase."""
     import torch
     from repro_torch.serve.engine import ContinuousBatcher
-    b = ContinuousBatcher(params, cfg, SLOTS, max_seq, plan=plan, paged=True)
+    b = ContinuousBatcher(params, cfg, SLOTS, max_seq, plan=plan, paged=paged)
     for toks, key in reqs[:SLOTS]:
-        b.submit(torch.as_tensor(toks), DECODE, prefix_key=key)
-    for _ in range(100):
+        b.submit(torch.as_tensor(toks), decode, prefix_key=key)
+    for _ in range(1000):
         if not b._jobs and all(b.active):
             break
         b.step()
@@ -1278,10 +1752,12 @@ def profile_decode(params, cfg, plan, reqs, card, steps=8, *,
     return b
 
 
-def k1_time(c, what, card):
+def k1_time(c, what, card, window=0):
     """K1's time on case ``c`` beside its bound, its plain version's and
     one SDPA call's, at the wrapper's split count against one split in
-    turns (planned, 1, 1, planned).  Returns the kernels line's numbers."""
+    turns (planned, 1, 1, planned), with a sliding ``window`` where given
+    (the pages wholly before it are neither input the function needs nor
+    work it does).  Returns the kernels line's numbers."""
     import torch
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import ref
@@ -1297,14 +1773,15 @@ def k1_time(c, what, card):
     # counts every visit.
     table, tier = c["page_table"].cpu(), c["page_tier"].cpu()
     n_pool = {True: c["k_hot"].shape[0], False: c["k_cold"].shape[0]}
+    first = [max(0, n - window) // page if window else 0 for n in lengths]
     read = set()
     for b, n in enumerate(lengths):
-        for i in range(-(-n // page)):
+        for i in range(first[b], -(-n // page)):
             hot = int(tier[b, i]) == 0
             read.add((hot, min(max(int(table[b, i]), 0), n_pool[hot] - 1)))
     hot_pages = sum(1 for hot, _ in read if hot)
     cold_pages = len(read) - hot_pages
-    tokens = sum(-(-n // page) for n in lengths) * page
+    tokens = sum(-(-n // page) - f for n, f in zip(lengths, first)) * page
     # q in, out back, and the int32 table, tier and lengths
     io_bytes = 2 * c["q"].numel() * esize + (2 * B * (S // page) + B) * 4
     h2d = h2d_bytes_per_s()
@@ -1315,17 +1792,19 @@ def k1_time(c, what, card):
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     planned, group, tile = pd.plan(c["q"], KVH, page, S // page)
     args = k1_args(c)
-    turns = [(n, time_ms(lambda: pd._launch(*args, 0, 0.0, n, group,
+    turns = [(n, time_ms(lambda: pd._launch(*args, window, 0.0, n, group,
                                             tile)))
              for n in (planned, 1, 1, planned)]
     ms = float(np.mean([t for n, t in turns if n == planned]))
     dev_args = k1_args(c, True)
-    plain_ms = time_ms(lambda: ref.paged_decode_attention_ref(*dev_args),
-                       reps=5)
+    plain_ms = time_ms(lambda: ref.paged_decode_attention_ref(
+        *dev_args, window=window), reps=5)
     # yardstick only: one SDPA call over the same KV gathered densely
-    library_ms = time_ms(_sdpa_decode(c["q"], *c["dense"], c["lengths"]))
+    library_ms = time_ms(_sdpa_decode(c["q"], *c["dense"], c["lengths"],
+                                      window))
     print(f"k1 time ({what}): {ms:.4f} ms (mean of the two turns at "
           f"{planned} splits) at B{B} H{H} KVH{KVH} D{D} page{page} "
+          f"window {window} "
           f"{c['q'].dtype} ({hot_pages} hot + {cold_pages} cold distinct "
           f"pages of {page_bytes} B, {tokens // page} page visits); "
           f"bound {bound_ms:.4f} ms (hot at {HBM_BYTES_PER_S / 1e12} TB/s, "
@@ -1342,10 +1821,12 @@ def k1_time(c, what, card):
             "library_ms": library_ms, "splits": planned}
 
 
-def k1_record(full, err, launches, zamba, card):
+def k1_record(full, err, launches, zamba, gemma3, card):
     """The kernels line's K1 entry: the smollm serving shape's numbers
-    (phase 3's launches), with zamba2-7b's shared-block shape beside them
-    and the launches of every path that ran it."""
+    (phase 3's launches), with zamba2-7b's shared-block shape and
+    gemma3-12b's serving shape (its LOCAL layers' 1024-token window and
+    its global layers) beside them and the launches of every path that
+    ran it."""
     rec = {"name": "paged_decode_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
            "replaces": "src/repro/kernels/paged_decode.py:119",
@@ -1353,6 +1834,10 @@ def k1_record(full, err, launches, zamba, card):
     rec.update(k1_time(full, "smollm-360m serving shape", card))
     rec["zamba2_shape"] = dict(k1_time(zamba[0], "zamba2-7b shared-block "
                                        "shape", card), max_abs_err=zamba[1])
+    for window in (K1_GEMMA3_WINDOW, 0):
+        rec[f"gemma3_shape_window_{window}"] = dict(
+            k1_time(gemma3[0], "gemma3-12b serving shape", card,
+                    window=window), max_abs_err=gemma3[1][window])
     return rec
 
 
@@ -2123,7 +2608,10 @@ def _refuse_host_kv():
 def _assert_no_launch(what):
     from repro_torch.kernels import decode_attention as k3
     from repro_torch.kernels import flash_attention as k2
-    if k3.decode_attention.launches or k2.flash_attention.launches:
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ssd as k4
+    if k3.decode_attention.launches or k2.flash_attention.launches or \
+            pd.paged_decode_attention.launches or k4.ssd.launches:
         raise AssertionError(f"{what} launched a kernel")
 
 
@@ -2256,10 +2744,10 @@ def k2_bound(q, k, *, causal=True, window=0):
     return nbytes / HBM_BYTES_PER_S, flops / rate
 
 
-def _sdpa_decode(q, k, v, lengths):
-    """Yardstick only: one SDPA call computing K3's function (no window),
-    KV expanded to H heads and the length mask built before the timed
-    call."""
+def _sdpa_decode(q, k, v, lengths, window=0):
+    """Yardstick only: one SDPA call computing K3's function (K1's, with
+    ``window``), KV expanded to H heads and the length and window mask
+    built before the timed call."""
     import torch
     import torch.nn.functional as F
     B, H, D = q.shape
@@ -2267,8 +2755,11 @@ def _sdpa_decode(q, k, v, lengths):
     G = H // KVH
     kk = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     vv = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
-    mask = (torch.arange(S, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]
+    pos = torch.arange(S, device="cuda")[None, :]
+    mask = pos < lengths[:, None]
+    if window:
+        mask &= pos >= lengths[:, None] - window
+    mask = mask[:, None, None, :]
     qq = q[:, :, None, :].contiguous()
     return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
 
@@ -3093,7 +3584,7 @@ def main() -> int:
         print(f"build {name}: {secs:.2f} s; {ptxas_summary(log)}",
               flush=True)
 
-    (full, err), k1_zamba = check_kernels()
+    (full, err), k1_zamba, k1_gemma3 = check_kernels()
     k4_full = check_k4()
     check_k4_ragged()
     t0 = time.perf_counter()
@@ -3108,7 +3599,8 @@ def main() -> int:
           f"decode step {1e3 * float(np.mean(step_s)):.3f} ms over "
           f"{len(step_s)} steps of {SLOTS} slots [{card}]", flush=True)
     core_launches = check_layouts(*served, out, card)
-    k1 = k1_record(full, err, launches, k1_zamba, card)
+    k1 = k1_record(full, err, launches, k1_zamba, k1_gemma3, card)
+    del k1_gemma3
     engine = profile_decode(*served, card)
     k3_serving = k3_on_serving(engine, card)
     del engine
@@ -3150,6 +3642,9 @@ def main() -> int:
         train_zamba(card)
     print(f"training phases took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1["launches_by_path"].update(check_families(card))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(card)

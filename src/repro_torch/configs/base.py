@@ -1,8 +1,10 @@
 """Model configs and the arch registry (the port's own copy of
 ``repro/configs/base.py``, cut to the fields the ported layer kinds read:
-ATTN/LOCAL stacks and the zamba2 hybrid's MAMBA and SHARED_ATTN layers; the
-gemma extras -- final softcap, embedding scale, QK-norm, a global RoPE
-theta -- come with the slice that ports gemma).
+ATTN/LOCAL stacks with the gemma extras (final softcap, embedding scale,
+QK-norm, a global RoPE theta), MoE MLPs, deepseek's MLA layers and dense
+prologue, and the zamba2 hybrid's MAMBA and SHARED_ATTN layers; the xLSTM,
+LSTM, codebook and prefix-LM fields come with the port of those families,
+ROADMAP item 9).
 
 An arch is ``prologue`` (leading layers) followed by a repeating *period* of
 layer kinds; the port runs the stack as a plain loop over ``num_layers``
@@ -16,9 +18,21 @@ from typing import Optional, Sequence
 
 ATTN = "attn"            # full causal attention + MLP
 LOCAL = "local"          # sliding-window attention + MLP
+MLA = "mla"              # multi-head latent attention (deepseek) + MoE/MLP
 MAMBA = "mamba"          # mamba2 SSD block
 SHARED_ATTN = "shared_attn"  # zamba2 shared transformer block (one weight copy)
-PORTED_KINDS = (ATTN, LOCAL, MAMBA, SHARED_ATTN)
+PORTED_KINDS = (ATTN, LOCAL, MLA, MAMBA, SHARED_ATTN)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0           # routed experts
+    experts_per_token: int = 0     # top-k
+    num_shared_experts: int = 0
+    d_ff: int = 0                  # per-expert hidden
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    group_size: int = 512          # tokens per dispatch group (GShard-style)
 
 
 @dataclass(frozen=True)
@@ -34,7 +48,8 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | hybrid (the families ported yet)
+    family: str                   # dense | moe | hybrid (the families
+                                  # ported yet)
     num_layers: int
     d_model: int
     num_heads: int
@@ -45,7 +60,7 @@ class ModelConfig:
 
     period: Sequence[str] = (ATTN,)
     prologue: Sequence[str] = ()  # leading layers outside the period
-    prologue_d_ff: int = 0        # a dense prologue layer's MLP (unported)
+    prologue_d_ff: int = 0        # a prologue layer's dense MLP (deepseek)
 
     # attention details (the window and the softcap reach the decode kernel)
     use_paged_decode: bool = False  # decode reads KV through page pools
@@ -53,13 +68,25 @@ class ModelConfig:
                                     # engine's pools layout, paged=True)
     sliding_window: int = 0       # LOCAL layers' window
     attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    qk_norm: bool = False
     rope_theta: float = 10_000.0
+    rope_theta_global: float = 0.0   # gemma3 global layers use a different theta
 
+    # MLA (deepseek)
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
 
     act: str = "silu"             # silu | gelu
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
+    scale_embed: bool = False     # gemma family scales embeddings by sqrt(d)
     vocab_pad_to: int = 256       # embedding table padded to this multiple
     dtype: str = "bfloat16"
 
@@ -71,11 +98,6 @@ class ModelConfig:
             raise NotImplementedError(
                 f"{self.name}: layer kinds {sorted(unknown)} are not ported "
                 "yet (ROADMAP, modules to port: item 9)")
-        if set(self.prologue) - {MAMBA}:
-            raise NotImplementedError(
-                f"{self.name}: only MAMBA prologue layers are ported; a dense "
-                "prologue layer with its prologue_d_ff MLP is not (ROADMAP, "
-                "modules to port: item 9)")
         assert self.num_layers >= len(self.prologue)
         n = self.num_layers - len(self.prologue)
         assert n % len(self.period) == 0, (
@@ -118,6 +140,17 @@ class ModelConfig:
             prologue_d_ff=128 if self.prologue else 0,
             sliding_window=min(self.sliding_window, 8)
             if self.sliding_window else 0,
+            q_lora_rank=32 if self.q_lora_rank else 0,
+            kv_lora_rank=32 if self.kv_lora_rank else 0,
+            qk_nope_dim=16 if self.qk_nope_dim else 0,
+            qk_rope_dim=8 if self.qk_rope_dim else 0,
+            v_head_dim=16 if self.v_head_dim else 0,
+            # capacity_factor high enough to be dropless at toy scale, as
+            # the reference's
+            moe=dataclasses.replace(self.moe, num_experts=4,
+                                    experts_per_token=2, d_ff=64,
+                                    capacity_factor=4.0)
+            if self.moe else None,
             ssm=dataclasses.replace(self.ssm, state_dim=16, head_dim=8,
                                     num_heads=0, chunk=8)
             if self.ssm else None,
@@ -149,4 +182,6 @@ def list_archs():
 
 def _load_all():
     # import the per-arch modules for their registration side effect
-    from repro_torch.configs import smollm_360m, zamba2_7b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        deepseek_v2_lite, gemma2_2b, gemma3_12b, granite_moe_3b,
+        internlm2_1p8b, smollm_360m, zamba2_7b)

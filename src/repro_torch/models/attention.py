@@ -1,7 +1,7 @@
-"""GQA attention with causal / sliding-window masks, logit softcap, RoPE and
-KV caches (port of the GQA half of ``repro/models/attention.py``; the
-prefix-LM mask and QK-norm come with the families that use them, ROADMAP
-item 9).
+"""GQA attention with causal / sliding-window masks, logit softcap, QK-norm,
+per-kind RoPE and KV caches, and DeepSeek's multi-head latent attention
+(port of ``repro/models/attention.py``; the prefix-LM mask comes with the
+family that uses it, ROADMAP item 9).
 
 Forms: no cache (a full-sequence forward); a dense cache {"k", "v"}
 (B, Smax, KV*hd), written at a scalar offset (prefill, lockstep decode) or
@@ -11,8 +11,9 @@ read through the pool layout by ``ops.paged_decode_attention``
 (``_paged_decode_core``); and the persistent page pools, in pool prefill
 (one admitted slot's prompt chunk written into its physical pages) and pool
 decode (one token per slot, read back through
-``ops.paged_decode_attention``).  Caches are updated in place where the
-reference used ``.at[].set``.
+``ops.paged_decode_attention``).  MLA keeps a dense latent cache {"ckv",
+"krope"} in every layout, as the reference's (it has no paged path).
+Caches are updated in place where the reference used ``.at[].set``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from torch import nn
 from repro_torch.configs.base import ATTN, LOCAL
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.paged_decode import gather_pools, pool_layout
-from repro_torch.models.layers import apply_rope, frozen, softcap
+from repro_torch.models.layers import apply_rope, frozen, rmsnorm, softcap
 
 NEG_INF = -2.0 ** 20
 
@@ -36,6 +37,20 @@ def attn_bias(q_pos, kv_pos, *, window: int = 0):
     if window:
         ok &= (q - k) < window
     return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def write_rows(buf, rows, cache_index):
+    """Write ``rows`` (B, Sq, ...) into the dense cache buffer ``buf`` (B,
+    Smax, ...) in place (the reference's ``.at[].set`` and
+    ``dynamic_update_slice``): one row a slot at a (B,) tensor of per-slot
+    offsets, or Sq rows at a scalar offset (0 when None)."""
+    ci = 0 if cache_index is None else cache_index
+    if torch.is_tensor(ci) and ci.dim() >= 1:
+        buf[torch.arange(buf.shape[0], device=buf.device), ci.long()] = \
+            rows[:, 0]
+    else:
+        off = int(ci)
+        buf[:, off:off + rows.shape[1]] = rows
 
 
 def _gqa_core(q, k, v, bias, softcap_val: float):
@@ -58,17 +73,27 @@ class Attention(nn.Module):
 
         self.wq, self.wk, self.wv = w(d, H * hd), w(d, KV * hd), w(d, KV * hd)
         self.wo = w(H * hd, d)
+        if cfg.qk_norm:
+            self.q_norm, self.k_norm = w(hd), w(hd)
 
-    def qkv(self, cfg, x, positions):
-        """q (B, Sq, H, hd) and k, v (B, Sq, KV, hd) of x (B, Sq, d), with
-        the rotary embedding applied to q and k."""
+    def qkv(self, cfg, x, positions, kind: str = ATTN):
+        """q (B, Sq, H, hd) and k, v (B, Sq, KV, hd) of x (B, Sq, d): with
+        QK-norm (a plain RMS norm, the reference's ``plus_one=False``)
+        where the config has it, then the rotary embedding on q and k at
+        the layer kind's theta (global layers take ``rope_theta_global``
+        when it is set)."""
         B, Sq, _ = x.shape
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        theta = cfg.rope_theta_global \
+            if kind != LOCAL and cfg.rope_theta_global else cfg.rope_theta
         q = (x @ self.wq).reshape(B, Sq, H, hd)
         k = (x @ self.wk).reshape(B, Sq, KV, hd)
         v = (x @ self.wv).reshape(B, Sq, KV, hd)
-        return (apply_rope(q, positions, cfg.rope_theta),
-                apply_rope(k, positions, cfg.rope_theta), v)
+        if cfg.qk_norm:
+            q = rmsnorm(q, self.q_norm, cfg.norm_eps, plus_one=False)
+            k = rmsnorm(k, self.k_norm, cfg.norm_eps, plus_one=False)
+        return apply_rope(q, positions, theta), apply_rope(k, positions,
+                                                           theta), v
 
     def forward(self, cfg, x, positions, *, kind: str = ATTN, cache=None,
                 cache_index=None, paged_view=None):
@@ -82,7 +107,7 @@ class Attention(nn.Module):
         G = H // KV
         window = cfg.sliding_window if kind == LOCAL else 0
 
-        q, k, v = self.qkv(cfg, x, positions)
+        q, k, v = self.qkv(cfg, x, positions, kind)
         q = q.reshape(B, Sq, KV, G, hd)
 
         if cache is not None and "k_hot" in cache:
@@ -91,10 +116,6 @@ class Attention(nn.Module):
             out = core(cfg, q, k, v, cache, cache_index, paged_view, window,
                        positions)
         elif cache is not None:
-            if set(cache) != {"k", "v"}:
-                raise NotImplementedError(
-                    f"a cache with leaves {sorted(cache)} is not ported yet "
-                    "(ROADMAP, modules to port: item 9)")
             out = _dense_core(cfg, q, k, v, cache, cache_index, paged_view,
                               window, positions)
         else:
@@ -117,16 +138,8 @@ def _dense_core(cfg, q, k, v, cache, cache_index, paged_view, window,
     the pool layout instead (``_paged_decode_core``)."""
     B, Sq, KV, G, hd = q.shape
     k_all, v_all = cache["k"], cache["v"]
-    kf, vf = k.reshape(B, Sq, KV * hd), v.reshape(B, Sq, KV * hd)
-    ci = 0 if cache_index is None else cache_index
-    if torch.is_tensor(ci) and ci.dim() >= 1:
-        rows = torch.arange(B, device=q.device)
-        k_all[rows, ci.long()] = kf[:, 0]
-        v_all[rows, ci.long()] = vf[:, 0]
-    else:
-        off = int(ci)
-        k_all[:, off:off + Sq] = kf
-        v_all[:, off:off + Sq] = vf
+    write_rows(k_all, k.reshape(B, Sq, KV * hd), cache_index)
+    write_rows(v_all, v.reshape(B, Sq, KV * hd), cache_index)
     Smax = k_all.shape[1]
     if (paged_view is not None and cfg.use_paged_decode and Sq == 1
             and cache_index is not None):
@@ -258,3 +271,60 @@ def _pool_decode_core(cfg, q, k, v, cache, cache_index, paged_view, window,
         q.reshape(B, KV * G, hd), pool4(k_hot), pool4(v_hot),
         pool4(cache["k_cold"]), pool4(cache["v_cold"]), table_arr, tier_arr,
         ci + 1, window=window, softcap_val=cfg.attn_softcap)
+
+
+class MLA(nn.Module):
+    """DeepSeek-V2 multi-head latent attention.  The cache holds the
+    compressed latent {"ckv": (B, S, kv_lora_rank), "krope": (B, S,
+    qk_rope_dim)} (one rope key shared by the heads); K and V are expanded
+    from the latent at use time, as the reference's ``mla_attention``."""
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        d, H = cfg.d_model, cfg.num_heads
+        dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+        dv, dc = cfg.v_head_dim, cfg.kv_lora_rank
+
+        def w(*shape):
+            return frozen(torch.empty(*shape, device=device, dtype=dtype))
+
+        self.wq = w(d, H * (dn + dr))
+        self.w_dkv, self.w_krope = w(d, dc), w(d, dr)
+        self.w_uk, self.w_uv = w(dc, H * dn), w(dc, H * dv)
+        self.wo = w(H * dv, d)
+
+    def forward(self, cfg, x, positions, *, cache=None, cache_index=None):
+        """x: (B, Sq, d).  ``cache``: None, or a dense {"ckv", "krope"}
+        cache whose new rows are written in place at ``cache_index`` (a
+        scalar offset, 0 when None, or a (B,) tensor of per-slot offsets)
+        and which every query then reads whole under the causal mask."""
+        B, Sq, _ = x.shape
+        H, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                         cfg.v_head_dim)
+        q = (x @ self.wq).reshape(B, Sq, H, dn + dr)
+        q_nope = q[..., :dn]
+        q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+        ckv = x @ self.w_dkv                                   # (B, Sq, dc)
+        krope = apply_rope((x @ self.w_krope)[:, :, None, :], positions,
+                           cfg.rope_theta)[:, :, 0, :]         # (B, Sq, dr)
+        if cache is not None:
+            ckv_all, kr_all = cache["ckv"], cache["krope"]
+            write_rows(ckv_all, ckv, cache_index)
+            write_rows(kr_all, krope, cache_index)
+            kv_pos = torch.arange(ckv_all.shape[1], device=x.device)
+        else:
+            ckv_all, kr_all = ckv, krope
+            kv_pos = positions[0] if positions.dim() > 1 else positions
+        Skv = ckv_all.shape[1]
+        k_nope = (ckv_all @ self.w_uk).reshape(B, Skv, H, dn)
+        v = (ckv_all @ self.w_uv).reshape(B, Skv, H, dv)
+        scale = (dn + dr) ** -0.5
+        scores = (torch.einsum("bqhd,bshd->bhqs", q_nope.float(),
+                               k_nope.float())
+                  + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
+                                 kr_all.float())) * scale
+        bias = attn_bias(positions, kv_pos)
+        scores = scores + (bias[None] if bias.dim() == 2 else bias[:, None])
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
+        return out.reshape(B, Sq, H * dv) @ self.wo

@@ -7,8 +7,9 @@ device under one slot namespace (the disaggregated engine's), and the
 A dense cache is a list with one entry per layer, prologue first, as the
 port's loop over layers runs them (the reference stacks the period layers
 on a leading axis; the port has no such axis): an attention layer holds
-{"k", "v"} (B, max_seq, KV*hd), a MAMBA layer {"h", "conv"}
-(``ssm.init_mamba_cache``).  The "k" and "v" leaves are the sequence
+{"k", "v"} (B, max_seq, KV*hd), an MLA layer its latent {"ckv", "krope"}
+(B, max_seq, kv_lora_rank / qk_rope_dim), a MAMBA layer {"h", "conv"}
+(``ssm.init_mamba_cache``).  "k", "v", "ckv" and "krope" are the sequence
 leaves the tiered forms split; the reference recognises them by shape, the
 port by name.  The reference's ``.at[].set`` splices are in-place writes
 here, and a ``None`` leaf is a tier that holds no copy of that leaf.
@@ -31,11 +32,12 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ATTN, LOCAL, MAMBA, SHARED_ATTN
+from repro_torch.configs.base import ATTN, LOCAL, MAMBA, MLA, SHARED_ATTN
 from repro_torch.models import ssm as ssm_mod
 
 ATTN_KINDS = (ATTN, LOCAL, SHARED_ATTN)
-SEQ_KEYS = ("k", "v")            # the sequence leaves of a dense cache
+# the sequence leaves of a dense cache: GQA KV and the MLA latent
+SEQ_KEYS = ("k", "v", "ckv", "krope")
 
 
 def init_layer_cache(cfg, kind: str, batch: int, max_seq: int, dtype,
@@ -47,6 +49,11 @@ def init_layer_cache(cfg, kind: str, batch: int, max_seq: int, dtype,
                                  device=device),
                 "v": torch.zeros(batch, max_seq, D, dtype=dtype,
                                  device=device)}
+    if kind == MLA:
+        return {"ckv": torch.zeros(batch, max_seq, cfg.kv_lora_rank,
+                                   dtype=dtype, device=device),
+                "krope": torch.zeros(batch, max_seq, cfg.qk_rope_dim,
+                                     dtype=dtype, device=device)}
     if kind == MAMBA:
         return ssm_mod.init_mamba_cache(cfg, batch, dtype, device)
     raise ValueError(kind)
@@ -88,6 +95,8 @@ def kv_token_bytes(cfg, dtype_bytes: int = 2) -> float:
     def one(kind):
         if kind in ATTN_KINDS:
             return 2 * cfg.num_kv_heads * cfg.head_dim * dtype_bytes
+        if kind == MLA:
+            return (cfg.kv_lora_rank + cfg.qk_rope_dim) * dtype_bytes
         return 0.0
     total = sum(one(k) for k in cfg.prologue) + \
         cfg.num_periods * sum(one(k) for k in cfg.period)
@@ -679,8 +688,9 @@ class PagedKVPools:
     reads and writes in place: a ``{"k_hot", "v_hot", "k_cold", "v_cold"}``
     dict of views into pool ``pool_of[layer]`` for an attention layer, and
     the layer's dense batched state (``init_layer_cache``) for any other
-    kind.  The hot page at index ``garbage`` (= n_hot) absorbs the lockstep
-    writes of inactive slots.
+    kind: a Mamba layer's state, and an MLA layer's latent, which the
+    reference does not page either.  The hot page at index ``garbage``
+    (= n_hot) absorbs the lockstep writes of inactive slots.
 
     ``stats`` counts ``repacks`` (never in this design), ``table_uploads``
     (layout deltas), ``page_copies`` (demote / CoW data movement) and
@@ -823,9 +833,9 @@ class PagedKVPools:
         self.stats["admit_page_writes"] += len(pages)
 
     def splice_other(self, fresh, slot: int) -> None:
-        """Row-splice the non-attention layers' caches of a batch-1 cache
-        into the tree, in place, as ``splice_slot`` does on a dense
-        cache."""
+        """Row-splice the non-attention layers' caches (Mamba state, the
+        MLA latent) of a batch-1 cache into the tree, in place, as
+        ``splice_slot`` does on a dense cache."""
         for l, entry in enumerate(self.tree):
             if l not in self.pool_of:
                 for k, a in entry.items():

@@ -75,22 +75,31 @@ class MLP(nn.Module):
 
 # ------------------------------------------------------------- embedding ----
 
-def embed(table, tokens):
-    """tokens: (B, S) integer ids -> (B, S, d)."""
-    return F.embedding(tokens, table)
+def embed(table, cfg, tokens):
+    """tokens: (B, S) integer ids -> (B, S, d).  With ``cfg.scale_embed``
+    (gemma) the rows are scaled by sqrt(d) rounded to the table's dtype
+    first, as the reference's ``jnp.asarray(sqrt(d), x.dtype)``."""
+    x = F.embedding(tokens, table)
+    if cfg.scale_embed:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
 
 
-def unembed(table, x):
-    """x: (B, S, d) -> logits (B, S, padded_vocab)."""
-    return x @ table.T
+def unembed(table, cfg, x):
+    """x: (B, S, d) -> logits (B, S, padded_vocab), under the final softcap
+    where the config has one (gemma2)."""
+    return softcap(x @ table.T, cfg.final_softcap)
 
 
 # ------------------------------------------------------------------ init ----
 
-# constant leaves: the plus-one norms' offsets (0), and the Mamba block's
-# dt bias, conv bias, skip D and gate norm (reference models/ssm.py)
-_CONST_INIT = {"ln1": 0.0, "ln2": 0.0, "final_norm": 0.0, "dt_bias": 0.0,
-               "conv_b": 0.0, "D": 1.0, "norm": 1.0}
+# constant leaves: the plus-one norms' offsets (0), the QK-norm weights
+# (1, reference models/attention.py), and the Mamba block's dt bias, conv
+# bias, skip D and gate norm (reference models/ssm.py)
+_CONST_INIT = {"ln1": 0.0, "ln2": 0.0, "final_norm": 0.0, "q_norm": 1.0,
+               "k_norm": 1.0, "dt_bias": 0.0, "conv_b": 0.0, "D": 1.0,
+               "norm": 1.0}
 
 
 @torch.no_grad()
@@ -98,7 +107,8 @@ def init_weights(module: nn.Module, cfg, generator: torch.Generator):
     """Fill every parameter in registration order from ``generator``, with
     the reference's initialisers: norms and biases constant, the Mamba
     ``A_log = log(linspace(1, 16, H))``, embedding tables N(0, d^-1), the
-    Mamba conv N(0, 1/K) and projections N(0, 1/fan_in)."""
+    Mamba conv N(0, 1/K), projections N(0, 1/fan_in) and expert banks
+    (E, din, dout) N(0, 1/din)."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in _CONST_INIT:
@@ -109,7 +119,10 @@ def init_weights(module: nn.Module, cfg, generator: torch.Generator):
                     .to(p.dtype).log())
             continue
         # conv_w is (K, channels): 1/fan_in is the reference's K^-0.5 too
-        scale = cfg.d_model ** -0.5 if leaf in ("table", "head") \
-            else 1.0 / math.sqrt(p.shape[0])
+        if leaf in ("table", "head"):
+            scale = cfg.d_model ** -0.5
+        else:
+            scale = 1.0 / math.sqrt(p.shape[1] if p.dim() == 3
+                                    else p.shape[0])
         p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
                             dtype=torch.float32) * scale)

@@ -1,8 +1,8 @@
 """Top-level language model: embeddings -> layer stack -> head, the
 forward / prefill / decode-step / suffix-prefill entry points the serving
 engine calls, and the causal LM loss the train step differentiates (port of
-``repro/models/model.py`` for dense ATTN/LOCAL stacks and the zamba2
-hybrid).
+``repro/models/model.py`` for ATTN/LOCAL and MLA stacks with dense or MoE
+MLPs, and the zamba2 hybrid).
 
 ``forward`` updates the caches it is given in place (dense KV rows, the
 Mamba state entries, pool pages) and returns the logits; ``prefill`` and
@@ -29,7 +29,8 @@ def param_dtype(cfg):
 
 class Model(nn.Module):
     """Parameters of the whole model, named as the reference's tree:
-    ``table`` (embed/table), ``prologue.<i>.*`` (stack/prologue[i]),
+    ``table`` (embed/table), ``prologue.<i>.*`` (stack/prologue[i], with
+    a dense MLP of ``prologue_d_ff`` where the config has one),
     ``shared.*`` (stack/shared, zamba2's one shared block), ``layers.<j>.*``
     (slot ``j % period_len`` of the stacked tree at period
     ``j // period_len``), ``final_norm``, and ``head`` when embeddings are
@@ -42,7 +43,8 @@ class Model(nn.Module):
         self.table = frozen(torch.empty(cfg.padded_vocab, cfg.d_model,
                                         device=device, dtype=dtype))
         self.prologue = nn.ModuleList(
-            transformer.make_layer(cfg, kind, device=device, dtype=dtype)
+            transformer.make_layer(cfg, kind, device=device, dtype=dtype,
+                                   dense_ff=cfg.prologue_d_ff)
             for kind in cfg.prologue)
         self.shared = transformer.make_layer(
             cfg, SHARED_ATTN, device=device, dtype=dtype) \
@@ -59,17 +61,20 @@ class Model(nn.Module):
                         dtype=dtype))
 
     def forward(self, cfg, tokens, positions, *, caches=None,
-                cache_index=None, decode=False, paged_view=None, **sentinel):
+                cache_index=None, decode=False, paged_view=None, aux=None,
+                **sentinel):
         """``sentinel``: ``stack_forward``'s ``remat_policy``,
-        ``unroll_periods``, ``mi_periods`` and ``tag_block_out``."""
-        x = embed(self.table, tokens)
+        ``unroll_periods``, ``mi_periods`` and ``tag_block_out``; ``aux``:
+        a list the MoE layers append their auxiliary losses to."""
+        x = embed(self.table, cfg, tokens)
         x = transformer.stack_forward([*self.prologue, *self.layers], cfg,
                                       x, positions,
                                       caches=caches, cache_index=cache_index,
                                       decode=decode, paged_view=paged_view,
-                                      **sentinel)
+                                      aux=aux, **sentinel)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
-        return unembed(self.table if self.head is None else self.head, x)
+        return unembed(self.table if self.head is None else self.head, cfg,
+                       x)
 
 
 def init_params(cfg, seed: int = 0, device=None, *,
@@ -89,7 +94,7 @@ def init_params(cfg, seed: int = 0, device=None, *,
 
 
 def _logits(params, cfg, batch, *, caches=None, cache_index=None,
-            decode: bool = False, positions=None, paged_view=None,
+            decode: bool = False, positions=None, paged_view=None, aux=None,
             **sentinel):
     """The body of ``forward`` and ``loss_fn``."""
     tokens = batch["tokens"]
@@ -102,7 +107,7 @@ def _logits(params, cfg, batch, *, caches=None, cache_index=None,
             positions = torch.arange(S, device=tokens.device).expand(B, S)
     return params(cfg, tokens, positions, caches=caches,
                   cache_index=cache_index, decode=decode,
-                  paged_view=paged_view, **sentinel)
+                  paged_view=paged_view, aux=aux, **sentinel)
 
 
 @torch.no_grad()
@@ -126,20 +131,28 @@ def loss_fn(params, cfg, batch, *, remat_policy=None, unroll_periods=False,
             mi_periods: int = 1, tag_block_out: bool = False):
     """Causal LM loss: the mean NLL of ``batch["labels"]`` (B, S) under the
     forward's logits, with the padded vocab entries masked out of the
-    softmax.  There is no MoE, so no auxiliary loss.  It builds the
+    softmax, plus the MoE layers' auxiliary losses.  It builds the
     autograd graph when grad is enabled and the parameters require it; the
     keywords are the reference's (``core.offload.loss_kwargs`` gives them
-    for a ``SentinelConfig``) and change memory, never the value."""
+    for a ``SentinelConfig``) and change memory, never the value.  A
+    blocked mode (``remat_policy``) on a MoE config raises: its blocks do
+    not carry the aux loss yet."""
+    if cfg.moe is not None and remat_policy is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: Sentinel's blocked modes do not carry a MoE "
+            "layer's auxiliary loss through a block yet (ROADMAP, modules to "
+            "port: item 12, MoE under the blocked modes)")
+    aux = []
     logits = _logits(params, cfg, batch, remat_policy=remat_policy,
                      unroll_periods=unroll_periods, mi_periods=mi_periods,
-                     tag_block_out=tag_block_out).float()
+                     tag_block_out=tag_block_out, aux=aux).float()
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.zeros(cfg.padded_vocab, device=logits.device)
         pad[cfg.vocab_size:] = -1e9
         logits = logits + pad
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
-    return (logz - gold).mean()
+    return (logz - gold).mean() + sum(aux)
 
 
 def prefill(params, cfg, batch, max_seq=None):

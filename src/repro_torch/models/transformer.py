@@ -1,11 +1,14 @@
 """The layer stack (port of ``repro/models/transformer.py`` for ATTN/LOCAL
-stacks and the zamba2 hybrid).  The reference lowers the stack as a
+and MLA stacks with dense or MoE MLPs, and the zamba2 hybrid).  The
+reference lowers the stack as a
 ``lax.scan`` over stacked periods; here it is a plain loop over the prologue
 layers, then over the period layers, period layer ``j`` being slot
 ``j % period_len`` of period ``j // period_len``.  A SHARED_ATTN slot holds
 the one shared block object itself, so all its layers use one set of
 weights.  Caches are one entry per layer: attention layers write theirs in
 place; a MAMBA layer's new state replaces the entries of its cache dict.
+A MoE layer's auxiliary loss is appended to the ``aux`` list a caller
+passes (``model.loss_fn`` sums it), as the reference's stack sums it.
 
 A train step runs the period layers as Sentinel's blocks of ``mi_periods``
 periods (``stack_forward``, ``core/offload.py``)."""
@@ -14,33 +17,56 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ATTN, MAMBA, SHARED_ATTN
+from repro_torch.configs.base import ATTN, MAMBA, MLA, SHARED_ATTN
 from repro_torch.core import profiler
 from repro_torch.core.offload import CarryStore
+from repro_torch.models.attention import MLA as MLAttention
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, frozen, rmsnorm
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import MambaBlock
 
 
 class Block(nn.Module):
-    """One ATTN/LOCAL layer (and zamba2's shared block, with kind ATTN):
-    pre-norm attention and pre-norm gated MLP."""
+    """One ATTN/LOCAL layer (and zamba2's shared block, with kind ATTN) or
+    MLA layer: pre-norm attention (``attn``, or ``mla``) and a pre-norm
+    MLP, MoE (``moe``) where the config has one and ``dense_ff`` is 0,
+    else a gated MLP (``mlp``) of width ``dense_ff`` or ``cfg.d_ff``, as
+    the reference's ``init_block``."""
 
-    def __init__(self, cfg, kind: str, *, device, dtype):
+    def __init__(self, cfg, kind: str, *, device, dtype, dense_ff: int = 0):
         super().__init__()
         self.kind = kind
         self.ln1 = frozen(torch.empty(cfg.d_model, device=device, dtype=dtype))
-        self.attn = Attention(cfg, device=device, dtype=dtype)
+        if kind == MLA:
+            self.mla = MLAttention(cfg, device=device, dtype=dtype)
+        else:
+            self.attn = Attention(cfg, device=device, dtype=dtype)
         self.ln2 = frozen(torch.empty(cfg.d_model, device=device, dtype=dtype))
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
+        self.mlp = self.moe = None
+        if cfg.moe is not None and not dense_ff:
+            self.moe = MoE(cfg, device=device, dtype=dtype)
+        else:
+            self.mlp = MLP(cfg.d_model, dense_ff or cfg.d_ff, device=device,
+                           dtype=dtype)
 
     def forward(self, cfg, x, positions, *, cache=None, cache_index=None,
-                decode=False, paged_view=None):
+                decode=False, paged_view=None, aux=None):
         h = rmsnorm(x, self.ln1, cfg.norm_eps)
-        x = x + self.attn(cfg, h, positions, kind=self.kind, cache=cache,
+        if self.kind == MLA:
+            a = self.mla(cfg, h, positions, cache=cache,
+                         cache_index=cache_index)
+        else:
+            a = self.attn(cfg, h, positions, kind=self.kind, cache=cache,
                           cache_index=cache_index, paged_view=paged_view)
+        x = x + a
         h = rmsnorm(x, self.ln2, cfg.norm_eps)
-        return x + self.mlp(h, cfg.act)
+        if self.moe is None:
+            return x + self.mlp(h, cfg.act)
+        f, layer_aux = self.moe(cfg, h, cfg.act)
+        if aux is not None:
+            aux.append(layer_aux)
+        return x + f
 
 
 class MambaLayer(nn.Module):
@@ -54,7 +80,7 @@ class MambaLayer(nn.Module):
         self.mamba = MambaBlock(cfg, device=device, dtype=dtype)
 
     def forward(self, cfg, x, positions, *, cache=None, cache_index=None,
-                decode=False, paged_view=None):
+                decode=False, paged_view=None, aux=None):
         """With a cache {"h", "conv"}: a prefill scans from its state, a
         decode steps it; either way the new state replaces the dict's
         entries (the rows of every slot, active or not, as the reference's
@@ -66,23 +92,28 @@ class MambaLayer(nn.Module):
         return x + y
 
 
-def make_layer(cfg, kind: str, *, device, dtype):
+def make_layer(cfg, kind: str, *, device, dtype, dense_ff: int = 0):
     """A new layer of ``kind``; SHARED_ATTN builds zamba2's shared block
-    (full causal attention and a d_ff MLP), which the model builds once."""
+    (full causal attention and a d_ff MLP), which the model builds once;
+    ``dense_ff`` > 0 forces a dense MLP of that width (deepseek's
+    prologue)."""
     if kind == MAMBA:
         return MambaLayer(cfg, device=device, dtype=dtype)
     if kind == SHARED_ATTN:
-        return Block(cfg, ATTN, device=device, dtype=dtype)
-    return Block(cfg, kind, device=device, dtype=dtype)
+        return Block(cfg, ATTN, device=device, dtype=dtype,
+                     dense_ff=cfg.d_ff)
+    return Block(cfg, kind, device=device, dtype=dtype, dense_ff=dense_ff)
 
 
 def stack_forward(layers, cfg, x, positions, *, caches=None,
                   cache_index=None, decode=False, paged_view=None,
                   remat_policy=None, unroll_periods: bool = False,
-                  mi_periods: int = 1, tag_block_out: bool = False):
+                  mi_periods: int = 1, tag_block_out: bool = False,
+                  aux=None):
     """Run every layer in order (prologue first); ``caches`` is one cache
     entry per layer (a dense cache, or ``PagedKVPools.tree``), updated in
-    place.
+    place; each MoE layer appends its auxiliary loss to ``aux`` when a
+    list is given.
 
     Sentinel (core/offload.py), for a step that builds the autograd graph
     without caches:
@@ -104,7 +135,7 @@ def stack_forward(layers, cfg, x, positions, *, caches=None,
             x = layers[l](cfg, x, positions,
                           cache=caches[l] if caches is not None else None,
                           cache_index=cache_index, decode=decode,
-                          paged_view=paged_view)
+                          paged_view=paged_view, aux=aux)
         return x
 
     n_pro, span = len(cfg.prologue), cfg.period_len

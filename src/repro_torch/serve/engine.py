@@ -22,8 +22,10 @@ reference selects them:
       per-slot state machine (``queued -> prefilling -> active``) whose
       page-aligned chunks prefill straight into the slot's pages, and a
       request with a ``prefix_key`` maps the donor's full prompt pages
-      instead of computing them; any other stack (zamba2's) admits by one
-      dense prefill whose rows and state are then written into the pools.
+      instead of computing them; any other stack (zamba2's, whose Mamba
+      state is not paged, or deepseek's, whose MLA latent stays dense as
+      in the reference) admits by one dense prefill whose rows and state
+      are then written into the pools.
 
 Every other layout admits by one dense prefill spliced into its cache.
 ``sim_migration_bytes`` counts every byte moved device->host, so the

@@ -41,9 +41,11 @@ def params_from_jax(cfg, tree, device=None, *,
                     requires_grad: bool = False) -> Model:
     """The port's parameters from the reference's
     ``split_params(model.init_params(...))[0]`` given as nested dicts of
-    numpy arrays: the prologue layers, the shared block, and the stacked
-    slot leaves ``(num_periods, ...)`` unstacked into the period layers (a
-    SHARED_ATTN slot is weightless there; its layers are the shared block).
+    numpy arrays: the prologue layers (deepseek's dense one among them),
+    the shared block, and the stacked slot leaves ``(num_periods, ...)``
+    unstacked into the period layers, MoE expert banks ``(num_periods, E,
+    din, dout)`` and shared experts included (a SHARED_ATTN slot is
+    weightless there; its layers are the shared block).
     Every shape is checked.  Copied to ``device`` (default: the CUDA card)
     in the config's dtype; ``requires_grad`` as ``init_params``'s."""
     params = Model(cfg, device=resolve(device), dtype=param_dtype(cfg))

@@ -162,8 +162,14 @@ def test_init_params_gives_reference_initialisers():
 
 
 def test_dense_prologue_raises():
-    """Only MAMBA prologue layers are ported: a dense prologue layer, whose
-    MLP would take prologue_d_ff, raises rather than build a d_ff MLP."""
+    """A dense prologue layer is ported (deepseek-v2-lite's): it builds its
+    MLP at prologue_d_ff, not d_ff.  A prologue layer of a kind that is not
+    ported yet (xLSTM's) raises, naming the ROADMAP item that ports it."""
     from repro_torch.configs.base import ATTN
-    with pytest.raises(NotImplementedError, match="prologue"):
-        dataclasses.replace(get_config(ARCH).reduced(), prologue=(ATTN,))
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), prologue=(ATTN,),
+                              prologue_d_ff=96)
+    params = model.init_params(cfg, device="cpu")
+    assert tuple(params.prologue[0].mlp.wi.shape) == (cfg.d_model, 96)
+    assert tuple(params.shared.mlp.wi.shape) == (cfg.d_model, cfg.d_ff)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        dataclasses.replace(get_config(ARCH).reduced(), prologue=("mlstm",))

@@ -49,6 +49,9 @@ def test_port_modules_import_no_jax_and_no_reference():
             "repro_torch.launch.train"} <= set(mods)
     assert {"repro_torch.serve.disagg", "repro_torch.launch.mesh",
             "repro_torch.launch.serve"} <= set(mods)
+    assert {"repro_torch.models.moe"} | {f"repro_torch.configs.{m}" for m in (
+        "gemma2_2b", "gemma3_12b", "internlm2_1p8b", "granite_moe_3b",
+        "deepseek_v2_lite")} <= set(mods)
     # importing builds and loads no kernel: nvcc runs at a kernel's first
     # call only (this machine may have none)
     code = ("import importlib, json, sys\n"
@@ -146,19 +149,16 @@ def test_serving_cli_runs_on_the_cpu_when_asked(monkeypatch):
 
 
 def test_unported_layouts_raise():
-    """All four engine layouts are ported; a cache of a kind that is not (a
-    latent MLA cache) raises, naming the ROADMAP item that ports it.  As in
-    the reference, paged=True needs a plan and a re-plan applies to the
-    pools only; an incremental re-plan applies only against the plan it was
-    diffed from."""
+    """All four engine layouts are ported, and every cache kind of the
+    ported layer kinds (the MLA latent among them); a layer kind that is
+    not ported (xLSTM's) raises when its config is built, naming the
+    ROADMAP item that ports it.  As in the reference, paged=True needs a
+    plan and a re-plan applies to the pools only; an incremental re-plan
+    applies only against the plan it was diffed from."""
     cfg = get_config("smollm-360m").reduced()
     params = model.init_params(cfg, device="cpu")
-    latent = {"ckv": torch.zeros(1, 8, 32), "krope": torch.zeros(1, 8, 8)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.forward(params, cfg, {"tokens": torch.zeros(1, 1, dtype=int)},
-                      caches=[latent] * cfg.num_layers,
-                      cache_index=torch.zeros(1, dtype=torch.int32),
-                      decode=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        dataclasses.replace(cfg, period=("mlstm", "slstm"))
     with pytest.raises(ValueError, match="requires a plan"):
         ContinuousBatcher(params, cfg, 2, 32, paged=True, device="cpu")
     plan = PlacementPlan(page_tokens=4)

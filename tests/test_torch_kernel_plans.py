@@ -161,6 +161,9 @@ def test_plan_tiles_fits_every_config(heads, esize, page):
     ((24, 24, 64), 2, 16, (12, 16)),     # musicgen-medium: 2 CTAs a slot
     ((16, 8, 256), 2, 16, (4, 16)),      # gemma3-12b
     ((8, 4, 256), 4, 16, (2, 16)),       # gemma2-2b in f32
+    ((8, 4, 256), 2, 16, (4, 16)),       # gemma2-2b in bf16: all heads
+    ((16, 8, 128), 2, 16, (8, 16)),      # internlm2-1.8b
+    ((24, 8, 64), 2, 16, (8, 16)),       # granite-moe-3b
     ((8, 1, 256), 4, 64, (1, 32)),       # paligemma-3b in f32, 64-token pages
 ])
 def test_plan_tiles_at_config_shapes(heads, esize, page, want):
