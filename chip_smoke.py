@@ -47,6 +47,10 @@ Phases, each printing its own lines:
      boundaries) for one decode step over the all-HBM run's cache against
      the dense step, and generate (8 prompts of 256 tokens, 32 greedy
      tokens, twice);
+  3c-F1. ROADMAP F1's case on the card: smollm-360m and deepseek-v2-lite
+     reduced in fp32 on all-HBM, concat and paged-merged, a slot finished
+     at max_seq decoding on at index max_seq (a write the port drops):
+     tokens and counters == the CPU's, no device assert;
   3b. the rates behind H100_COST's measured constants (a device copy,
      pinned host<->device copies, one page demotion), each printed beside
      its constant; then Sentinel's loop at the same width, weights and
@@ -149,7 +153,26 @@ Phases, each printing its own lines:
      each run's prefill ms per admission (a chunk on the pools), decode
      tokens/s, pure-decode step, peak device memory and a profile of
      decode steps;
-  7. the attention entry points ops.flash_attention (K2) and
+  7. the recurrent families, which run none of the four kernels (every
+     kernel's launches counted 0 on each path):
+     7a. xlstm-1.3b and lstm-ptb reduced in fp32 on the card against the
+         CPU: the four engine layouts (logits, tokens, integer counters;
+         tiered == all-HBM), the loss and gradients of the full mode, and
+         each Sentinel mode's loss and gradient norm against full's at MI
+         1 and 2; the chunked mLSTM against the sequential scan at
+         xlstm-1.3b's head shape, each timed;
+     7b. xlstm-1.3b at full width and depth (bf16, seed 0, chunks of 64):
+         8 slots of 2048 tokens, 12 prompts of 128-1024 tokens, all-HBM
+         then the pools (identical tokens); then B 1 x S 1024 training,
+         offload at the MI planned on H100_COST against full, the moments
+         in pinned host memory; the training and serving CLIs;
+     7c. lstm-ptb at full width: B 20 x BPTT 35 training in the four modes,
+         planned on its own profile, beside the simulator's fast-only,
+         slow-only, Sentinel and IAL steps on H100_COST (paper Fig. 10's
+         shape, which must hold); the training CLI; 8 slots of 512 tokens,
+         12 prompts of 35-350 tokens, all-HBM then the pools; the serving
+         CLI;
+  8. the attention entry points ops.flash_attention (K2) and
      ops.decode_attention (K3), which no model path of the reference calls:
      - both kernels against their plain versions over the reference's
        sweeps in f32 and bf16, window/softcap cases, Sq < Skv, ragged Sq,
@@ -1587,6 +1610,618 @@ def check_families(card):
           flush=True)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
     return k1
+
+
+# ------------------------------------------------- F1: stale slot length ----
+
+# ROADMAP F1: a slot that finished at max_seq keeps its stale length, and
+# the lockstep decode still writes its row there, at index max_seq
+F1_REQUESTS = [(28, 5), (8, 12)]      # (prompt tokens, decode tokens)
+F1_MAX_SEQ = 32
+
+
+def _run_budgets(b, reqs):
+    """Submit (prompt, decode tokens) pairs and run the engine to its end;
+    returns the sorted outputs."""
+    import torch
+    for toks, d in reqs:
+        b.submit(torch.as_tensor(toks), d)
+    return sorted(tuple(o) for o in b.run())
+
+
+def check_f1():
+    """Phase 3c-F1: F1's case on the card.  smollm-360m and
+    deepseek-v2-lite (its MLA latent) reduced in fp32, 2 slots of 32
+    tokens, prompts of 28 and 8 tokens decoding 5 and 12, on all-HBM,
+    concat and paged-merged (hot windows 4 and 8, page 4): the first slot
+    finishes at max_seq and decodes on at index 32 for 7 steps, a write
+    the port drops.  Tokens and integer counters == the CPU's, no kernel
+    launch, and the card raises no device assert (each run ends in a
+    synchronize)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.plan import PlacementPlan
+    from repro_torch.serve.engine import ContinuousBatcher
+    t0 = time.perf_counter()
+    plan = PlacementPlan(hot_window=16, slot_hot_windows=[4, 8],
+                         page_tokens=4)
+    layouts = {"all-HBM": (None, False), "concat": (plan, False),
+               "paged-merged": (plan, True)}
+    counters = ("sim_migration_bytes", "step_migration_bytes",
+                "table_version", "prefill_compute_tokens", "decode_steps")
+    for arch in ("smollm-360m", "deepseek-v2-lite-16b"):
+        cfg = get_config(arch).reduced()
+        params_cpu = init_params(cfg, seed=0, device="cpu")
+        params_dev = copy.deepcopy(params_cpu).to("cuda")
+        rng = np.random.default_rng(40)
+        reqs = [(rng.integers(0, cfg.vocab_size, p), d)
+                for p, d in F1_REQUESTS]
+        for name, (pl, paged) in layouts.items():
+            got = {}
+            for dev, p in (("cuda", params_dev), ("cpu", params_cpu)):
+                b = ContinuousBatcher(p, cfg, 2, F1_MAX_SEQ, plan=pl,
+                                      paged=paged, device=dev)
+                reset_counts()
+                out = _run_budgets(b, reqs)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    _assert_no_launch(f"F1 {arch} {name}")
+                got[dev] = (out, b)
+            (out, b), (out_cpu, b_cpu) = got["cuda"], got["cpu"]
+            if out != out_cpu or sorted(len(o) for o in out) != \
+                    sorted(d for _, d in F1_REQUESTS):
+                raise AssertionError(f"F1 {arch} {name}: card tokens {out} "
+                                     f"!= the CPU's {out_cpu}")
+            c, h = b.counters(), b_cpu.counters()
+            if any(c[k] != h[k] for k in counters):
+                raise AssertionError(f"F1 {arch} {name}: counters {c} != "
+                                     f"the CPU's {h}")
+            if b._host_len[0] != F1_MAX_SEQ or b.active[0]:
+                raise AssertionError(f"F1 {arch} {name}: slot 0 did not "
+                                     f"finish at max_seq ({b._host_len})")
+        print(f"F1 check {arch} reduced: all-HBM, concat and paged-merged "
+              f"on the card == on the CPU (tokens, counters); the slot "
+              f"finished at {F1_MAX_SEQ} decoded on for "
+              f"{F1_REQUESTS[1][1] - F1_REQUESTS[0][1]} steps, no device "
+              f"assert, no kernel launch", flush=True)
+    print(f"phase 3c-F1 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ----------------------------------------- the recurrent families (phase 7) --
+
+# phase 7: xlstm-1.3b (mLSTM and sLSTM) and the paper's lstm-ptb, which hold
+# O(1) state a slot and no KV: no kernel of K1-K4 runs on their paths
+RECURRENT = ("xlstm-1.3b", "lstm-ptb")
+# the reduced xlstm's fp32 results are ill-conditioned (the mLSTM's
+# normaliser max(|n.q|, exp(-m)) amplifies rounding): two fp32 runs of it
+# each lie up to 1e-4 of a tensor's largest |value| from float64
+# (tests/test_torch_xlstm.py), so the card and the CPU are held to each
+# other within twice that, where it is wider than the absolute limit
+XLSTM_REL = 2e-4
+XLSTM_CHUNK = 64                      # the mLSTM's chunk on the card
+XLSTM_MAX_SEQ, LSTM_MAX_SEQ = 2048, 512
+# B x S of phase 7b's training step: 1024 tokens; at 2048 a step took
+# 33.6-44.3 s on H100 hosts with a slower CPU (the sLSTM's steps and their
+# backward are eager launches), leaving the script 107 s inside its limit
+XLSTM_TRAIN = (1, 1024)
+XLSTM_PROFILE_S = 128                 # the sequence its plan profiles
+LSTM_TRAIN = (20, 35)                 # B x BPTT, Zaremba et al.'s medium
+LSTM_TRAIN_STEPS = 6
+
+
+def _close_rel(got, want, tol, rel, what):
+    """``got`` within ``tol`` of ``want``, its absolute part widened to
+    ``rel`` x the largest |want| where that is larger; returns the max
+    |difference|."""
+    import torch
+    atol = max(tol["atol"], rel * float(want.abs().max()))
+    torch.testing.assert_close(got, want, atol=atol, rtol=tol.get("rtol", 0),
+                               msg=lambda m: f"{what}: {m}")
+    return float((got - want).abs().max())
+
+
+def _recurrent_launches(what):
+    """Every kernel's launches since the last reset_counts, which must be
+    0 on these paths."""
+    from repro_torch.kernels import decode_attention as k3
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ssd as k4
+    got = {"paged_decode": pd.paged_decode_attention.launches,
+           "flash_attention": k2.flash_attention.launches,
+           "decode_attention": k3.decode_attention.launches,
+           "ssd": k4.ssd.launches}
+    _assert_no_launch(what)
+    return got
+
+
+def check_recurrent_small(note):
+    """Phase 7a: xlstm-1.3b and lstm-ptb reduced in fp32, parameters from
+    seed 0 on the CPU and the same values on the card.  Serving: three
+    requests (8 + 5, 17 + 7 and 7 + 4 tokens), 2 slots of 32, on all-HBM,
+    concat, paged-merged and the pools (hot windows 4 and 8, page 4):
+    every forward's logits within SMALL_LOGITS_TOL (xlstm: or XLSTM_REL of
+    the largest |logit|), tokens and integer counters == the CPU's, and
+    the tiered layouts' tokens == all-HBM's.  Training: the loss and every
+    gradient of the full mode == the CPU's (SMALL_LOSS_TOL,
+    SMALL_GRAD_TOL; xlstm's gradients also XLSTM_REL of a leaf's largest
+    |value|), and each mode's loss and gradient norm at MI 1 and 2 == full's
+    on the card (MODE_LOSS_RTOL, MODE_GNORM_RTOL), all finite.  Then the
+    chunked mLSTM (chunks of 64) against the sequential scan on the card at
+    xlstm-1.3b's head shape (B 1, S 512, 4 heads, Dk 512, Dv 1024), from
+    the empty state and carried on, each timed.  ``note(what)`` reads (and
+    resets) the kernels' launches of what ran."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import offload
+    from repro_torch.kernels import ref
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.runtime.plan import PlacementPlan
+    from repro_torch.serve.engine import ContinuousBatcher
+    t0 = time.perf_counter()
+    counters = ("sim_migration_bytes", "step_migration_bytes", "page_copies",
+                "admit_page_writes", "table_uploads", "table_version",
+                "prefill_compute_tokens", "decode_steps")
+    reset_counts()
+    for arch in RECURRENT:
+        cfg = get_config(arch).reduced()
+        rel = XLSTM_REL if arch == "xlstm-1.3b" else 0.0
+        params_cpu = init_params(cfg, seed=0, device="cpu")
+        params_dev = copy.deepcopy(params_cpu).to("cuda")
+        rng = np.random.default_rng(3)
+        reqs = [(rng.integers(0, cfg.vocab_size, p), d)
+                for p, d in ((8, 5), (17, 7), (7, 4))]
+        plan = PlacementPlan(hot_window=16, slot_hot_windows=[4, 8],
+                             page_tokens=4)
+        layouts = {"all-HBM": (None, False, False),
+                   "concat": (plan, False, False),
+                   "paged-merged": (plan, True, False),
+                   "pools": (plan, True, True)}
+        outs, err = {}, 0.0
+        for name, (pl, paged, pools) in layouts.items():
+            c = dataclasses.replace(cfg, use_paged_decode=pools)
+            got = {}
+            for dev, p in (("cuda", params_dev), ("cpu", params_cpu)):
+                log = []
+                undo = _record_forwards(lambda l: log.append(l.float().cpu()))
+                try:
+                    b = ContinuousBatcher(p, c, 2, 32, plan=pl, paged=paged,
+                                          device=dev)
+                    got[dev] = (_run_budgets(b, reqs), b, log)
+                finally:
+                    undo()
+            (out, b, log), (out_cpu, b_cpu, log_cpu) = got["cuda"], \
+                got["cpu"]
+            if out != out_cpu or len(log) != len(log_cpu):
+                raise AssertionError(f"reduced {arch} {name}: card tokens "
+                                     f"{out} != the CPU's {out_cpu}")
+            for a, h in zip(log, log_cpu):
+                err = max(err, _close_rel(a, h, SMALL_LOGITS_TOL, rel,
+                                          f"reduced {arch} {name} logits"))
+            cg, ch = b.counters(), b_cpu.counters()
+            if any(cg[k] != ch[k] for k in counters if k in ch):
+                raise AssertionError(f"reduced {arch} {name}: counters {cg} "
+                                     f"!= the CPU's {ch}")
+            outs[name] = out
+        if any(o != outs["all-HBM"] for o in outs.values()):
+            raise AssertionError(f"reduced {arch}: the layouts' tokens "
+                                 f"differ: {outs}")
+        print(f"small recurrent check {arch} (fp32): all-HBM, concat, "
+              f"paged-merged and pools on the card == on the CPU (tokens, "
+              f"counters), tiered == all-HBM tokens; logits max_abs_err "
+              f"{err:.3e}", flush=True)
+
+        # training: full on the card against the CPU, then every mode
+        # against full on the card
+        cpu = init_params(cfg, seed=0, device="cpu", requires_grad=True)
+        gpu = copy.deepcopy(cpu).to("cuda")
+        toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 17))
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+                 "labels": torch.from_numpy(toks[:, 1:])}
+        res, gerr = {}, 0.0
+        for mode in MODES:
+            for mi in (1, 2):
+                kw = offload.loss_kwargs(offload.SentinelConfig(
+                    mode=mode, mi_periods=mi))
+                sides = (("cuda", gpu), ("cpu", cpu)) if mode == "full" \
+                    else (("cuda", gpu),)
+                for dev, p in sides:
+                    loss = loss_fn(p, cfg, {k: v.to(dev) for k, v in
+                                            batch.items()}, **kw)
+                    grads = torch.autograd.grad(loss, list(p.parameters()))
+                    if not (torch.isfinite(loss) and all(
+                            torch.isfinite(g).all() for g in grads)):
+                        raise AssertionError(f"reduced {arch} {mode} mi {mi} "
+                                             f"on {dev}: not finite")
+                    gn = float(torch.sqrt(sum(g.double().square().sum()
+                                              for g in grads)))
+                    res[dev, mode, mi] = (float(loss.detach()), gn,
+                                          [g.cpu() for g in grads])
+        what = f"reduced {arch} full"
+        lc, gc_, g_cpu = res["cpu", "full", 1]
+        lg, gg, g_dev = res["cuda", "full", 1]
+        _close_rel(torch.tensor(lg), torch.tensor(lc), SMALL_LOSS_TOL, 0.0,
+                   f"{what} loss")
+        for a, h in zip(g_dev, g_cpu):
+            gerr = max(gerr, _close_rel(a, h, SMALL_GRAD_TOL, rel,
+                                        f"{what} gradient"))
+        for (dev, mode, mi), (l, gn, _) in res.items():
+            if dev == "cuda" and not (
+                    abs(l - lg) <= MODE_LOSS_RTOL * abs(lg)
+                    and abs(gn - gg) <= MODE_GNORM_RTOL * gg):
+                raise AssertionError(f"reduced {arch} {mode} mi {mi}: loss "
+                                     f"{l}, gradient norm {gn}; full's {lg}, "
+                                     f"{gg}")
+        print(f"small recurrent training {arch} (fp32): full on the card == "
+              f"on the CPU (loss {lg:.6f} / {lc:.6f}; gradients "
+              f"max_abs_err {gerr:.3e}); every mode at MI 1 and 2 == full's "
+              f"loss and gradient norm on the card (limits "
+              f"{MODE_LOSS_RTOL:g}, {MODE_GNORM_RTOL:g}), all finite",
+              flush=True)
+
+    # the chunked mLSTM against the sequential scan at the full head shape
+    g = torch.Generator(device="cuda").manual_seed(12)
+    B, S, H, Dk, Dv = 1, 512, 4, 512, 1024
+    q = torch.randn(B, S, H, Dk, generator=g, device="cuda")
+    k = torch.randn(B, S, H, Dk, generator=g, device="cuda")
+    v = torch.randn(B, S, H, Dv, generator=g, device="cuda")
+    li = torch.randn(B, S, H, generator=g, device="cuda") * 2
+    lf = torch.nn.functional.logsigmoid(
+        torch.randn(B, S, H, generator=g, device="cuda") + 1)
+    ms = {}
+    for name, fn in (("sequential", ref.mlstm_ref),
+                     ("chunked", lambda *a, **kw: ref.mlstm_chunked_ref(
+                         *a, chunk=XLSTM_CHUNK, **kw))):
+        fn(q[:, :64], k[:, :64], v[:, :64], li[:, :64], lf[:, :64])
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = fn(q, k, v, li, lf)
+        torch.cuda.synchronize()
+        ms[name] = (1e3 * (time.perf_counter() - ts), out)
+    (h0, s0), (h1, s1) = ms["sequential"][1], ms["chunked"][1]
+    chunk_tol = dict(atol=2e-4, rtol=0.0)
+    e0 = _close_rel(h1, h0, chunk_tol, 1e-4, "chunked mLSTM")
+    h0c = ref.mlstm_ref(q, k, v, li, lf, state=s0)[0]
+    h1c = ref.mlstm_chunked_ref(q, k, v, li, lf, chunk=XLSTM_CHUNK,
+                                state=s1)[0]
+    e1 = _close_rel(h1c, h0c, chunk_tol, 1e-4, "chunked mLSTM, carried")
+    note("phase 7a")
+    print(f"mLSTM check: chunks of {XLSTM_CHUNK} == the sequential scan on "
+          f"the card at B {B}, S {S}, H {H}, Dk {Dk}, Dv {Dv} (max_abs_err "
+          f"{e0:.3e} of |h| up to {float(h0.abs().max()):.1f}; carried on "
+          f"{e1:.3e}; limit 2e-4 or 1e-4 of the largest |h|); sequential "
+          f"{ms['sequential'][0]:.1f} ms, chunked {ms['chunked'][0]:.1f} ms "
+          f"(host clock, eager); phase 7a took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def serve_recurrent(arch, card, note, *, lengths, seed, max_seq):
+    """One recurrent config at full width and depth (bf16, random weights
+    from seed 0) on all-HBM, then on the pools (per-slot windows of 128 to
+    240 tokens, page 16: the pages carry no KV, so nothing moves): 12
+    requests of ``lengths`` prompt tokens, 32 decode tokens each.  The
+    tokens must be identical, the pools' counters == predict_pool_counters
+    (dense admission, 0 migration bytes).  Prints ms an admission, decode
+    tokens/s, the mean pure-decode step, peak device memory and a profile
+    of three decode steps of 8 slots.  ``note`` reads each run's kernel
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.plan import PlacementPlan
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0)
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(seed)
+    reqs = [(rng.integers(0, cfg.vocab_size, n), None) for n in lengths]
+    pools = PlacementPlan(hot_window=240, page_tokens=PAGE,
+                          slot_hot_windows=[128 + 16 * s
+                                            for s in range(SLOTS)])
+    runs, admit_ms = {}, []
+
+    def time_admissions(b):
+        admit = b._admit_dense
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            admit(*args)
+            torch.cuda.synchronize()
+            admit_ms.append(1e3 * (time.perf_counter() - ts))
+        b._admit_dense = timed
+
+    for name, (c, plan, paged) in (
+            ("all-HBM", (cfg, None, False)),
+            ("pools", (dataclasses.replace(cfg, use_paged_decode=True),
+                       pools, True))):
+        run = runs[name] = serve(
+            params, c, plan, reqs, max_seq=max_seq, slots=SLOTS,
+            decode=DECODE, device="cuda", paged=paged,
+            on_engine=time_admissions if name == "all-HBM" else None)
+        note(f"{arch} serving, {name}")
+        b = run["b"]
+        if len(run["out"]) != len(reqs) or \
+                any(len(o) != DECODE for o in run["out"]) or \
+                any(not 0 <= t < cfg.vocab_size
+                    for o in run["out"] for t in o):
+            raise AssertionError(f"{arch} {name}: malformed outputs")
+        if name == "pools":
+            if b._pool_prefill_ok or b.sim_migration_bytes:
+                raise AssertionError(f"{arch} pools: {b.counters()}")
+            _pools_counters(b, reqs, DECODE, max_seq, 0)
+        print(f"{arch} serve {name}: {len(run['out'])} requests, "
+              f"{b.decode_steps} decode steps, page_copies "
+              f"{b.counters().get('page_copies', 0)}, sim_migration_bytes "
+              f"{b.sim_migration_bytes:.0f}, wall {run['wall']:.3f} s",
+              flush=True)
+    if runs["pools"]["out"] != runs["all-HBM"]["out"]:
+        raise AssertionError(f"{arch}: pools tokens differ from all-HBM's")
+    first = runs["all-HBM"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    decode_tokens = sum(len(o) - 1 for o in first["out"])
+    state = sum(a.numel() * a.element_size() for layer in
+                first["b"].caches for a in layer.values()) / SLOTS
+    print(f"{arch} serve check: pools == all-HBM tokens; counters == "
+          f"predict_pool_counters; prompts {min(lengths)}-{max(lengths)} "
+          f"tokens; {n_params / 1e9:.3f} B parameters; {state:.0f} B of "
+          f"state a slot", flush=True)
+    print(f"{arch} serve time: prefill {float(np.mean(admit_ms)):.1f} ms per "
+          f"admission (mean of {len(admit_ms)}, "
+          f"{min(admit_ms):.1f}-{max(admit_ms):.1f}); "
+          f"{decode_tokens / first['wall']:.1f} decode tokens/s over the "
+          f"whole all-HBM run ({first['wall']:.3f} s, prefill included); mean "
+          f"pure decode step {1e3 * float(np.mean(first['step_s'])):.3f} ms "
+          f"over {len(first['step_s'])} steps of {SLOTS} slots; peak device "
+          f"memory {peak:.2f} GB [{card}]", flush=True)
+    # three more decode steps of all 8 slots on the finished engine's state
+    b = first["b"]
+    wall_us, rows = device_profile(b._dense_decode_step, 3)
+    print_profile(f"{arch} decode (8 slots)", wall_us, rows, 3, card)
+    note(f"{arch} decode profile")
+    del runs, first, b, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{arch} serving took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def train_recurrent(cfg, card, note, *, B, S, steps, scfg, prof, modes):
+    """``steps`` train steps of ``cfg`` (bf16, seed 0) in each of
+    ``modes`` from one state, on one repeated make_batch batch, with the
+    planned config ``scfg`` (its moments where it places them).  Fails
+    unless every loss is finite, every mode's losses and gradient norms ==
+    full's step by step (MODE_LOSS_RTOL, MODE_GNORM_RTOL) and offload's
+    carries out and back == estimate_offload_traffic.  Returns each mode's
+    step ms (the median after the first step; the one step's when it ran
+    one), peak device memory and bytes to host a step; ``note`` reads the
+    kernel launches."""
+    import torch
+    from repro_torch.core import offload
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import loop
+    ocfg = OptConfig(total_steps=steps, warmup_steps=1)
+    batch = make_batch(DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                  seq_len=S, global_batch=B), 0)
+    state = loop.init_state(cfg, ocfg, seed=0,
+                            offload_opt_state=scfg.offload_opt_state)
+    init = [p.detach().clone() for p in state["params"].parameters()]
+    carry = B * S * cfg.d_model * 2
+    est = offload.estimate_offload_traffic(prof, scfg.mi_periods, carry)
+    res = {}
+    for mode in modes:
+        with torch.no_grad():
+            for p, p0 in zip(state["params"].parameters(), init):
+                p.copy_(p0)
+            for k in ("m", "v"):
+                for t in state["opt"][k].values():
+                    t.zero_()
+            state["opt"]["count"].zero_()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step = loop.make_train_step(cfg, dataclasses.replace(scfg, mode=mode),
+                                    ocfg)
+        losses, gnorms, times, moved = [], [], [], []
+        for _ in range(steps):
+            offload.reset_traffic()
+            ts = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - ts))
+            moved.append(dict(offload.traffic))
+        res[mode] = dict(losses=losses, gnorms=gnorms, times=times,
+                         ms=float(np.median(times[1:] or times)),
+                         peak=torch.cuda.max_memory_allocated(),
+                         d2h=moved[-1]["d2h"])
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{cfg.name} {mode}: losses {losses}")
+        if mode == "offload" and any(
+                mv["d2h"] + mv["h2d"] != est["bytes_offloaded"] or
+                mv["in"] != est["blocks"] for mv in moved):
+            raise AssertionError(f"{cfg.name} offload: {moved}, estimate "
+                                 f"{est}")
+        print(f"{cfg.name} train {mode} (MI {scfg.mi_periods} of "
+              f"{cfg.num_periods} periods, B {B} x S {S}): losses "
+              f"{', '.join(f'{x:.5f}' for x in losses)}; gradient norms "
+              f"{', '.join(f'{x:.6g}' for x in gnorms)}; steps "
+              f"{', '.join(f'{t:.1f}' for t in times)} ms, "
+              f"{B * S / (res[mode]['ms'] * 1e-3):.0f} tokens/s; peak device "
+              f"memory {res[mode]['peak'] / 1e9:.2f} GB; "
+              f"{res[mode]['d2h']} B of carries to pinned host a step "
+              f"[{card}]", flush=True)
+    full = res["full"]
+    for mode, r in res.items():
+        for s in range(steps):
+            a, b = r["losses"][s], full["losses"][s]
+            g, h = r["gnorms"][s], full["gnorms"][s]
+            if not (abs(a - b) <= MODE_LOSS_RTOL * abs(b)
+                    and abs(g - h) <= MODE_GNORM_RTOL * h):
+                raise AssertionError(f"{cfg.name} train: {mode} at step {s}: "
+                                     f"loss {a}, gradient norm {g}; full's "
+                                     f"{b}, {h}")
+    note(f"{cfg.name} training")
+    del state, init, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_xlstm_full(card, note):
+    """Phase 7b: xlstm-1.3b at full width and depth (48 layers, d_model
+    2048, 4 heads; 2.723 B parameters as the reference builds it), bf16
+    from seed 0, the mLSTM chunkwise with chunks of 64.  Serving: 8 slots
+    of 2048 tokens, 12 prompts of 128-1024 tokens (whole chunks), all-HBM
+    then the pools.  Training: B 1 x S 1024, the moments in pinned host
+    memory, offload at the MI runtime.plan picks on H100_COST from the
+    port's profile (of a B 1 x S 128 step: the meta-device tracer records
+    about 600 data objects a token here, so a 2048-token profile and its
+    plan take minutes) against full, one step each (a step takes tens of
+    seconds: the sLSTM's steps are each some 20 eager launches a layer,
+    and their backward more).  Then the training CLI (2 steps
+    of B 1 x S 128 at the planned MI, given, so it does not profile the
+    same step again) and the serving CLI (-n 8)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    ops.mlstm_chunk_mode(XLSTM_CHUNK)
+    try:
+        rng = np.random.default_rng(31)
+        serve_recurrent("xlstm-1.3b", card, note,
+                        lengths=[64 * int(n) for n in rng.integers(2, 17, 12)],
+                        seed=32, max_seq=XLSTM_MAX_SEQ)
+        cfg = get_config("xlstm-1.3b")
+        B, S = XLSTM_TRAIN
+        prof, _, scfg = plan_step(cfg, B, XLSTM_PROFILE_S, card,
+                                  offload_opt_state=True)
+        res = train_recurrent(cfg, card, note, B=B, S=S, steps=1, scfg=scfg,
+                              prof=prof, modes=("full", "offload"))
+        # both CLIs at full width, as a user runs them
+        ts = time.perf_counter()
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            out = train.main(["--arch", "xlstm-1.3b", "--steps", "2",
+                              "--batch", "1", "--seq", str(XLSTM_PROFILE_S),
+                              "--mi", str(scfg.mi_periods),
+                              "--ckpt-dir", ckpt_dir])
+        if not all(np.isfinite(out["losses"])):
+            raise AssertionError(f"training CLI xlstm-1.3b: "
+                                 f"{out['losses']}")
+        del out
+        serve_cli.main(["--arch", "xlstm-1.3b", "-n", "8"])
+        note("the CLIs, xlstm-1.3b")
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"xlstm-1.3b CLIs: training (B 1 x S {XLSTM_PROFILE_S}, 2 "
+              f"steps) and serving (-n 8) exit 0 in "
+              f"{time.perf_counter() - ts:.1f} s [{card}]", flush=True)
+    finally:
+        ops.mlstm_chunk_mode(0)
+    if not res["offload"]["peak"] < res["full"]["peak"]:
+        raise AssertionError("xlstm-1.3b: offload's peak is not below "
+                             "full's")
+    print(f"xlstm-1.3b train check: offload == full (loss and gradient "
+          f"norm); offload's peak below full's; offload step / full step "
+          f"{res['offload']['ms'] / res['full']['ms']:.3f} at "
+          f"{res['offload']['peak'] / res['full']['peak']:.3f} of full's "
+          f"peak; {res['offload']['d2h']} B of carries a step; phase 7b "
+          f"took {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
+def run_lstm_full(card, note):
+    """Phase 7c: lstm-ptb at full width (2 x 650, vocab 10000; 19.77 M
+    parameters), bf16 from seed 0.  Training: B 20 x BPTT 35, profiled by
+    the port's own trace_profile and planned on H100_COST at 0.3 of its
+    peak; the simulator's fast-only, slow-only, Sentinel and IAL step times
+    on H100_COST (paper Fig. 10's shape, which must hold: fast <= Sentinel
+    <= 1.5 x slow, Sentinel <= IAL) beside each mode's measured step and
+    peak over 6 steps (the carries, 1.82 MB a step, are too small to move
+    the peak, which the logits and the optimizer's state hold: no peak
+    gate here); the training CLI for 2 steps.  Serving: 8 slots of
+    512 tokens, 12 prompts of 35-350 tokens, all-HBM then the pools, and
+    the serving CLI (-n 32)."""
+    from repro_torch import runtime
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    cfg = get_config("lstm-ptb")
+    B, S = LSTM_TRAIN
+    prof, plan, scfg = plan_step(cfg, B, S, card)
+    peak = prof.peak_bytes()
+    cost = runtime.H100_COST
+    sim = {"fast-only": runtime.simulate(prof, cost, 0.0,
+                                         "all_fast").step_time,
+           "slow-only": runtime.simulate(prof, cost, 0.0,
+                                         "all_slow").step_time,
+           "Sentinel": plan.sim.step_time,
+           "IAL": runtime.simulate(prof, cost, 0.3 * peak, "ial").step_time}
+    print(f"lstm-ptb simulated step on H100_COST at 0.3 of the profile's "
+          f"peak ({peak / 1e6:.2f} MB): " +
+          ", ".join(f"{k} {1e3 * v:.4f} ms" for k, v in sim.items()),
+          flush=True)
+    if not (sim["fast-only"] <= sim["Sentinel"] <= 1.5 * sim["slow-only"]
+            and sim["Sentinel"] <= sim["IAL"]):
+        raise AssertionError(f"lstm-ptb: the Fig. 10 shape fails on "
+                             f"H100_COST: {sim}")
+    res = train_recurrent(cfg, card, note, B=B, S=S, steps=LSTM_TRAIN_STEPS,
+                          scfg=scfg, prof=prof, modes=MODES)
+    print("lstm-ptb train check: every mode == full (loss and gradient "
+          "norm, every step); measured step and peak by mode: " +
+          ", ".join(f"{m} {r['ms']:.2f} ms {r['peak'] / 1e6:.1f} MB"
+                    for m, r in res.items()) +
+          f"; simulated fast-only {1e3 * sim['fast-only']:.4f} ms, Sentinel "
+          f"{1e3 * sim['Sentinel']:.4f} ms [{card}]", flush=True)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        out = train.main(["--arch", "lstm-ptb", "--steps", "2", "--batch",
+                          str(B), "--seq", str(S), "--ckpt-dir", ckpt_dir])
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"training CLI lstm-ptb: {out['losses']}")
+    note("the training CLI, lstm-ptb")
+    rng = np.random.default_rng(33)
+    serve_recurrent("lstm-ptb", card, note,
+                    lengths=[int(n) for n in rng.integers(35, 351, 12)],
+                    seed=34, max_seq=LSTM_MAX_SEQ)
+    serve_cli.main(["--arch", "lstm-ptb", "-n", "32"])
+    note("the serving CLI, lstm-ptb")
+    print(f"phase 7c took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_recurrent(card):
+    """Phase 7: 7a, 7b and 7c.  Returns each kernel's launches summed over
+    the runs of each sub-phase, counted from 0 before each run and read
+    after it (all 0: none of K1-K4 is on these paths)."""
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {}
+    for what, run in (("xlstm and lstm-ptb reduced (phase 7a)",
+                       check_recurrent_small),
+                      ("xlstm-1.3b serving and training (phase 7b)",
+                       lambda note: run_xlstm_full(card, note)),
+                      ("lstm-ptb training and serving (phase 7c)",
+                       lambda note: run_lstm_full(card, note))):
+        tally = dict.fromkeys(("paged_decode", "flash_attention",
+                               "decode_attention", "ssd"), 0)
+
+        def note(part, tally=tally):
+            for name, n in _recurrent_launches(part).items():
+                tally[name] += n
+            reset_counts()
+        reset_counts()
+        run(note)
+        paths[what] = tally
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s; K1-K4 launches "
+          f"on its paths: {paths}", flush=True)
+    return paths
 
 
 # ---------------------------------------------------------------- timing ----
@@ -3599,6 +4234,7 @@ def main() -> int:
           f"decode step {1e3 * float(np.mean(step_s)):.3f} ms over "
           f"{len(step_s)} steps of {SLOTS} slots [{card}]", flush=True)
     core_launches = check_layouts(*served, out, card)
+    check_f1()
     k1 = k1_record(full, err, launches, k1_zamba, k1_gemma3, card)
     del k1_gemma3
     engine = profile_decode(*served, card)
@@ -3645,6 +4281,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     k1["launches_by_path"].update(check_families(card))
+    # phase 7's paths run none of the four kernels: each path's count, read
+    # after every run of it
+    for what, tally in check_recurrent(card).items():
+        for rec, name in ((k1, "paged_decode"), (k2, "flash_attention"),
+                          (k3, "decode_attention"), (k4, "ssd")):
+            rec.setdefault("launches_by_path", {})[what] = tally[name]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(card)

@@ -2,8 +2,9 @@
 ``repro/configs/base.py``, cut to the fields the ported layer kinds read:
 ATTN/LOCAL stacks with the gemma extras (final softcap, embedding scale,
 QK-norm, a global RoPE theta), MoE MLPs, deepseek's MLA layers and dense
-prologue, and the zamba2 hybrid's MAMBA and SHARED_ATTN layers; the xLSTM,
-LSTM, codebook and prefix-LM fields come with the port of those families,
+prologue, the zamba2 hybrid's MAMBA and SHARED_ATTN layers, and the xLSTM
+(MLSTM, SLSTM) and classic LSTM stacks; the codebook and prefix-LM fields,
+and the two archs that need them, come with the port of those families,
 ROADMAP item 9).
 
 An arch is ``prologue`` (leading layers) followed by a repeating *period* of
@@ -21,7 +22,13 @@ LOCAL = "local"          # sliding-window attention + MLP
 MLA = "mla"              # multi-head latent attention (deepseek) + MoE/MLP
 MAMBA = "mamba"          # mamba2 SSD block
 SHARED_ATTN = "shared_attn"  # zamba2 shared transformer block (one weight copy)
-PORTED_KINDS = (ATTN, LOCAL, MLA, MAMBA, SHARED_ATTN)
+MLSTM = "mlstm"          # xLSTM matrix-LSTM block
+SLSTM = "slstm"          # xLSTM scalar-LSTM block
+LSTM = "lstm"            # classic LSTM (paper's own PTB model)
+KINDS = (ATTN, LOCAL, MLA, MAMBA, SHARED_ATTN, MLSTM, SLSTM, LSTM)
+# the reference's archs whose fields are not ported yet
+UNPORTED_ARCHS = {"musicgen-medium": "per-codebook embeddings and logits",
+                  "paligemma-3b": "the prefix-LM mask and the vision prefix"}
 
 
 @dataclass(frozen=True)
@@ -48,8 +55,8 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | hybrid (the families
-                                  # ported yet)
+    family: str                   # dense | moe | hybrid | ssm | lstm (the
+                                  # families ported yet)
     num_layers: int
     d_model: int
     num_heads: int
@@ -93,11 +100,10 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
-        unknown = (set(self.period) | set(self.prologue)) - set(PORTED_KINDS)
+        unknown = (set(self.period) | set(self.prologue)) - set(KINDS)
         if unknown:
-            raise NotImplementedError(
-                f"{self.name}: layer kinds {sorted(unknown)} are not ported "
-                "yet (ROADMAP, modules to port: item 9)")
+            raise ValueError(f"{self.name}: unknown layer kinds "
+                             f"{sorted(unknown)}")
         assert self.num_layers >= len(self.prologue)
         n = self.num_layers - len(self.prologue)
         assert n % len(self.period) == 0, (
@@ -169,6 +175,10 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     if not _REGISTRY:
         _load_all()
+    if name in UNPORTED_ARCHS:
+        raise NotImplementedError(
+            f"{name}: {UNPORTED_ARCHS[name]} are not ported yet (ROADMAP, "
+            "modules to port: item 9)")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
@@ -184,4 +194,4 @@ def _load_all():
     # import the per-arch modules for their registration side effect
     from repro_torch.configs import (  # noqa: F401
         deepseek_v2_lite, gemma2_2b, gemma3_12b, granite_moe_3b,
-        internlm2_1p8b, smollm_360m, zamba2_7b)
+        internlm2_1p8b, lstm_ptb, smollm_360m, xlstm_1p3b, zamba2_7b)

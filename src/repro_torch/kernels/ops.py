@@ -3,8 +3,8 @@ for the SSD scan): the plain PyTorch version (kernels/ref.py) for a CPU
 tensor, the hand-written CUDA kernel for a CUDA tensor.  There is no switch
 and no fallback: a CUDA input runs the kernel or raises.  The signatures
 are the reference's (``repro/kernels/ops.py``).  ``ssd_decode``, one
-token's state update, has no kernel in either package: it is plain torch
-on every device."""
+token's state update, and the xLSTM recurrences (``mlstm``, ``slstm``) have
+no kernel in either package: they are plain torch on every device."""
 from __future__ import annotations
 
 import torch.nn.functional as F
@@ -75,3 +75,25 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, h0=None):
 
 
 ssd_decode = _ref.ssd_decode_ref     # one token: plain torch is the op
+slstm = _ref.slstm_ref
+
+# the mLSTM's execution mode: 0 = the sequential scan, N = chunkwise-parallel
+# with chunks of N tokens (``mlstm_chunk_mode``)
+_MLSTM = {"chunk": 0}
+
+
+def mlstm_chunk_mode(chunk: int):
+    """Run ``mlstm`` chunkwise-parallel with chunks of ``chunk`` tokens
+    where a sequence is whole chunks of it (0: always sequential)."""
+    _MLSTM["chunk"] = int(chunk)
+
+
+def mlstm(q, k, v, log_i, log_f, *, state=None):
+    """The stabilized mLSTM (``ref.mlstm_ref``'s I/O): chunkwise-parallel
+    when a chunk mode is set, S > 1 and S is whole chunks, else the
+    sequential scan, as the reference selects."""
+    c = _MLSTM["chunk"]
+    if c and q.shape[1] > 1 and q.shape[1] % c == 0:
+        return _ref.mlstm_chunked_ref(q, k, v, log_i, log_f, chunk=c,
+                                      state=state)
+    return _ref.mlstm_ref(q, k, v, log_i, log_f, state=state)

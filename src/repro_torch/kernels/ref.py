@@ -11,7 +11,9 @@ and the same clipping of physical page indices (with, beside it, the split
 over page ranges and the merge that the paged decode kernel computes); and
 of the Mamba2 SSD oracles ``ssd_ref`` (sequential), ``ssd_chunked_ref``
 (the chunked algorithm the SSD kernel computes) and ``ssd_decode_ref`` (one
-decode step, which has no kernel in either package).
+decode step, which has no kernel in either package); and of the xLSTM
+oracles ``mlstm_ref`` (sequential), ``mlstm_chunked_ref`` and ``slstm_ref``,
+which are the op itself on every device, in both packages.
 """
 from __future__ import annotations
 
@@ -437,3 +439,156 @@ def ssd_split_ref(x, dt, A, Bm, Cm, *, segments: int, chunk: int = 64,
         ys += y
     y = torch.stack(ys, dim=1).reshape(B, nc * chunk, H, P)[:, :S]
     return y.to(x.dtype), h
+
+
+# ----------------------------------------------------------------- xLSTM ----
+
+def _mlstm_state(B, H, Dk, Dv, device, state):
+    """(C, n, m) float32: the given state, or the empty one (m = -inf)."""
+    if state is not None:
+        return tuple(s.float() for s in state)
+    return (torch.zeros(B, H, Dk, Dv, dtype=torch.float32, device=device),
+            torch.zeros(B, H, Dk, dtype=torch.float32, device=device),
+            torch.full((B, H), float("-inf"), dtype=torch.float32,
+                       device=device))
+
+
+def mlstm_ref(q, k, v, log_i, log_f, *, state=None):
+    """Sequential stabilized mLSTM oracle (xLSTM eq. 19-27).
+
+    q, k: (B,S,H,Dk); v: (B,S,H,Dv); log_i, log_f: (B,S,H) pre-activation
+    gate logs (log_f = logsigmoid(f_pre), log_i = i_pre).  Returns (h
+    (B,S,H,Dv) in v's dtype, the final state (C, n, m)) with C (B,H,Dk,Dv),
+    n (B,H,Dk) and m (B,H), all float32.  The first step from the empty
+    state (m = -inf) defines the forget weight f_p as 0."""
+    B, S, H, Dk = q.shape
+    Dv = v.shape[-1]
+    scale = Dk ** -0.5
+    C, n, m = _mlstm_state(B, H, Dk, Dv, q.device, state)
+    hs = []
+    for t in range(S):
+        qt, kt, vt = q[:, t].float(), k[:, t].float() * scale, v[:, t].float()
+        li, lf = log_i[:, t].float(), log_f[:, t].float()
+        m_new = torch.maximum(lf + m, li)
+        i_p = torch.exp(li - m_new)
+        f_p = torch.where(torch.isfinite(m), torch.exp(lf + m - m_new), 0.0)
+        C = C * f_p[..., None, None] + i_p[..., None, None] * \
+            torch.einsum("bhk,bhv->bhkv", kt, vt)
+        n = n * f_p[..., None] + i_p[..., None] * kt
+        num = torch.einsum("bhkv,bhk->bhv", C, qt)
+        den = torch.maximum(torch.einsum("bhk,bhk->bh", n, qt).abs(),
+                            torch.exp(-m_new))
+        hs.append(num / den[..., None])
+        m = m_new
+    return torch.stack(hs, dim=1).to(v.dtype), (C, n, m)
+
+
+def mlstm_chunked_ref(q, k, v, log_i, log_f, *, chunk: int = 64,
+                      state=None):
+    """Chunkwise-parallel stabilized mLSTM, equal to ``mlstm_ref`` to float
+    tolerance (the reference's ``mlstm_chunked_ref``).  Per chunk of length
+    L, with the cumulative forget F_t, u_s = li_s - F_s, the running max
+    g_t of u and M_t = max(m_prev, g_t):
+
+        h_t = exp(m_prev - M_t) (q_t C_prev)
+              + sum_{s<=t} exp(u_s - M_t) (q_t . k_s) v_s
+        den_t = max(|n_t . q_t|, exp(-(F_t + M_t)))
+        C' = exp(m_prev - M_L) C_prev + sum_s exp(u_s - M_L) k_s v_s^T
+        m' = F_L + M_L
+
+    so only one state a chunk is carried (and saved by autograd), and the
+    work inside a chunk is (L x L) masked products.  S must be whole
+    chunks of min(chunk, S)."""
+    B, S, H, Dk = q.shape
+    Dv = v.shape[-1]
+    L = min(chunk, S)
+    assert S % L == 0
+    K = S // L
+    scale = Dk ** -0.5
+    C, n, m = _mlstm_state(B, H, Dk, Dv, q.device, state)
+    qc = q.reshape(B, K, L, H, Dk).float()
+    kc = k.reshape(B, K, L, H, Dk).float() * scale
+    vc = v.reshape(B, K, L, H, Dv).float()
+    F_ = torch.cumsum(log_f.reshape(B, K, L, H).float(), dim=2)
+    u = log_i.reshape(B, K, L, H).float() - F_
+    g = torch.cummax(u, dim=2).values
+    mask = torch.tril(torch.ones(L, L, dtype=torch.bool, device=q.device))
+    hs = []
+    for c in range(K):
+        qk_, kk, vk = qc[:, c], kc[:, c], vc[:, c]
+        Fk, uk, gk = F_[:, c], u[:, c], g[:, c]
+        M = torch.maximum(m[:, None, :], gk)                  # (B,L,H)
+        w_state = torch.where(torch.isfinite(m)[:, None, :],
+                              torch.exp(m[:, None, :] - M), 0.0)
+        # W[t, s] = exp(u_s - M_t) for s <= t (masked before the exp)
+        diff = uk[:, None, :, :] - M[:, :, None, :]           # (B,t,s,H)
+        W = torch.exp(torch.where(mask[None, :, :, None], diff,
+                                  float("-inf")))
+        scores = torch.einsum("bthd,bshd->btsh", qk_, kk)
+        num = torch.einsum("btsh,bshv->bthv", scores * W, vk) + \
+            torch.einsum("bthd,bhdv->bthv", qk_, C) * w_state[..., None]
+        nvec = torch.einsum("btsh,bshd->bthd", W, kk) + \
+            n[:, None] * w_state[..., None]
+        den = torch.maximum(torch.einsum("bthd,bthd->bth", nvec, qk_).abs(),
+                            torch.exp(-(Fk + M)))
+        hs.append(num / den[..., None])
+        ML = torch.maximum(m, gk[:, -1])                      # (B,H)
+        ws = torch.exp(torch.where(torch.isfinite(m), m - ML,
+                                   float("-inf")))
+        wk = torch.exp(uk - ML[:, None, :])                   # (B,L,H)
+        # two operands: a three-operand einsum may contract k and v first,
+        # into an (L, H, Dk, Dv) outer product
+        C = C * ws[..., None, None] + torch.einsum(
+            "bshd,bshv->bhdv", kk * wk[..., None], vk)
+        n = n * ws[..., None] + torch.einsum("bshd,bsh->bhd", kk, wk)
+        m = Fk[:, -1] + ML
+    h = torch.stack(hs, dim=1).reshape(B, S, H, Dv)
+    return h.to(v.dtype), (C, n, m)
+
+
+def slstm_ref(x_ifzo, *, state=None, r_ifzo=None):
+    """Sequential sLSTM with the exponential input gate and the
+    normalizer/stabilizer.  x_ifzo: (B,S,H,4,D) pre-activations of i, f, z,
+    o per head; r_ifzo: optional recurrent weights (H,4,D,D) applied to
+    h_{t-1}.  Returns (h (B,S,H,D) in x_ifzo's dtype, the final state (c,
+    n, m, h), each (B,H,D) float32, m = -inf in the empty state).
+
+    The loop runs heads first, (H, B, D), with the recurrent weights laid
+    out once as one (H, D, 4D) matrix a head, so a step's slices and its
+    recurrent product copy nothing (an einsum over the (H, 4, D, D) tensor
+    would copy it into that layout at every step, and autograd would keep
+    every copy).  Only the first step can meet m = -inf: its forget weight
+    is defined as 0 there, and every later m is finite."""
+    B, S, H, _, D = x_ifzo.shape
+    dev = x_ifzo.device
+    if state is None:
+        z = torch.zeros(H, B, D, dtype=torch.float32, device=dev)
+        c, n, h = z, z, z
+        m = torch.full((H, B, D), float("-inf"), dtype=torch.float32,
+                       device=dev)
+    else:
+        c, n, m, h = (s.float().transpose(0, 1) for s in state)
+    xs = x_ifzo.float().permute(1, 2, 0, 3, 4)           # (S, H, B, 4, D)
+    r = None if r_ifzo is None else \
+        r_ifzo.float().permute(0, 2, 1, 3).reshape(H, D, 4 * D)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    hs = []
+    for t in range(S):
+        pre = xs[t]
+        if r is not None:
+            pre = pre + torch.bmm(h, r).view(H, B, 4, D)
+        i_p, f_p, z_p, o_p = pre.unbind(dim=2)
+        lfm = F.logsigmoid(f_p) + m
+        m_new = torch.maximum(lfm, i_p)
+        i_g = torch.exp(i_p - m_new)
+        f_g = torch.exp(lfm - m_new)
+        if t == 0:
+            f_g = torch.where(torch.isfinite(m), f_g, 0.0)
+        c = f_g * c + i_g * torch.tanh(z_p)
+        n = f_g * n + i_g
+        h = torch.sigmoid(o_p) * c / torch.maximum(n, one)
+        m = m_new
+        hs.append(h)
+    out = torch.stack(hs, dim=0).permute(2, 0, 1, 3)     # (B, S, H, D)
+    return out.to(x_ifzo.dtype), tuple(s.transpose(0, 1)
+                                       for s in (c, n, m, h))

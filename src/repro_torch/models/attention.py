@@ -43,11 +43,26 @@ def write_rows(buf, rows, cache_index):
     """Write ``rows`` (B, Sq, ...) into the dense cache buffer ``buf`` (B,
     Smax, ...) in place (the reference's ``.at[].set`` and
     ``dynamic_update_slice``): one row a slot at a (B,) tensor of per-slot
-    offsets, or Sq rows at a scalar offset (0 when None)."""
+    offsets, or Sq rows at a scalar offset (0 when None).
+
+    A per-slot offset at or past Smax is dropped, as JAX's scatter drops
+    it: a finished slot keeps its stale length, which may equal Smax, and
+    the lockstep decode still writes its row.  The index is clamped and
+    the row rewritten with its own value there, on the device, with no
+    read back to the host.  A scalar offset keeps the slice write: Sq rows
+    must fit at ``off`` (torch raises where they do not).  The engines
+    never reach that: a one-shot admission writes its prompt at 0 into a
+    cache of max_seq rows (a longer prompt raises in both packages, where
+    ``dynamic_update_slice`` meets an update larger than its operand), and
+    ``generate`` sizes its cache to the prompt plus its tokens."""
     ci = 0 if cache_index is None else cache_index
     if torch.is_tensor(ci) and ci.dim() >= 1:
-        buf[torch.arange(buf.shape[0], device=buf.device), ci.long()] = \
-            rows[:, 0]
+        Smax = buf.shape[1]
+        rows_b = torch.arange(buf.shape[0], device=buf.device)
+        idx = ci.long().clamp(max=Smax - 1)
+        keep = (ci < Smax).view(-1, *([1] * (rows.dim() - 2)))
+        buf[rows_b, idx] = torch.where(keep, rows[:, 0].to(buf.dtype),
+                                       buf[rows_b, idx])
     else:
         off = int(ci)
         buf[:, off:off + rows.shape[1]] = rows

@@ -9,10 +9,14 @@ port's loop over layers runs them (the reference stacks the period layers
 on a leading axis; the port has no such axis): an attention layer holds
 {"k", "v"} (B, max_seq, KV*hd), an MLA layer its latent {"ckv", "krope"}
 (B, max_seq, kv_lora_rank / qk_rope_dim), a MAMBA layer {"h", "conv"}
-(``ssm.init_mamba_cache``).  "k", "v", "ckv" and "krope" are the sequence
-leaves the tiered forms split; the reference recognises them by shape, the
-port by name.  The reference's ``.at[].set`` splices are in-place writes
-here, and a ``None`` leaf is a tier that holds no copy of that leaf.
+(``ssm.init_mamba_cache``), an MLSTM, SLSTM or LSTM layer its recurrent
+state as flat leaves (``xlstm.init_*_cache``; the reference holds a
+tuple).  "k", "v", "ckv" and "krope" are the sequence leaves the tiered
+forms split; the reference recognises them by shape (a leaf whose
+second-to-last dim equals max_seq), the port by name, so a state leaf is
+never split here, whatever max_seq is.  The reference's ``.at[].set``
+splices are in-place writes here, and a ``None`` leaf is a tier that
+holds no copy of that leaf.
 
 Tiers: the *concat* layout (``TieredCache``) splits every sequence leaf at
 one global cold boundary; the *paged-merged* layout
@@ -32,8 +36,10 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ATTN, LOCAL, MAMBA, MLA, SHARED_ATTN
+from repro_torch.configs.base import (ATTN, LOCAL, LSTM, MAMBA, MLA, MLSTM,
+                                      SHARED_ATTN, SLSTM)
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 
 ATTN_KINDS = (ATTN, LOCAL, SHARED_ATTN)
 # the sequence leaves of a dense cache: GQA KV and the MLA latent
@@ -56,6 +62,12 @@ def init_layer_cache(cfg, kind: str, batch: int, max_seq: int, dtype,
                                      dtype=dtype, device=device)}
     if kind == MAMBA:
         return ssm_mod.init_mamba_cache(cfg, batch, dtype, device)
+    if kind == MLSTM:
+        return xlstm_mod.init_mlstm_cache(cfg, batch, dtype, device)
+    if kind == SLSTM:
+        return xlstm_mod.init_slstm_cache(cfg, batch, dtype, device)
+    if kind == LSTM:
+        return xlstm_mod.init_lstm_cache(cfg, batch, dtype, device)
     raise ValueError(kind)
 
 

@@ -95,11 +95,12 @@ def unembed(table, cfg, x):
 # ------------------------------------------------------------------ init ----
 
 # constant leaves: the plus-one norms' offsets (0), the QK-norm weights
-# (1, reference models/attention.py), and the Mamba block's dt bias, conv
-# bias, skip D and gate norm (reference models/ssm.py)
+# (1, reference models/attention.py), the Mamba block's dt bias, conv
+# bias, skip D and gate norm (reference models/ssm.py), and the xLSTM
+# blocks' norms and the LSTM's bias (reference models/xlstm.py)
 _CONST_INIT = {"ln1": 0.0, "ln2": 0.0, "final_norm": 0.0, "q_norm": 1.0,
                "k_norm": 1.0, "dt_bias": 0.0, "conv_b": 0.0, "D": 1.0,
-               "norm": 1.0}
+               "norm": 1.0, "b": 0.0}
 
 
 @torch.no_grad()
@@ -107,8 +108,9 @@ def init_weights(module: nn.Module, cfg, generator: torch.Generator):
     """Fill every parameter in registration order from ``generator``, with
     the reference's initialisers: norms and biases constant, the Mamba
     ``A_log = log(linspace(1, 16, H))``, embedding tables N(0, d^-1), the
-    Mamba conv N(0, 1/K), projections N(0, 1/fan_in) and expert banks
-    (E, din, dout) N(0, 1/din)."""
+    Mamba and xLSTM convs N(0, 1/K), projections N(0, 1/fan_in), expert
+    banks (E, din, dout) N(0, 1/din) and the sLSTM's recurrent weights
+    (H, 4, D, D) N(0, 1/D)."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in _CONST_INIT:
@@ -122,7 +124,7 @@ def init_weights(module: nn.Module, cfg, generator: torch.Generator):
         if leaf in ("table", "head"):
             scale = cfg.d_model ** -0.5
         else:
-            scale = 1.0 / math.sqrt(p.shape[1] if p.dim() == 3
+            scale = 1.0 / math.sqrt(p.shape[-2] if p.dim() >= 3
                                     else p.shape[0])
         p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
                             dtype=torch.float32) * scale)

@@ -2,10 +2,10 @@
 forward / prefill / decode-step / suffix-prefill entry points the serving
 engine calls, and the causal LM loss the train step differentiates (port of
 ``repro/models/model.py`` for ATTN/LOCAL and MLA stacks with dense or MoE
-MLPs, and the zamba2 hybrid).
+MLPs, the zamba2 hybrid, and the xLSTM and LSTM stacks).
 
 ``forward`` updates the caches it is given in place (dense KV rows, the
-Mamba state entries, pool pages) and returns the logits; ``prefill`` and
+recurrent layers' state entries, pool pages) and returns the logits; ``prefill`` and
 ``decode_step`` return ``(logits, caches)``, as the reference's do.  They
 serve: ``forward`` runs under ``no_grad``.  ``loss_fn`` shares its body
 and builds the autograd graph, with Sentinel's block structure

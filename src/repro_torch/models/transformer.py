@@ -1,12 +1,13 @@
 """The layer stack (port of ``repro/models/transformer.py`` for ATTN/LOCAL
-and MLA stacks with dense or MoE MLPs, and the zamba2 hybrid).  The
-reference lowers the stack as a
+and MLA stacks with dense or MoE MLPs, the zamba2 hybrid, and the xLSTM and
+LSTM stacks).  The reference lowers the stack as a
 ``lax.scan`` over stacked periods; here it is a plain loop over the prologue
 layers, then over the period layers, period layer ``j`` being slot
 ``j % period_len`` of period ``j // period_len``.  A SHARED_ATTN slot holds
 the one shared block object itself, so all its layers use one set of
 weights.  Caches are one entry per layer: attention layers write theirs in
-place; a MAMBA layer's new state replaces the entries of its cache dict.
+place; a recurrent layer's (MAMBA, MLSTM, SLSTM, LSTM) new state replaces
+the entries of its cache dict.
 A MoE layer's auxiliary loss is appended to the ``aux`` list a caller
 passes (``model.loss_fn`` sums it), as the reference's stack sums it.
 
@@ -17,9 +18,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ATTN, MAMBA, MLA, SHARED_ATTN
+from repro_torch.configs.base import (ATTN, LSTM, MAMBA, MLA, MLSTM,
+                                      SHARED_ATTN, SLSTM)
 from repro_torch.core import profiler
 from repro_torch.core.offload import CarryStore
+from repro_torch.models import xlstm
 from repro_torch.models.attention import MLA as MLAttention
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, frozen, rmsnorm
@@ -69,27 +72,40 @@ class Block(nn.Module):
         return x + f
 
 
-class MambaLayer(nn.Module):
-    """One MAMBA layer: pre-norm Mamba2 block and the residual."""
+class StateLayer(nn.Module):
+    """One layer of a recurrent kind: MAMBA, MLSTM or SLSTM (the pre-norm
+    block, ``mamba``, ``mlstm`` or ``slstm``, and the residual), or LSTM
+    (the block ``lstm`` alone: no norm and no residual), as the
+    reference's ``apply_block``."""
 
-    kind = MAMBA
+    BLOCKS = {MAMBA: MambaBlock, MLSTM: xlstm.MLSTMBlock,
+              SLSTM: xlstm.SLSTMBlock, LSTM: xlstm.LSTMBlock}
 
-    def __init__(self, cfg, *, device, dtype):
+    def __init__(self, cfg, kind: str, *, device, dtype):
         super().__init__()
-        self.ln1 = frozen(torch.empty(cfg.d_model, device=device, dtype=dtype))
-        self.mamba = MambaBlock(cfg, device=device, dtype=dtype)
+        self.kind = kind
+        if kind != LSTM:
+            self.ln1 = frozen(torch.empty(cfg.d_model, device=device,
+                                          dtype=dtype))
+        self.add_module(kind, self.BLOCKS[kind](cfg, device=device,
+                                                dtype=dtype))
 
     def forward(self, cfg, x, positions, *, cache=None, cache_index=None,
                 decode=False, paged_view=None, aux=None):
-        """With a cache {"h", "conv"}: a prefill scans from its state, a
-        decode steps it; either way the new state replaces the dict's
-        entries (the rows of every slot, active or not, as the reference's
-        lockstep decode does)."""
-        y, state = self.mamba(cfg, rmsnorm(x, self.ln1, cfg.norm_eps),
-                              cache=cache, decode=decode)
+        """With a cache: a prefill runs from its state, a decode steps it;
+        either way the new state replaces the dict's entries (the rows of
+        every slot, active or not, as the reference's lockstep decode
+        does)."""
+        block = getattr(self, self.kind)
+        if self.kind == LSTM:
+            y, state = block(cfg, x, cache=cache, decode=decode)
+        else:
+            y, state = block(cfg, rmsnorm(x, self.ln1, cfg.norm_eps),
+                             cache=cache, decode=decode)
+            y = x + y
         if cache is not None:
             cache.update(state)
-        return x + y
+        return y
 
 
 def make_layer(cfg, kind: str, *, device, dtype, dense_ff: int = 0):
@@ -97,8 +113,8 @@ def make_layer(cfg, kind: str, *, device, dtype, dense_ff: int = 0):
     (full causal attention and a d_ff MLP), which the model builds once;
     ``dense_ff`` > 0 forces a dense MLP of that width (deepseek's
     prologue)."""
-    if kind == MAMBA:
-        return MambaLayer(cfg, device=device, dtype=dtype)
+    if kind in StateLayer.BLOCKS:
+        return StateLayer(cfg, kind, device=device, dtype=dtype)
     if kind == SHARED_ATTN:
         return Block(cfg, ATTN, device=device, dtype=dtype,
                      dense_ff=cfg.d_ff)

@@ -44,8 +44,10 @@ def params_from_jax(cfg, tree, device=None, *,
     numpy arrays: the prologue layers (deepseek's dense one among them),
     the shared block, and the stacked slot leaves ``(num_periods, ...)``
     unstacked into the period layers, MoE expert banks ``(num_periods, E,
-    din, dout)`` and shared experts included (a SHARED_ATTN slot is
-    weightless there; its layers are the shared block).
+    din, dout)``, shared experts and the xLSTM/LSTM blocks' leaves (the
+    sLSTM's recurrent ``r_ifzo`` (H, 4, D, D) among them) included (a
+    SHARED_ATTN slot is weightless there; its layers are the shared
+    block).
     Every shape is checked.  Copied to ``device`` (default: the CUDA card)
     in the config's dtype; ``requires_grad`` as ``init_params``'s."""
     params = Model(cfg, device=resolve(device), dtype=param_dtype(cfg))

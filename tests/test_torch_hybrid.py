@@ -163,13 +163,16 @@ def test_init_params_gives_reference_initialisers():
 
 def test_dense_prologue_raises():
     """A dense prologue layer is ported (deepseek-v2-lite's): it builds its
-    MLP at prologue_d_ff, not d_ff.  A prologue layer of a kind that is not
-    ported yet (xLSTM's) raises, naming the ROADMAP item that ports it."""
+    MLP at prologue_d_ff, not d_ff.  Every kind of the reference is ported
+    (an xLSTM prologue layer builds); a prologue layer of a kind the
+    reference does not have raises."""
     from repro_torch.configs.base import ATTN
     cfg = dataclasses.replace(get_config(ARCH).reduced(), prologue=(ATTN,),
                               prologue_d_ff=96)
     params = model.init_params(cfg, device="cpu")
     assert tuple(params.prologue[0].mlp.wi.shape) == (cfg.d_model, 96)
     assert tuple(params.shared.mlp.wi.shape) == (cfg.d_model, cfg.d_ff)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        dataclasses.replace(get_config(ARCH).reduced(), prologue=("mlstm",))
+    xl = dataclasses.replace(get_config(ARCH).reduced(), prologue=("mlstm",))
+    assert model.init_params(xl, device="meta").prologue[0].kind == "mlstm"
+    with pytest.raises(ValueError, match="unknown layer kinds"):
+        dataclasses.replace(get_config(ARCH).reduced(), prologue=("conv",))

@@ -52,6 +52,8 @@ def test_port_modules_import_no_jax_and_no_reference():
     assert {"repro_torch.models.moe"} | {f"repro_torch.configs.{m}" for m in (
         "gemma2_2b", "gemma3_12b", "internlm2_1p8b", "granite_moe_3b",
         "deepseek_v2_lite")} <= set(mods)
+    assert {"repro_torch.models.xlstm", "repro_torch.configs.xlstm_1p3b",
+            "repro_torch.configs.lstm_ptb"} <= set(mods)
     # importing builds and loads no kernel: nvcc runs at a kernel's first
     # call only (this machine may have none)
     code = ("import importlib, json, sys\n"
@@ -149,16 +151,22 @@ def test_serving_cli_runs_on_the_cpu_when_asked(monkeypatch):
 
 
 def test_unported_layouts_raise():
-    """All four engine layouts are ported, and every cache kind of the
-    ported layer kinds (the MLA latent among them); a layer kind that is
-    not ported (xLSTM's) raises when its config is built, naming the
-    ROADMAP item that ports it.  As in the reference, paged=True needs a
-    plan and a re-plan applies to the pools only; an incremental re-plan
-    applies only against the plan it was diffed from."""
+    """All four engine layouts are ported, and every layer kind of the
+    reference with its cache (the MLA latent, the xLSTM and LSTM states
+    among them); a layer kind the reference does not have raises when its
+    config is built, and the two archs whose fields are not ported yet
+    (musicgen-medium's codebooks, paligemma-3b's prefix-LM) raise naming
+    the ROADMAP item that ports them.  As in the reference, paged=True
+    needs a plan and a re-plan applies to the pools only; an incremental
+    re-plan applies only against the plan it was diffed from."""
     cfg = get_config("smollm-360m").reduced()
     params = model.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        dataclasses.replace(cfg, period=("mlstm", "slstm"))
+    dataclasses.replace(cfg, period=("mlstm", "slstm"))
+    with pytest.raises(ValueError, match="unknown layer kinds"):
+        dataclasses.replace(cfg, period=("mlstm", "conv"))
+    for arch in ("musicgen-medium", "paligemma-3b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+            get_config(arch)
     with pytest.raises(ValueError, match="requires a plan"):
         ContinuousBatcher(params, cfg, 2, 32, paged=True, device="cpu")
     plan = PlacementPlan(page_tokens=4)

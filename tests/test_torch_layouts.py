@@ -12,7 +12,12 @@ carried across (params_from_jax, PlacementPlan.to_dict):
     agree with each other, and the per-slot boundaries move fewer bytes
     than the global one;
   * generate gives the reference's greedy tokens, and the batcher gives
-    each request's single-request tokens.
+    each request's single-request tokens;
+  * ROADMAP F1: a slot that finished at max_seq keeps its stale length and
+    the lockstep decode writes its row at index max_seq; the port drops
+    that write, as JAX's scatter does, on all three dense layouts for
+    smollm-360m's GQA and deepseek-v2-lite's MLA latent: the reference's
+    tokens and counters, the finished slot's rows untouched.
 
 Tolerance: TOL = 1e-4 absolute on logits (the same fp32 math in another
 order).  Where a token claim rests on logits, every row whose argmax is
@@ -40,6 +45,8 @@ from repro_torch.models import kvcache, model
 from repro_torch.runtime.plan import PlacementPlan
 from repro_torch.serve import engine
 from repro_torch.weights import params_from_jax
+from test_torch_families_serve import _jit_forward
+from test_torch_xlstm import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 ARCH = "smollm-360m"
@@ -477,3 +484,123 @@ def test_continuous_batching_matches_single_request(setup):
                                  device="cpu")
     b.submit(prompts[0], 6)
     assert b.run() == [singles[0][:singles[0].index(eos, 1) + 1]]
+
+
+# ------------------------------------------------- F1: stale slot length ----
+
+# ROADMAP §3 F1: one request fills its slot to max_seq (28 prompt tokens,
+# 5 decoded: its last write lands at row 31), the other decodes 7 steps
+# more, so the lockstep decode writes the finished slot's row at index
+# max_seq.  JAX's scatter drops that write; the port must drop it too.
+F1_ARCHS = (ARCH, "deepseek-v2-lite-16b")
+F1_REQUESTS = [(28, 5), (8, 12)]
+F1_LAYOUTS = ("base", "concat", "paged")
+
+
+def _dense_view(b):
+    """The engine's whole dense cache, cold rows included."""
+    if b.paged is not None:
+        return b.paged.merged()
+    return b.tiered.merged() if b.tiered is not None else b.caches
+
+
+@pytest.fixture(scope="module")
+def f1_runs(r1_patch):
+    """F1's requests through the three dense layouts of both engines, for
+    smollm-360m's GQA and deepseek-v2-lite's MLA latent (the reference's
+    forward jitted for these runs, as test_torch_families_serve.py does).
+    The port's engine is stepped by hand: when a slot finishes at max_seq,
+    its rows are copied, and the steps it then spends inactive are
+    counted."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_model, "forward", _jit_forward(ref_model.forward))
+        return _f1_runs()
+
+
+def _f1_runs():
+    out = {}
+    for arch in F1_ARCHS:
+        cfg_j, cfg_t = ref_config(arch).reduced(), get_config(arch).reduced()
+        params_j, _ = split_params(ref_model.init_params(
+            jax.random.PRNGKey(0), cfg_j))
+        params_t = params_from_jax(cfg_t, jax.tree.map(np.asarray, params_j),
+                                   device="cpu")
+        plan_j = RefPlan(hot_window=MAX_SEQ // 2, slot_hot_windows=[4, 8],
+                         page_tokens=PAGE)
+        plan_t = PlacementPlan.from_dict(plan_j.to_dict())
+        prompts = [_tokens(40 + i, p) for i, (p, _) in enumerate(F1_REQUESTS)]
+        for layout in F1_LAYOUTS:
+            plan = None if layout == "base" else (plan_j, plan_t)
+            b_j = ref_engine.ContinuousBatcher(
+                params_j, cfg_j, SLOTS, MAX_SEQ, plan=plan and plan[0],
+                paged=layout == "paged")
+            b_t = engine.ContinuousBatcher(
+                params_t, cfg_t, SLOTS, MAX_SEQ, plan=plan and plan[1],
+                paged=layout == "paged", device="cpu")
+            for toks, (_, d) in zip(prompts, F1_REQUESTS):
+                b_j.submit(jnp.asarray(toks, jnp.int32), d)
+                b_t.submit(torch.from_numpy(toks), d)
+            out_j = sorted(tuple(int(t) for t in o) for o in b_j.run())
+            results, frozen, after = [], {}, 0
+            while b_t.queue or any(b_t.active):
+                b_t.step()
+                after += bool(frozen)
+                for s in range(b_t.B):
+                    if not b_t.active[s] and b_t.outputs[s]:
+                        results.append(tuple(int(t) for t in b_t.outputs[s]))
+                        b_t.outputs[s] = []
+                        if b_t._host_len[s] == MAX_SEQ:
+                            frozen[s] = [{k: a[s].clone() for k, a in
+                                          layer.items()
+                                          if k in kvcache.SEQ_KEYS}
+                                         for layer in _dense_view(b_t)]
+            out[arch, layout] = dict(b_j=b_j, out_j=out_j, b_t=b_t,
+                                     out_t=sorted(results), frozen=frozen,
+                                     after=after)
+    return out
+
+
+@pytest.mark.parametrize("layout", F1_LAYOUTS)
+@pytest.mark.parametrize("arch", F1_ARCHS)
+def test_stale_length_write_matches_reference(f1_runs, arch, layout):
+    """The port serves F1's case where it used to raise IndexError: the
+    reference's tokens and integer counters."""
+    r = f1_runs[arch, layout]
+    assert r["out_t"] == r["out_j"]
+    assert sorted(len(o) for o in r["out_t"]) == \
+        sorted(d for _, d in F1_REQUESTS)
+    c_t, c_j = r["b_t"].counters(), r["b_j"].counters()
+    for key in ("sim_migration_bytes", "step_migration_bytes",
+                "prefill_compute_tokens", "step_prefill_tokens",
+                "table_version"):
+        assert c_t[key] == c_j[key], key
+    assert c_t["decode_steps"] == len(c_j["step_migration_bytes"])
+
+
+@pytest.mark.parametrize("layout", F1_LAYOUTS)
+@pytest.mark.parametrize("arch", F1_ARCHS)
+def test_stale_length_write_leaves_rows(f1_runs, arch, layout):
+    """The finished slot decoded on at index max_seq for several steps, and
+    every one of its in-range rows is as it was when it finished."""
+    r = f1_runs[arch, layout]
+    assert list(r["frozen"]) == [0] and r["after"] >= 6
+    view = _dense_view(r["b_t"])
+    for layer, rows in zip(view, r["frozen"][0]):
+        assert rows
+        for k, a in rows.items():
+            assert torch.equal(layer[k][0], a), k
+
+
+def test_write_rows_drops_out_of_range_slots():
+    """write_rows at per-slot offsets: a slot at max_seq keeps its rows, the
+    others take theirs; a scalar offset writes its slice."""
+    from repro_torch.models.attention import write_rows
+    buf = torch.arange(2 * 4 * 3, dtype=torch.float32).reshape(2, 4, 3)
+    before = buf.clone()
+    rows = -torch.ones(2, 1, 3)
+    write_rows(buf, rows, torch.tensor([4, 1], dtype=torch.int32))
+    assert torch.equal(buf[0], before[0])
+    assert torch.equal(buf[1, 1], rows[1, 0])
+    assert torch.equal(buf[1, [0, 2, 3]], before[1, [0, 2, 3]])
+    write_rows(buf, -2 * torch.ones(2, 2, 3), 2)
+    assert (buf[:, 2:] == -2).all() and torch.equal(buf[0, :2], before[0, :2])
