@@ -144,7 +144,9 @@ Phases, each printing its own lines:
          softcap 50 in every launch, every logit within +-30; then the
          serving CLI at full width (--arch gemma2-2b -n 16), exit 0;
      6d. internlm2-1.8b and granite-moe-3b (40 experts, top 8) on the
-         pools (1024-token slots) over phase 3's requests: the same gates;
+         pools (1024-token slots) over phase 3's requests, at half depth
+         (12 and 16 layers; cut for the script's time limit): the same
+         gates;
      6e. deepseek-v2-lite (MLA, 64 experts top 6 and 2 shared, a dense
          first layer) on all-HBM and concat (a global 256-token hot
          window: the latent's cold prefix in pinned host memory), 12
@@ -161,18 +163,43 @@ Phases, each printing its own lines:
          each Sentinel mode's loss and gradient norm against full's at MI
          1 and 2; the chunked mLSTM against the sequential scan at
          xlstm-1.3b's head shape, each timed;
-     7b. xlstm-1.3b at full width and depth (bf16, seed 0, chunks of 64):
-         8 slots of 2048 tokens, 12 prompts of 128-1024 tokens, all-HBM
-         then the pools (identical tokens); then B 1 x S 1024 training,
-         offload at the MI planned on H100_COST against full, the moments
-         in pinned host memory; the training and serving CLIs;
+     7b. xlstm-1.3b at full width on 24 of its 48 layers (bf16, seed 0,
+         chunks of 64; the depth cut for the script's time limit): 8 slots
+         of 2048 tokens, 12 prompts of 128-1024 tokens, all-HBM then the
+         pools (identical tokens); then B 1 x S 1024 training, offload at
+         the MI planned on H100_COST against full, the moments in pinned
+         host memory; the training and serving CLIs at full depth;
      7c. lstm-ptb at full width: B 20 x BPTT 35 training in the four modes,
          planned on its own profile, beside the simulator's fast-only,
          slow-only, Sentinel and IAL steps on H100_COST (paper Fig. 10's
          shape, which must hold); the training CLI; 8 slots of 512 tokens,
          12 prompts of 35-350 tokens, all-HBM then the pools; the serving
          CLI;
-  8. the attention entry points ops.flash_attention (K2) and
+  8. the modality stubs (ROADMAP 9c, 9d), which run none of the four
+     kernels (every kernel's launches counted 0 on each path):
+     8a. musicgen-medium and paligemma-3b reduced in fp32 on the card
+         against the CPU: the forward's logits (codebooks; the prefix of
+         patch embeddings and the text alone), generate's tokens, the loss
+         and gradients of the full mode, and each Sentinel mode's loss and
+         gradient norm against full's at MI 1 and 2; paligemma's batcher
+         on all-HBM, concat and paged-merged (a prompt shorter than the
+         prefix among five: ROADMAP R9), tokens and counters == the CPU's,
+         tiered == all-HBM, no pools;
+     8b. at full width and depth (bf16, seed 0): musicgen-medium's
+         generate at B 8 on 256 frames of 4 codes, 32 tokens, and the
+         serving CLI; paligemma-3b's generate at B 4 on 256 patch
+         embeddings and 64 text tokens, 32 tokens, then its batcher (8
+         slots of 2048, phase 3's 12 requests) on all-HBM, concat and
+         paged-merged with use_paged_decode set: identical tokens, no
+         pools and no K1 launch (K1 has no prefix mask); prefill ms,
+         decode step, peak memory and a profile of decode steps;
+     8c. one B 1 training step a mode at full width: musicgen at 1024
+         frames of 4 codes, paligemma at 256 patches + 768 text tokens,
+         full against offload at the MI planned on H100_COST from the
+         step's meta-device profile, the moments in pinned host memory:
+         offload's loss and gradient norm == full's, its carries ==
+         estimate_offload_traffic; step ms, peak and carry bytes;
+  9. the attention entry points ops.flash_attention (K2) and
      ops.decode_attention (K3), which no model path of the reference calls:
      - both kernels against their plain versions over the reference's
        sweeps in f32 and bf16, window/softcap cases, Sq < Skv, ragged Sq,
@@ -1406,13 +1433,14 @@ def family_requests(vocab, lengths, seed, shared=4, prefix=256):
 
 def serve_family(arch, card, *, lengths, seed, max_seq, windows,
                  layouts=("tiered", "all_hot"), chunk=256, shared=4,
-                 prefix=256, cli=None):
+                 prefix=256, cli=None, layers=None):
     """One family at full width and depth (bf16, random weights from seed
     0) on the card: ``layouts`` are "tiered" and "all_hot" (the pools, per
     slot hot ``windows``, page 16, prefill chunk ``chunk``) or "all-HBM"
     and "concat" (a global hot window of ``windows[0]`` tokens); ``shared``
-    prompts open with one ``prefix``-token prefix.  Every
-    run's tokens must equal the first's; on the pools K1 runs once a
+    prompts open with one ``prefix``-token prefix; ``layers`` cuts the
+    depth (default: the config's).  Every run's tokens must equal the
+    first's; on the pools K1 runs once a
     decode step and attention layer and the counters equal
     predict_pool_counters'; elsewhere K1 never runs.  Prints prefill ms
     per admission, decode tokens/s, the mean pure-decode step, peak
@@ -1426,6 +1454,7 @@ def serve_family(arch, card, *, lengths, seed, max_seq, windows,
     t0 = time.perf_counter()
     pools = layouts[0] == "tiered"
     cfg = dataclasses.replace(get_config(arch), use_paged_decode=pools)
+    cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=0)
     n_params = sum(p.numel() for p in params.parameters())
@@ -1507,7 +1536,8 @@ def serve_family(arch, card, *, lengths, seed, max_seq, windows,
     books = "; counters == predict_pool_counters" if pools else ""
     print(f"{arch} serve check: {' == '.join(layouts)} tokens; K1 == decode "
           f"steps x {n_k1}{books}; prompts {min(lens)}-{max(lens)} tokens, "
-          f"{n_params / 1e9:.2f} B parameters", flush=True)
+          f"{cfg.num_layers} layers, {n_params / 1e9:.2f} B parameters",
+          flush=True)
     print(f"{arch} serve time: prefill {float(np.mean(admit_ms)):.1f} ms per "
           f"admission (mean of {len(admit_ms)} "
           f"{'chunks' if pools else 'admissions'}, "
@@ -1551,8 +1581,9 @@ def check_families(card):
     """Phase 6, the attention families: 6a the reduced fp32 configs on the
     card against the CPU; 6b gemma3-12b, 6c gemma2-2b (and the serving CLI
     on it), 6d internlm2-1.8b and granite-moe-3b on the pools, 6e
-    deepseek-v2-lite on all-HBM and concat, each at full width and depth.
-    Returns K1's launches by path."""
+    deepseek-v2-lite on all-HBM and concat, each at full width and depth
+    (6d at half depth).  Returns K1's launches by path."""
+    from repro_torch.configs import get_config
     t0 = time.perf_counter()
     k1 = {"reduced families, card == CPU (phase 6a)": check_families_small()}
     rng = np.random.default_rng(21)
@@ -1587,12 +1618,14 @@ def check_families(card):
     print(f"serving CLI gemma2-2b: {line} (exit 0, {secs:.1f} s with "
           f"start-up) [{card}]", flush=True)
     k1["gemma2-2b serving, pools (phase 6c)"] = launches
-    # 6d: phase 3's 12 requests (100-700 tokens, four sharing 256)
+    # 6d: phase 3's 12 requests (100-700 tokens, four sharing 256), at
+    # half depth, for the script's time limit once phase 8 came
     lens = [len(t) for t, _ in requests(49152)]
     for arch in ("internlm2-1.8b", "granite-moe-3b-a800m"):
         launches, seen, _, _ = serve_family(
             arch, card, lengths=lens, seed=24, max_seq=MAX_SEQ,
-            windows=[128 + 16 * s for s in range(SLOTS)])
+            windows=[128 + 16 * s for s in range(SLOTS)],
+            layers=get_config(arch).num_layers // 2)
         k1[f"{arch} serving, pools (phase 6d)"] = launches
     # 6e: 12 prompts of 100-500 tokens (one dense admission prefill each,
     # within the MoE group rule), the latent tiered to pinned host memory
@@ -1705,6 +1738,11 @@ XLSTM_MAX_SEQ, LSTM_MAX_SEQ = 2048, 512
 # 33.6-44.3 s on H100 hosts with a slower CPU (the sLSTM's steps and their
 # backward are eager launches), leaving the script 107 s inside its limit
 XLSTM_TRAIN = (1, 1024)
+# phase 7b serves and trains xlstm-1.3b on 24 of its 48 layers (3 of 6
+# periods) at full width, cut for the script's time limit when phase 8
+# came (at full depth it took 120.4 s of an 813 s run on one H100 80GB
+# HBM3 at 700 W); its CLIs run the full depth
+XLSTM_LAYERS = 24
 XLSTM_PROFILE_S = 128                 # the sequence its plan profiles
 LSTM_TRAIN = (20, 35)                 # B x BPTT, Zaremba et al.'s medium
 LSTM_TRAIN_STEPS = 6
@@ -1896,7 +1934,8 @@ def check_recurrent_small(note):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def serve_recurrent(arch, card, note, *, lengths, seed, max_seq):
+def serve_recurrent(arch, card, note, *, lengths, seed, max_seq,
+                    layers=None):
     """One recurrent config at full width and depth (bf16, random weights
     from seed 0) on all-HBM, then on the pools (per-slot windows of 128 to
     240 tokens, page 16: the pages carry no KV, so nothing moves): 12
@@ -1904,14 +1943,15 @@ def serve_recurrent(arch, card, note, *, lengths, seed, max_seq):
     tokens must be identical, the pools' counters == predict_pool_counters
     (dense admission, 0 migration bytes).  Prints ms an admission, decode
     tokens/s, the mean pure-decode step, peak device memory and a profile
-    of three decode steps of 8 slots.  ``note`` reads each run's kernel
-    launches."""
+    of three decode steps of 8 slots.  ``layers`` cuts the depth (default:
+    the config's); ``note`` reads each run's kernel launches."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     from repro_torch.runtime.plan import PlacementPlan
     t0 = time.perf_counter()
     cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=0)
     n_params = sum(p.numel() for p in params.parameters())
@@ -1966,8 +2006,8 @@ def serve_recurrent(arch, card, note, *, lengths, seed, max_seq):
                 first["b"].caches for a in layer.values()) / SLOTS
     print(f"{arch} serve check: pools == all-HBM tokens; counters == "
           f"predict_pool_counters; prompts {min(lengths)}-{max(lengths)} "
-          f"tokens; {n_params / 1e9:.3f} B parameters; {state:.0f} B of "
-          f"state a slot", flush=True)
+          f"tokens; {cfg.num_layers} layers, {n_params / 1e9:.3f} B "
+          f"parameters; {state:.0f} B of state a slot", flush=True)
     print(f"{arch} serve time: prefill {float(np.mean(admit_ms)):.1f} ms per "
           f"admission (mean of {len(admit_ms)}, "
           f"{min(admit_ms):.1f}-{max(admit_ms):.1f}); "
@@ -1990,8 +2030,10 @@ def serve_recurrent(arch, card, note, *, lengths, seed, max_seq):
 
 def train_recurrent(cfg, card, note, *, B, S, steps, scfg, prof, modes):
     """``steps`` train steps of ``cfg`` (bf16, seed 0) in each of
-    ``modes`` from one state, on one repeated make_batch batch, with the
-    planned config ``scfg`` (its moments where it places them).  Fails
+    ``modes`` from one state, on one repeated make_batch batch (K codes a
+    token, or a prefix of patch embeddings before the S tokens, where the
+    config has them), with the planned config ``scfg`` (its moments where
+    it places them).  Fails
     unless every loss is finite, every mode's losses and gradient norms ==
     full's step by step (MODE_LOSS_RTOL, MODE_GNORM_RTOL) and offload's
     carries out and back == estimate_offload_traffic.  Returns each mode's
@@ -2004,12 +2046,14 @@ def train_recurrent(cfg, card, note, *, B, S, steps, scfg, prof, modes):
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train import loop
     ocfg = OptConfig(total_steps=steps, warmup_steps=1)
-    batch = make_batch(DataConfig(seed=0, vocab_size=cfg.vocab_size,
-                                  seq_len=S, global_batch=B), 0)
+    batch = make_batch(DataConfig(
+        seed=0, vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+        num_codebooks=cfg.num_codebooks,
+        num_prefix_tokens=cfg.num_prefix_tokens, d_model=cfg.d_model), 0)
     state = loop.init_state(cfg, ocfg, seed=0,
                             offload_opt_state=scfg.offload_opt_state)
     init = [p.detach().clone() for p in state["params"].parameters()]
-    carry = B * S * cfg.d_model * 2
+    carry = B * (S + cfg.num_prefix_tokens) * cfg.d_model * 2
     est = offload.estimate_offload_traffic(prof, scfg.mi_periods, carry)
     res = {}
     for mode in modes:
@@ -2067,15 +2111,16 @@ def train_recurrent(cfg, card, note, *, B, S, steps, scfg, prof, modes):
                                      f"{b}, {h}")
     note(f"{cfg.name} training")
     del state, init, batch
-    gc.collect()
+    release_pinned()
     torch.cuda.empty_cache()
     return res
 
 
 def run_xlstm_full(card, note):
-    """Phase 7b: xlstm-1.3b at full width and depth (48 layers, d_model
-    2048, 4 heads; 2.723 B parameters as the reference builds it), bf16
-    from seed 0, the mLSTM chunkwise with chunks of 64.  Serving: 8 slots
+    """Phase 7b: xlstm-1.3b at full width (d_model 2048, 4 heads; 2.723 B
+    parameters as the reference builds it at its 48 layers) on
+    XLSTM_LAYERS of its layers, bf16 from seed 0, the mLSTM chunkwise with
+    chunks of 64.  Serving: 8 slots
     of 2048 tokens, 12 prompts of 128-1024 tokens (whole chunks), all-HBM
     then the pools.  Training: B 1 x S 1024, the moments in pinned host
     memory, offload at the MI runtime.plan picks on H100_COST from the
@@ -2085,7 +2130,7 @@ def run_xlstm_full(card, note):
     seconds: the sLSTM's steps are each some 20 eager launches a layer,
     and their backward more).  Then the training CLI (2 steps
     of B 1 x S 128 at the planned MI, given, so it does not profile the
-    same step again) and the serving CLI (-n 8)."""
+    same step again) and the serving CLI (-n 8), both at full depth."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -2097,8 +2142,9 @@ def run_xlstm_full(card, note):
         rng = np.random.default_rng(31)
         serve_recurrent("xlstm-1.3b", card, note,
                         lengths=[64 * int(n) for n in rng.integers(2, 17, 12)],
-                        seed=32, max_seq=XLSTM_MAX_SEQ)
-        cfg = get_config("xlstm-1.3b")
+                        seed=32, max_seq=XLSTM_MAX_SEQ, layers=XLSTM_LAYERS)
+        cfg = dataclasses.replace(get_config("xlstm-1.3b"),
+                                  num_layers=XLSTM_LAYERS)
         B, S = XLSTM_TRAIN
         prof, _, scfg = plan_step(cfg, B, XLSTM_PROFILE_S, card,
                                   offload_opt_state=True)
@@ -2194,21 +2240,28 @@ def run_lstm_full(card, note):
     print(f"phase 7c took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def check_recurrent(card):
-    """Phase 7: 7a, 7b and 7c.  Returns each kernel's launches summed over
-    the runs of each sub-phase, counted from 0 before each run and read
-    after it (all 0: none of K1-K4 is on these paths)."""
+def release_pinned():
+    """Hand back to the system the pinned host blocks that PyTorch's
+    caching host allocator keeps after their tensors die: otherwise each
+    training phase's pinned AdamW moments (43 GB for zamba2-7b) stay
+    reserved, the next phase's, of other block sizes, add to them, and
+    the process passes the machine's 96 GiB of host memory."""
     import torch
-    t0 = time.perf_counter()
     gc.collect()
+    torch._C._host_emptyCache()
+
+
+def _no_kernel_paths(runs):
+    """Run each ``(what, run)`` of a phase whose paths launch none of
+    K1-K4: ``run(note)``, where ``note(part)`` reads (and fails on) every
+    kernel's launches since the last read and resets them.  Returns each
+    kernel's launches summed over each path's parts, counted from 0 before
+    it ran."""
+    import torch
+    release_pinned()
     torch.cuda.empty_cache()
     paths = {}
-    for what, run in (("xlstm and lstm-ptb reduced (phase 7a)",
-                       check_recurrent_small),
-                      ("xlstm-1.3b serving and training (phase 7b)",
-                       lambda note: run_xlstm_full(card, note)),
-                      ("lstm-ptb training and serving (phase 7c)",
-                       lambda note: run_lstm_full(card, note))):
+    for what, run in runs:
         tally = dict.fromkeys(("paged_decode", "flash_attention",
                                "decode_attention", "ssd"), 0)
 
@@ -2219,7 +2272,449 @@ def check_recurrent(card):
         reset_counts()
         run(note)
         paths[what] = tally
+    return paths
+
+
+def check_recurrent(card):
+    """Phase 7: 7a, 7b and 7c.  Returns each kernel's launches summed over
+    the runs of each sub-phase, counted from 0 before each run and read
+    after it (all 0: none of K1-K4 is on these paths)."""
+    t0 = time.perf_counter()
+    paths = _no_kernel_paths((
+        ("xlstm and lstm-ptb reduced (phase 7a)", check_recurrent_small),
+        ("xlstm-1.3b serving and training (phase 7b)",
+         lambda note: run_xlstm_full(card, note)),
+        ("lstm-ptb training and serving (phase 7c)",
+         lambda note: run_lstm_full(card, note))))
     print(f"phase 7 took {time.perf_counter() - t0:.1f} s; K1-K4 launches "
+          f"on its paths: {paths}", flush=True)
+    return paths
+
+
+# ------------------------------------------- the modality stubs (phase 8) --
+
+# phase 8: musicgen-medium's codebooks and paligemma-3b's prefix-LM with its
+# vision prefix (ROADMAP 9c, 9d).  No kernel of K1-K4 is on their paths:
+# musicgen serves through generate only (the batcher decodes one token id a
+# slot), and a prefix-LM decode stays on the dense core (K1 has no prefix
+# mask), so paligemma's batcher never builds the pools.
+MODALITY = ("musicgen-medium", "paligemma-3b")
+MUSICGEN_GENERATE = (8, 256, 32)      # B, frames of 4 codes, decode tokens
+PALIGEMMA_GENERATE = (4, 64, 32)      # B, text tokens after 256 patches,
+                                      # decode tokens
+PALIGEMMA_MAX_SEQ = 2048
+# phase 8c's one step a mode at B 1: musicgen S frames of 4 codes,
+# paligemma S text tokens after its 256 patches
+MODALITY_TRAIN_S = {"musicgen-medium": 1024, "paligemma-3b": 768}
+
+
+def _sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _modality_prompts(cfg, B, S, seed, dev):
+    """Prompts for ``generate``: tokens (B, S), or (B, S, K) codes, and a
+    prefix of the config's patch embeddings (B, P, d) float32 where it has
+    one, from a generator seeded with ``seed`` on ``dev``."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    K = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (B, S) + K,
+                                   generator=g, device=dev)}
+    if cfg.num_prefix_tokens:
+        out["prefix_embed"] = torch.randn(B, cfg.num_prefix_tokens,
+                                          cfg.d_model, generator=g,
+                                          device=dev)
+    return out
+
+
+def _modality_batcher_runs(params, cfg, reqs, *, max_seq, slots, decode,
+                           windows, concat_window, dev, on_engine=None):
+    """The request stream on the three dense layouts, with
+    ``use_paged_decode`` set so that ``paged=True`` would build the pools
+    for a config without the prefix: all-HBM, concat (a global hot window
+    of ``concat_window`` tokens) and paged-merged (per-slot ``windows``,
+    page 4 or PAGE).  Fails unless no layout built the pools and every
+    run's K1 launches are 0.  Returns the runs by layout name (serve()'s
+    dicts)."""
+    from repro_torch.runtime.plan import PlacementPlan
+    page = 4 if max_seq <= 64 else PAGE
+    c = dataclasses.replace(cfg, use_paged_decode=True)
+    layouts = {"all-HBM": (None, False),
+               "concat": (PlacementPlan(hot_window=concat_window,
+                                        page_tokens=page), False),
+               "paged-merged": (PlacementPlan(
+                   hot_window=max(windows), slot_hot_windows=list(windows),
+                   page_tokens=page), True)}
+    runs = {}
+    for i, (name, (plan, paged)) in enumerate(layouts.items()):
+        run = runs[name] = serve(
+            params, c, plan, reqs, max_seq=max_seq, slots=slots,
+            decode=decode, device=dev, paged=paged,
+            on_engine=on_engine if i == 0 else None)
+        b = run["b"]
+        if b.pool is not None or run["k1"] or b._pool_prefill_ok or \
+                (paged and b.paged is None):
+            raise AssertionError(f"{cfg.name} {name}: pools {b.pool}, "
+                                 f"{run['k1']} K1 launches")
+        if name != "all-HBM" and not b.sim_migration_bytes > 0:
+            raise AssertionError(f"{cfg.name} {name}: nothing moved to host "
+                                 f"memory ({b.counters()})")
+    return runs
+
+
+def check_modality_small(note, dev="cuda"):
+    """Phase 8a: musicgen-medium and paligemma-3b reduced in fp32,
+    parameters from seed 0 on the CPU and the same values on ``dev``.  The
+    forward's logits on a pipeline batch (2 x 16 tokens of 4 codes; 4
+    patch embeddings, then 16 tokens, and the tokens alone) within
+    SMALL_LOGITS_TOL of the CPU's; generate's 6 greedy tokens == the
+    CPU's; the loss and every gradient of the full mode == the CPU's
+    (SMALL_LOSS_TOL, SMALL_GRAD_TOL) and each mode's loss and gradient
+    norm at MI 1 and 2 == full's (MODE_LOSS_RTOL, MODE_GNORM_RTOL).  Then
+    paligemma's batcher, 2 slots of 32, five prompts (one of 3 tokens,
+    shorter than its prefix: ROADMAP R9), on all-HBM, concat and
+    paged-merged: tokens and integer counters == the CPU's, tiered ==
+    all-HBM tokens, no pools and no K1 launch.  ``note(what)`` reads the
+    kernels' launches of what ran."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import offload
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models.model import forward, init_params, loss_fn
+    from repro_torch.serve.engine import generate
+    t0 = time.perf_counter()
+    counters = ("sim_migration_bytes", "step_migration_bytes", "page_copies",
+                "admit_page_writes", "table_version",
+                "prefill_compute_tokens", "decode_steps")
+    for arch in MODALITY:
+        cfg = get_config(arch).reduced()
+        cpu = init_params(cfg, seed=0, device="cpu", requires_grad=True)
+        card = copy.deepcopy(cpu).to(dev)
+        batch = make_batch(DataConfig(
+            seed=0, vocab_size=cfg.vocab_size, seq_len=16, global_batch=2,
+            num_codebooks=cfg.num_codebooks,
+            num_prefix_tokens=cfg.num_prefix_tokens, d_model=cfg.d_model),
+            0, device="cpu")
+        prompts = [{k: v for k, v in batch.items() if k != "labels"}]
+        if cfg.num_prefix_tokens:
+            prompts.append({"tokens": batch["tokens"]})
+        err = 0.0
+        for pr in prompts:
+            on = {k: v.to(dev) for k, v in pr.items()}
+            err = max(err, _close_rel(forward(card, cfg, on).cpu(),
+                                      forward(cpu, cfg, pr),
+                                      SMALL_LOGITS_TOL, 0.0,
+                                      f"reduced {arch} logits"))
+            got = generate(card, cfg, on, 6).cpu()
+            want = generate(cpu, cfg, pr, 6)
+            if not torch.equal(got, want):
+                raise AssertionError(f"reduced {arch}: generate on the card "
+                                     f"{got.tolist()} != the CPU's "
+                                     f"{want.tolist()}")
+        # training: full on the card against the CPU, then every mode
+        # against full on the card
+        res, gerr = {}, 0.0
+        for mode in MODES:
+            for mi in (1, 2):
+                kw = offload.loss_kwargs(offload.SentinelConfig(
+                    mode=mode, mi_periods=mi))
+                sides = ((dev, card), ("cpu", cpu)) if mode == "full" \
+                    else ((dev, card),)
+                for d, p in sides:
+                    loss = loss_fn(p, cfg, {k: v.to(d) for k, v in
+                                            batch.items()}, **kw)
+                    grads = torch.autograd.grad(loss, list(p.parameters()))
+                    if not (torch.isfinite(loss) and all(
+                            torch.isfinite(g).all() for g in grads)):
+                        raise AssertionError(f"reduced {arch} {mode} mi {mi} "
+                                             f"on {d}: not finite")
+                    gn = float(torch.sqrt(sum(g.double().square().sum()
+                                              for g in grads)))
+                    res[d, mode, mi] = (float(loss.detach()), gn,
+                                        [g.cpu() for g in grads])
+        lc, _, g_cpu = res["cpu", "full", 1]
+        lg, gg, g_dev = res[dev, "full", 1]
+        _close_rel(torch.tensor(lg), torch.tensor(lc), SMALL_LOSS_TOL, 0.0,
+                   f"reduced {arch} full loss")
+        for a, h in zip(g_dev, g_cpu):
+            gerr = max(gerr, _close_rel(a, h, SMALL_GRAD_TOL, 0.0,
+                                        f"reduced {arch} full gradient"))
+        for (d, mode, mi), (l, gn, _) in res.items():
+            if d == dev and not (abs(l - lg) <= MODE_LOSS_RTOL * abs(lg)
+                                 and abs(gn - gg) <= MODE_GNORM_RTOL * gg):
+                raise AssertionError(f"reduced {arch} {mode} mi {mi}: loss "
+                                     f"{l}, gradient norm {gn}; full's {lg}, "
+                                     f"{gg}")
+        print(f"small modality check {arch} (fp32): logits on the card == "
+              f"on the CPU (max_abs_err {err:.3e}, "
+              f"{'with and without the prefix, ' * bool(len(prompts) - 1)}"
+              f"atol {SMALL_LOGITS_TOL['atol']:g}); generate's tokens "
+              f"identical; full's loss {lg:.6f} / {lc:.6f}, gradients "
+              f"max_abs_err {gerr:.3e}; every mode at MI 1 and 2 == full's "
+              f"loss and gradient norm on the card", flush=True)
+        if not cfg.num_prefix_tokens:
+            continue
+        rng = np.random.default_rng(3)
+        reqs = [(rng.integers(0, cfg.vocab_size, p), None)
+                for p in (9, 14, 3, 6, 11)]
+        params_cpu = init_params(cfg, seed=0, device="cpu")
+        params_dev = copy.deepcopy(params_cpu).to(dev)
+        got = {d: _modality_batcher_runs(p, cfg, reqs, max_seq=32, slots=2,
+                                         decode=6, windows=[4, 8],
+                                         concat_window=16, dev=d)
+               for d, p in ((dev, params_dev), ("cpu", params_cpu))}
+        for name, run in got[dev].items():
+            cg, ch = run["b"].counters(), got["cpu"][name]["b"].counters()
+            if run["out"] != got["cpu"][name]["out"] or \
+                    run["out"] != got[dev]["all-HBM"]["out"] or \
+                    any(cg[k] != ch[k] for k in counters if k in ch):
+                raise AssertionError(f"reduced {arch} {name}: card tokens "
+                                     f"or counters differ from the CPU's "
+                                     f"or from all-HBM's")
+        print(f"small modality check {arch} batcher (fp32): all-HBM, concat "
+              f"and paged-merged on the card == on the CPU (tokens, "
+              f"counters), tiered == all-HBM tokens, a 3-token prompt "
+              f"under the 4-patch prefix among them; no pools, no K1 "
+              f"launch", flush=True)
+    note("phase 8a")
+    print(f"phase 8a took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def generate_full(params, cfg, prompts, decode, card, what, dev="cuda"):
+    """``generate`` on ``prompts`` for ``decode`` greedy tokens, twice
+    (identical, the first token == the prefill's argmax, in range), timed;
+    then the prefill alone and ``decode`` decode steps on its cache, each
+    timed; then a profile of 4 decode steps.  Prints tokens/s, prefill ms,
+    the mean decode step and the device-busy share."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.serve.engine import generate, make_serve_step
+    B = prompts["tokens"].shape[0]
+    K = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    S = prompts["tokens"].shape[1] + (
+        cfg.num_prefix_tokens if "prefix_embed" in prompts else 0)
+    _sync(dev)
+    ts = time.perf_counter()
+    a = generate(params, cfg, prompts, decode)
+    _sync(dev)
+    wall = time.perf_counter() - ts
+    b = generate(params, cfg, prompts, decode)
+    _sync(dev)
+    ts = time.perf_counter()
+    last, caches = model.prefill(params, cfg, prompts, max_seq=S + decode + 8)
+    _sync(dev)
+    prefill_ms = 1e3 * (time.perf_counter() - ts)
+    first = last[..., :cfg.vocab_size].argmax(-1)
+    if tuple(a.shape) != (B, decode) + K or not torch.equal(a, b) or \
+            not torch.equal(a[:, 0], first) or \
+            not bool(((a >= 0) & (a < cfg.vocab_size)).all()):
+        raise AssertionError(f"{what}: generate's tokens {tuple(a.shape)} "
+                             f"not deterministic, not the prefill's argmax "
+                             f"or out of range")
+    step = make_serve_step(cfg)
+    tok = first[:, None]
+    _sync(dev)
+    ts = time.perf_counter()
+    for i in range(decode):
+        logits, caches = step(params, tok, caches, S + i)
+        tok = logits[..., :cfg.vocab_size].argmax(-1)[:, None]
+    _sync(dev)
+    step_ms = 1e3 * (time.perf_counter() - ts) / decode
+    i = iter(range(S + decode, S + decode + 8))
+
+    def one():
+        step(params, tok, caches, next(i))
+    wall_us, rows = device_profile(one, 4)
+    print_profile(f"{what} decode (B {B})", wall_us, rows, 4, card)
+    rows = f"{S} rows" + (f" ({cfg.num_prefix_tokens} patches, then text)"
+                          if "prefix_embed" in prompts else "") + \
+        (f" of {K[0]} codes" if K else "")
+    print(f"{what} generate: B {B}, prompts of {rows}, {decode} greedy "
+          f"tokens, identical in two calls, first == the prefill's argmax; "
+          f"{B * decode / wall:.1f} tokens/s ({wall:.3f} s, prefill "
+          f"included); prefill {prefill_ms:.1f} ms; mean decode step "
+          f"{step_ms:.3f} ms [{card}]", flush=True)
+
+
+def run_musicgen_full(card, note, dev="cuda"):
+    """Phase 8b, musicgen-medium at full width and depth (48 layers,
+    d_model 1536, 24 heads of 64, 4 codebooks of 2048; 1.837 B
+    parameters), bf16 from seed 0: generate at B 8 on prompts of 256
+    frames of 4 codes, 32 greedy tokens of 4 codes; then the serving CLI
+    at full width (-n 32)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    cfg = get_config("musicgen-medium")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    B, S, decode = MUSICGEN_GENERATE
+    generate_full(params, cfg, _modality_prompts(cfg, B, S, 41, dev),
+                  decode, card, "musicgen-medium", dev)
+    note("musicgen-medium generate")
+    print(f"musicgen-medium: {n_params / 1e9:.3f} B parameters; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]",
+          flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ts = time.perf_counter()
+    out = serve_cli.main(["--arch", "musicgen-medium", "-n", "32"])
+    if tuple(out.shape) != (4, 32, 4):
+        raise AssertionError(f"serving CLI musicgen-medium: {out.shape}")
+    note("the serving CLI, musicgen-medium")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"musicgen-medium serving CLI (-n 32) exit 0 in "
+          f"{time.perf_counter() - ts:.1f} s; musicgen-medium phase took "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
+def run_paligemma_full(card, note, dev="cuda"):
+    """Phase 8b, paligemma-3b at full width and depth (18 layers, d_model
+    2048, 8 query heads and 1 KV head of 256, vocab 257,216; 2.513 B
+    parameters), bf16 from seed 0: generate at B 4 on 256 patch
+    embeddings and 64 text tokens, 32 greedy tokens; then the batcher, 8
+    slots of 2048 tokens, phase 3's 12 text prompts (100-700 tokens, four
+    sharing a 256-token prefix) on all-HBM, concat (a global hot window of
+    256 tokens) and paged-merged (per-slot windows of 128-240 tokens, page
+    16): identical tokens, no pools and no K1 launch; prefill ms per
+    admission, decode tokens/s, the mean pure-decode step, peak memory and
+    a profile of decode steps on paged-merged."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    cfg = get_config("paligemma-3b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    B, S, decode = PALIGEMMA_GENERATE
+    generate_full(params, cfg, _modality_prompts(cfg, B, S, 42, dev),
+                  decode, card, "paligemma-3b", dev)
+    note("paligemma-3b generate")
+    reqs = requests(cfg.vocab_size, seed=43)
+    admit_ms = []
+
+    def time_admissions(b):
+        admit = b._admit_dense
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            admit(*args)
+            torch.cuda.synchronize()
+            admit_ms.append(1e3 * (time.perf_counter() - ts))
+        b._admit_dense = timed
+
+    windows = [128 + 16 * s for s in range(SLOTS)]
+    runs = _modality_batcher_runs(
+        params, cfg, reqs, max_seq=PALIGEMMA_MAX_SEQ, slots=SLOTS,
+        decode=DECODE, windows=windows, concat_window=256, dev=dev,
+        on_engine=time_admissions)
+    note("paligemma-3b batcher")
+    first = runs["all-HBM"]
+    for name, run in runs.items():
+        b = run["b"]
+        if len(run["out"]) != len(reqs) or \
+                any(len(o) != DECODE for o in run["out"]) or \
+                any(not 0 <= t < cfg.vocab_size
+                    for o in run["out"] for t in o):
+            raise AssertionError(f"paligemma-3b {name}: malformed outputs")
+        if run["out"] != first["out"]:
+            raise AssertionError(f"paligemma-3b: {name} tokens differ from "
+                                 f"all-HBM's")
+        print(f"paligemma-3b serve {name}: {len(run['out'])} requests, "
+              f"{b.decode_steps} decode steps, sim_migration_bytes "
+              f"{b.sim_migration_bytes:.0f}, K1 {run['k1']}, mean pure "
+              f"decode step {1e3 * float(np.mean(run['step_s'])):.3f} ms, "
+              f"wall {run['wall']:.3f} s", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    decode_tokens = sum(len(o) - 1 for o in first["out"])
+    lens = [len(t) for t, _ in reqs]
+    print(f"paligemma-3b serve check: concat == paged-merged == all-HBM "
+          f"tokens; no pools, K1 0 launches; prompts {min(lens)}-{max(lens)} "
+          f"text tokens (all under the 256-patch prefix's length: ROADMAP "
+          f"R9); {n_params / 1e9:.3f} B parameters; KV "
+          f"{first['b']._row_bytes:.0f} B a token", flush=True)
+    print(f"paligemma-3b serve time: prefill {float(np.mean(admit_ms)):.1f} "
+          f"ms per admission (mean of {len(admit_ms)}, "
+          f"{min(admit_ms):.1f}-{max(admit_ms):.1f}); "
+          f"{decode_tokens / first['wall']:.1f} decode tokens/s over the "
+          f"whole all-HBM run ({first['wall']:.3f} s, prefill included); "
+          f"mean pure decode step {1e3 * float(np.mean(first['step_s'])):.3f}"
+          f" ms over {len(first['step_s'])} steps of {SLOTS} slots; peak "
+          f"device memory {peak:.2f} GB [{card}]", flush=True)
+    plan = runs["paged-merged"]["b"].plan
+    del runs, first
+    gc.collect()
+    b = profile_decode(params, dataclasses.replace(cfg, use_paged_decode=True),
+                       plan, reqs, card, steps=4, max_seq=PALIGEMMA_MAX_SEQ,
+                       what="paligemma-3b paged-merged decode",
+                       decode=PALIGEMMA_MAX_SEQ - max(lens[:SLOTS]) - 1)
+    if b.pool is not None:
+        raise AssertionError("paligemma-3b: the profile built the pools")
+    note("paligemma-3b decode profile")
+    del b, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"paligemma-3b phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def train_modality(card, note):
+    """Phase 8c: one training step a mode at full width and depth, B 1,
+    bf16 from seed 0, the AdamW moments in pinned host memory: musicgen
+    at S 1024 frames of 4 codes, paligemma at 256 patches + S 768 text
+    tokens (the loss over the text).  Full against offload at the MI
+    runtime.plan picks on H100_COST from the port's meta-device profile of
+    the same step: offload's loss and gradient norm == full's, its
+    carries == estimate_offload_traffic; step ms, peak memory and carry
+    bytes of each."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    for arch in MODALITY:
+        cfg = get_config(arch)
+        S = MODALITY_TRAIN_S[arch]
+        prof, _, scfg = plan_step(cfg, 1, S, card, offload_opt_state=True)
+        res = train_recurrent(cfg, card, note, B=1, S=S, steps=1, scfg=scfg,
+                              prof=prof, modes=("full", "offload"))
+        f, o = res["full"], res["offload"]
+        print(f"{arch} train check: offload == full (loss and gradient "
+              f"norm); full {f['ms']:.1f} ms at {f['peak'] / 1e9:.2f} GB, "
+              f"offload {o['ms']:.1f} ms at {o['peak'] / 1e9:.2f} GB "
+              f"({o['ms'] / f['ms']:.3f} of full's step, "
+              f"{o['peak'] / f['peak']:.3f} of its peak), {o['d2h']} B of "
+              f"carries a step [{card}]", flush=True)
+    print(f"phase 8c took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_modality(card):
+    """Phase 8: 8a, 8b and 8c.  Returns each kernel's launches summed over
+    the runs of each sub-phase, counted from 0 before each run and read
+    after it (all 0: none of K1-K4 is on these paths)."""
+    t0 = time.perf_counter()
+    paths = _no_kernel_paths((
+        ("musicgen-medium and paligemma-3b reduced (phase 8a)",
+         check_modality_small),
+        ("musicgen-medium generate and serving CLI (phase 8b)",
+         lambda note: run_musicgen_full(card, note)),
+        ("paligemma-3b generate and batcher (phase 8b)",
+         lambda note: run_paligemma_full(card, note)),
+        ("musicgen-medium and paligemma-3b training (phase 8c)",
+         lambda note: train_modality(card, note))))
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s; K1-K4 launches "
           f"on its paths: {paths}", flush=True)
     return paths
 
@@ -4130,9 +4625,7 @@ def train_zamba(card):
     prof, _, scfg = plan_step(cfg, B, S, card, offload_opt_state=True)
     ocfg = adamw.OptConfig(total_steps=2, warmup_steps=1)
     torch.cuda.empty_cache()
-    host_empty = getattr(torch._C, "_host_emptyCache", None)
-    if host_empty is not None:
-        host_empty()
+    release_pinned()
     ti = time.perf_counter()
     state = loop.init_state(cfg, ocfg, seed=0, offload_opt_state=True)
     moments = [t for k in ("m", "v") for t in state["opt"][k].values()]
@@ -4278,12 +4771,14 @@ def main() -> int:
         train_zamba(card)
     print(f"training phases took {time.perf_counter() - t0:.1f} s",
           flush=True)
-    gc.collect()
+    release_pinned()
     torch.cuda.empty_cache()
     k1["launches_by_path"].update(check_families(card))
-    # phase 7's paths run none of the four kernels: each path's count, read
-    # after every run of it
-    for what, tally in check_recurrent(card).items():
+    # phase 7's and phase 8's paths run none of the four kernels: each
+    # path's count, read after every run of it
+    paths = check_recurrent(card)
+    paths.update(check_modality(card))
+    for what, tally in paths.items():
         for rec, name in ((k1, "paged_decode"), (k2, "flash_attention"),
                           (k3, "decode_attention"), (k4, "ssd")):
             rec.setdefault("launches_by_path", {})[what] = tally[name]

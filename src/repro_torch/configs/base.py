@@ -1,11 +1,10 @@
 """Model configs and the arch registry (the port's own copy of
-``repro/configs/base.py``, cut to the fields the ported layer kinds read:
-ATTN/LOCAL stacks with the gemma extras (final softcap, embedding scale,
-QK-norm, a global RoPE theta), MoE MLPs, deepseek's MLA layers and dense
-prologue, the zamba2 hybrid's MAMBA and SHARED_ATTN layers, and the xLSTM
-(MLSTM, SLSTM) and classic LSTM stacks; the codebook and prefix-LM fields,
-and the two archs that need them, come with the port of those families,
-ROADMAP item 9).
+``repro/configs/base.py``, every field and every registered arch: ATTN/LOCAL
+stacks with the gemma extras (final softcap, embedding scale, QK-norm, a
+global RoPE theta), MoE MLPs, deepseek's MLA layers and dense prologue, the
+zamba2 hybrid's MAMBA and SHARED_ATTN layers, the xLSTM (MLSTM, SLSTM) and
+classic LSTM stacks, and the modality stubs: musicgen's codebooks and
+paligemma's prefix-LM with its vision prefix).
 
 An arch is ``prologue`` (leading layers) followed by a repeating *period* of
 layer kinds; the port runs the stack as a plain loop over ``num_layers``
@@ -26,9 +25,6 @@ MLSTM = "mlstm"          # xLSTM matrix-LSTM block
 SLSTM = "slstm"          # xLSTM scalar-LSTM block
 LSTM = "lstm"            # classic LSTM (paper's own PTB model)
 KINDS = (ATTN, LOCAL, MLA, MAMBA, SHARED_ATTN, MLSTM, SLSTM, LSTM)
-# the reference's archs whose fields are not ported yet
-UNPORTED_ARCHS = {"musicgen-medium": "per-codebook embeddings and logits",
-                  "paligemma-3b": "the prefix-LM mask and the vision prefix"}
 
 
 @dataclass(frozen=True)
@@ -55,8 +51,8 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | hybrid | ssm | lstm (the
-                                  # families ported yet)
+    family: str                   # dense | moe | hybrid | ssm | audio |
+                                  # vlm | lstm
     num_layers: int
     d_model: int
     num_heads: int
@@ -79,6 +75,7 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     rope_theta_global: float = 0.0   # gemma3 global layers use a different theta
+    prefix_lm: bool = False          # paligemma: bidirectional prefix
 
     # MLA (deepseek)
     q_lora_rank: int = 0
@@ -89,6 +86,10 @@ class ModelConfig:
 
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+
+    # modality stubs
+    num_codebooks: int = 0        # musicgen: 4 EnCodec codebooks
+    num_prefix_tokens: int = 0    # paligemma: SigLIP patch embeddings (stub)
 
     act: str = "silu"             # silu | gelu
     norm_eps: float = 1e-6
@@ -160,6 +161,7 @@ class ModelConfig:
             ssm=dataclasses.replace(self.ssm, state_dim=16, head_dim=8,
                                     num_heads=0, chunk=8)
             if self.ssm else None,
+            num_prefix_tokens=4 if self.num_prefix_tokens else 0,
             dtype="float32",
         )
 
@@ -175,10 +177,6 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     if not _REGISTRY:
         _load_all()
-    if name in UNPORTED_ARCHS:
-        raise NotImplementedError(
-            f"{name}: {UNPORTED_ARCHS[name]} are not ported yet (ROADMAP, "
-            "modules to port: item 9)")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
@@ -194,4 +192,5 @@ def _load_all():
     # import the per-arch modules for their registration side effect
     from repro_torch.configs import (  # noqa: F401
         deepseek_v2_lite, gemma2_2b, gemma3_12b, granite_moe_3b,
-        internlm2_1p8b, lstm_ptb, smollm_360m, xlstm_1p3b, zamba2_7b)
+        internlm2_1p8b, lstm_ptb, musicgen_medium, paligemma_3b, smollm_360m,
+        xlstm_1p3b, zamba2_7b)

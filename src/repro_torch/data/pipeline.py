@@ -3,10 +3,10 @@
 
 Deterministic per (seed, step): recovery after a failure replays the exact
 same batches, and ``_host_batch`` gives the reference's bytes for the same
-config and step.  ``make_batch`` puts a batch on one device (the
-reference's sharded placement waits for the port's mesh, ROADMAP item 11).
-The reference's codebook labels and prefix embeddings are not ported: no
-model of the port reads them yet.
+config and step, codebook tokens (musicgen) and prefix embeddings
+(paligemma's stub) included.  ``make_batch`` puts a batch on one device
+(the reference's sharded placement waits for the port's mesh, ROADMAP item
+11).
 """
 from __future__ import annotations
 
@@ -27,15 +27,30 @@ class DataConfig:
     vocab_size: int = 32_000
     seq_len: int = 1024
     global_batch: int = 8
+    num_codebooks: int = 0
+    num_prefix_tokens: int = 0
+    d_model: int = 0              # for prefix embeddings (vlm stub)
 
 
 def _host_batch(cfg: DataConfig, step: int) -> dict:
-    """Full logical batch for `step` (numpy, deterministic)."""
+    """Full logical batch for `step` (numpy, deterministic), drawn in the
+    reference's order: tokens (B, S) or (B, S, K), then the prefix
+    embeddings (B, P, d) float32, whose labels are left-padded with P
+    zeros (the loss skips the prefix rows)."""
     rng = np.random.default_rng(np.uint64(cfg.seed * 1_000_003 + step))
-    tokens = rng.integers(0, cfg.vocab_size,
-                          size=(cfg.global_batch, cfg.seq_len), dtype=np.int32)
-    labels = np.roll(tokens, -1, axis=1)   # next token
-    return {"tokens": tokens, "labels": labels.astype(np.int32)}
+    shape = (cfg.global_batch, cfg.seq_len)
+    if cfg.num_codebooks:
+        shape = shape + (cfg.num_codebooks,)
+    tokens = rng.integers(0, cfg.vocab_size, size=shape, dtype=np.int32)
+    labels = np.roll(tokens, -1, axis=1)   # (B,S) or (B,S,K): next token
+    out = {"tokens": tokens, "labels": labels.astype(np.int32)}
+    if cfg.num_prefix_tokens:
+        out["prefix_embed"] = rng.standard_normal(
+            (cfg.global_batch, cfg.num_prefix_tokens, cfg.d_model),
+            dtype=np.float32)
+        out["labels"] = np.pad(out["labels"],
+                               ((0, 0), (cfg.num_prefix_tokens, 0)))
+    return out
 
 
 def make_batch(cfg: DataConfig, step: int, device=None) -> dict:

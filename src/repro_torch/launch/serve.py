@@ -2,8 +2,9 @@
 
 Batched prefill and decode with the serve engine's ``generate`` on the CUDA
 card (or, with ``--device cpu``, on the CPU), at full width unless
-``--reduced`` is given.  Weights are random from seed 0; the prompts and
-any temperature sampling draw from a ``torch.Generator`` seeded with
+``--reduced`` is given.  Weights are random from seed 0; the prompts (K
+codes a token for a codebook arch, and a vision arch's patch embeddings)
+and any temperature sampling draw from a ``torch.Generator`` seeded with
 ``--seed``.
 """
 from __future__ import annotations
@@ -40,9 +41,14 @@ def main(argv=None):
         cfg = cfg.reduced()
     params = model.init_params(cfg, seed=0, device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    prompts = {"tokens": torch.randint(
-        0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
-        device=device)}
+    shape = (args.batch, args.prompt_len) + (
+        (cfg.num_codebooks,) if cfg.num_codebooks else ())
+    prompts = {"tokens": torch.randint(0, cfg.vocab_size, shape,
+                                       generator=gen, device=device)}
+    if cfg.num_prefix_tokens:          # the vision stub's patch embeddings
+        prompts["prefix_embed"] = torch.randn(
+            args.batch, cfg.num_prefix_tokens, cfg.d_model, generator=gen,
+            device=device)
     scfg = engine.ServeConfig(temperature=args.temperature,
                               max_seq=args.prompt_len + args.num_tokens + 8)
     if device.type == "cuda":

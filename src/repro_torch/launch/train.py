@@ -28,10 +28,19 @@ from repro_torch.train import loop
 
 def profile_step(cfg, batch: int, seq: int) -> profiler.TraceProfile:
     """The data-object profile of one training step of ``cfg`` at
-    ``batch`` x ``seq`` tokens, traced on the meta device."""
+    ``batch`` x ``seq`` tokens, traced on the meta device, with the
+    reference's batch shapes: tokens and labels (B, S, K) for K codebooks,
+    labels (B, P + S) and a float32 ``prefix_embed`` (B, P, d) for a
+    prefix of P patch embeddings."""
     params = model.init_params(cfg, device="meta", requires_grad=True)
-    b = {k: torch.empty(batch, seq, dtype=torch.int32, device="meta")
-         for k in ("tokens", "labels")}
+    K, P = cfg.num_codebooks, cfg.num_prefix_tokens
+
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    b = {"tokens": meta(batch, seq, K) if K else meta(batch, seq),
+         "labels": meta(batch, seq, K) if K else meta(batch, seq + P)}
+    if P:
+        b["prefix_embed"] = meta(batch, P, cfg.d_model, dtype=torch.float32)
     return profiler.trace_profile(
         lambda p, bb: model.loss_fn(p, cfg, bb, unroll_periods=True),
         params, b, num_periods=cfg.num_periods)
@@ -82,7 +91,10 @@ def main(argv=None):
     ocfg = adamw.OptConfig(total_steps=args.steps,
                            warmup_steps=max(1, args.steps // 10))
     dcfg = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=args.seq,
-                      global_batch=args.batch)
+                      global_batch=args.batch,
+                      num_codebooks=cfg.num_codebooks,
+                      num_prefix_tokens=cfg.num_prefix_tokens,
+                      d_model=cfg.d_model)
     tcfg = loop.TrainConfig(steps=args.steps,
                             ckpt_every=max(10, args.steps // 5),
                             ckpt_dir=args.ckpt_dir, log_every=10)

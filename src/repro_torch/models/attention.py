@@ -1,7 +1,6 @@
-"""GQA attention with causal / sliding-window masks, logit softcap, QK-norm,
-per-kind RoPE and KV caches, and DeepSeek's multi-head latent attention
-(port of ``repro/models/attention.py``; the prefix-LM mask comes with the
-family that uses it, ROADMAP item 9).
+"""GQA attention with causal / sliding-window / prefix-LM masks, logit
+softcap, QK-norm, per-kind RoPE and KV caches, and DeepSeek's multi-head
+latent attention (port of ``repro/models/attention.py``).
 
 Forms: no cache (a full-sequence forward); a dense cache {"k", "v"}
 (B, Smax, KV*hd), written at a scalar offset (prefill, lockstep decode) or
@@ -28,14 +27,20 @@ from repro_torch.models.layers import apply_rope, frozen, rmsnorm, softcap
 NEG_INF = -2.0 ** 20
 
 
-def attn_bias(q_pos, kv_pos, *, window: int = 0):
+def attn_bias(q_pos, kv_pos, *, window: int = 0, prefix_len: int = 0):
     """Additive bias (..., Sq, Skv) from position vectors.
-    q_pos: (B, Sq) or (Sq,); kv_pos: (Skv,).  window > 0: sliding-window."""
+    q_pos: (B, Sq) or (Sq,); kv_pos: (Skv,).  window > 0: sliding-window.
+    prefix_len > 0: every key below it is visible to every query (the
+    bidirectional prefix), as the reference's: over a cache that includes
+    rows not yet written, where a prompt is shorter than the prefix
+    (ROADMAP R9)."""
     q = q_pos[..., :, None].to(torch.int32)
     k = kv_pos[None, :].to(torch.int32)
     ok = k <= q
     if window:
         ok &= (q - k) < window
+    if prefix_len:
+        ok |= k < prefix_len
     return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
 
 
@@ -135,7 +140,8 @@ class Attention(nn.Module):
                               window, positions)
         else:
             pos = positions[0] if positions.dim() > 1 else positions
-            bias = attn_bias(positions, pos, window=window)
+            bias = attn_bias(positions, pos, window=window,
+                             prefix_len=_prefix_len(cfg))
             if bias.dim() == 2:
                 bias = bias[None]
             out = _gqa_core(q, k, v, bias, cfg.attn_softcap)
@@ -148,24 +154,32 @@ def _dense_core(cfg, q, k, v, cache, cache_index, paged_view, window,
     rows are written in place, row-wise at a (B,) ``cache_index`` (each
     slot at its own length) or as one slice at a scalar offset, then every
     query attends over the whole buffer under ``attn_bias`` (rows past a
-    query's position are masked).  With ``cfg.use_paged_decode``, a
-    ``paged_view`` and one query token, the updated cache is read through
-    the pool layout instead (``_paged_decode_core``)."""
+    query's position are masked, except below a prefix-LM's prefix).  With
+    ``cfg.use_paged_decode``, a ``paged_view`` and one query token, the
+    updated cache is read through the pool layout instead
+    (``_paged_decode_core``), except under ``cfg.prefix_lm``: K1 has no
+    prefix mask, so the reference keeps such a decode on the dense
+    path."""
     B, Sq, KV, G, hd = q.shape
     k_all, v_all = cache["k"], cache["v"]
     write_rows(k_all, k.reshape(B, Sq, KV * hd), cache_index)
     write_rows(v_all, v.reshape(B, Sq, KV * hd), cache_index)
     Smax = k_all.shape[1]
     if (paged_view is not None and cfg.use_paged_decode and Sq == 1
-            and cache_index is not None):
+            and cache_index is not None and not cfg.prefix_lm):
         return _paged_decode_core(cfg, q, k_all, v_all, cache_index,
                                   paged_view, window)
     bias = attn_bias(positions, torch.arange(Smax, device=q.device),
-                     window=window)
+                     window=window, prefix_len=_prefix_len(cfg))
     if bias.dim() == 2:
         bias = bias[None]
     return _gqa_core(q, k_all.reshape(B, Smax, KV, hd),
                      v_all.reshape(B, Smax, KV, hd), bias, cfg.attn_softcap)
+
+
+def _prefix_len(cfg) -> int:
+    """Keys every query sees: the prefix of a prefix-LM config."""
+    return cfg.num_prefix_tokens if cfg.prefix_lm else 0
 
 
 def _paged_decode_core(cfg, q, k_all, v_all, cache_index, paged_view,
@@ -210,7 +224,9 @@ def _pool_prefill_core(cfg, q, k, v, cache, cache_index, paged_view, window,
     copied to the card.  Rows beyond the valid region are finite stale data
     masked to exactly zero probability by ``attn_bias``.  The caller makes
     sure pending stream-ordered writes into the cold pool have landed
-    before this host-side read (``PagedKVPools.sync_cold``).
+    before this host-side read (``PagedKVPools.sync_cold``).  Never
+    reached under ``cfg.prefix_lm``: the engine builds no pools for such a
+    config, so the mask here has no prefix term.
     """
     B, Sq, KV, G, hd = q.shape
     if B != 1:
@@ -255,7 +271,9 @@ def _pool_decode_core(cfg, q, k, v, cache, cache_index, paged_view, window,
     (inactive slots are redirected to the garbage page, so lockstep decode
     never corrupts a page a live slot references), then attention reads the
     pools through ops.paged_decode_attention.  Decode never writes below a
-    cold boundary, so the cold pools are only read.
+    cold boundary, so the cold pools are only read.  Never reached under
+    ``cfg.prefix_lm`` (the engine builds no pools for it): K1 has no
+    prefix mask.
     """
     B, Sq, KV, G, hd = q.shape
     if Sq != 1 or paged_view is None or cache_index is None:

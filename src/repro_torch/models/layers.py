@@ -76,10 +76,18 @@ class MLP(nn.Module):
 # ------------------------------------------------------------- embedding ----
 
 def embed(table, cfg, tokens):
-    """tokens: (B, S) integer ids -> (B, S, d).  With ``cfg.scale_embed``
-    (gemma) the rows are scaled by sqrt(d) rounded to the table's dtype
-    first, as the reference's ``jnp.asarray(sqrt(d), x.dtype)``."""
-    x = F.embedding(tokens, table)
+    """tokens: (B, S) integer ids -> (B, S, d), or (B, S, K) codes of K
+    codebooks (musicgen: ``table`` (K, V, d)), whose K rows are summed in
+    codebook order, as the reference's Python ``sum``.  With
+    ``cfg.scale_embed`` (gemma) the result is scaled by sqrt(d) rounded to
+    the table's dtype first, as the reference's ``jnp.asarray(sqrt(d),
+    x.dtype)``."""
+    if cfg.num_codebooks:
+        x = F.embedding(tokens[..., 0], table[0])
+        for k in range(1, cfg.num_codebooks):
+            x = x + F.embedding(tokens[..., k], table[k])
+    else:
+        x = F.embedding(tokens, table)
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -87,8 +95,12 @@ def embed(table, cfg, tokens):
 
 
 def unembed(table, cfg, x):
-    """x: (B, S, d) -> logits (B, S, padded_vocab), under the final softcap
-    where the config has one (gemma2)."""
+    """x: (B, S, d) -> logits (B, S, padded_vocab), or (B, S, K,
+    padded_vocab) for K codebooks (``table`` (K, V, d)), under the final
+    softcap where the config has one (gemma2)."""
+    if cfg.num_codebooks:
+        return softcap(torch.einsum("bsd,kvd->bskv", x, table),
+                       cfg.final_softcap)
     return softcap(x @ table.T, cfg.final_softcap)
 
 
@@ -107,8 +119,10 @@ _CONST_INIT = {"ln1": 0.0, "ln2": 0.0, "final_norm": 0.0, "q_norm": 1.0,
 def init_weights(module: nn.Module, cfg, generator: torch.Generator):
     """Fill every parameter in registration order from ``generator``, with
     the reference's initialisers: norms and biases constant, the Mamba
-    ``A_log = log(linspace(1, 16, H))``, embedding tables N(0, d^-1), the
-    Mamba and xLSTM convs N(0, 1/K), projections N(0, 1/fan_in), expert
+    ``A_log = log(linspace(1, 16, H))``, embedding tables and heads (one
+    a codebook where the config has codebooks) N(0, d^-1), the Mamba and
+    xLSTM convs N(0, 1/K), projections (``vision_proj`` among them)
+    N(0, 1/fan_in), expert
     banks (E, din, dout) N(0, 1/din) and the sLSTM's recurrent weights
     (H, 4, D, D) N(0, 1/D)."""
     for name, p in module.named_parameters():

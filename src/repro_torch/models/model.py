@@ -4,6 +4,13 @@ engine calls, and the causal LM loss the train step differentiates (port of
 ``repro/models/model.py`` for ATTN/LOCAL and MLA stacks with dense or MoE
 MLPs, the zamba2 hybrid, and the xLSTM and LSTM stacks).
 
+The modality stubs are the reference's: musicgen's tokens are (B, S, K)
+ids of K EnCodec codebooks, embedded by K summed tables, with (B, S, K, V)
+logits; paligemma's batch may carry ``prefix_embed`` (B, P, d), the stub's
+SigLIP patch embeddings, projected by ``vision_proj`` and put before the
+text under a bidirectional prefix mask, and its loss counts the text rows
+only.
+
 ``forward`` updates the caches it is given in place (dense KV rows, the
 recurrent layers' state entries, pool pages) and returns the logits; ``prefill`` and
 ``decode_step`` return ``(logits, caches)``, as the reference's do.  They
@@ -33,15 +40,18 @@ class Model(nn.Module):
     a dense MLP of ``prologue_d_ff`` where the config has one),
     ``shared.*`` (stack/shared, zamba2's one shared block), ``layers.<j>.*``
     (slot ``j % period_len`` of the stacked tree at period
-    ``j // period_len``), ``final_norm``, and ``head`` when embeddings are
-    untied.  A SHARED_ATTN slot of ``layers`` is the ``shared`` module
-    itself, so ``named_parameters`` lists its weights once, as
+    ``j // period_len``), ``final_norm``, ``head`` when embeddings are
+    untied, and ``vision_proj`` (d, d) where the config has a prefix.
+    ``table`` and ``head`` are (padded_vocab, d), or (K, padded_vocab, d)
+    for K codebooks.  A SHARED_ATTN slot of ``layers`` is the ``shared``
+    module itself, so ``named_parameters`` lists its weights once, as
     ``shared.*``."""
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
-        self.table = frozen(torch.empty(cfg.padded_vocab, cfg.d_model,
-                                        device=device, dtype=dtype))
+        table = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+        table += (cfg.padded_vocab, cfg.d_model)
+        self.table = frozen(torch.empty(table, device=device, dtype=dtype))
         self.prologue = nn.ModuleList(
             transformer.make_layer(cfg, kind, device=device, dtype=dtype,
                                    dense_ff=cfg.prologue_d_ff)
@@ -57,16 +67,23 @@ class Model(nn.Module):
         self.final_norm = frozen(torch.empty(cfg.d_model, device=device,
                                              dtype=dtype))
         self.head = None if cfg.tie_embeddings else frozen(
-            torch.empty(cfg.padded_vocab, cfg.d_model, device=device,
-                        dtype=dtype))
+            torch.empty(table, device=device, dtype=dtype))
+        self.vision_proj = frozen(torch.empty(
+            cfg.d_model, cfg.d_model, device=device, dtype=dtype)) \
+            if cfg.num_prefix_tokens else None
 
-    def forward(self, cfg, tokens, positions, *, caches=None,
+    def forward(self, cfg, tokens, positions, *, prefix=None, caches=None,
                 cache_index=None, decode=False, paged_view=None, aux=None,
                 **sentinel):
-        """``sentinel``: ``stack_forward``'s ``remat_policy``,
-        ``unroll_periods``, ``mi_periods`` and ``tag_block_out``; ``aux``:
-        a list the MoE layers append their auxiliary losses to."""
+        """``prefix``: the patch embeddings (B, P, d) put before the text's
+        embeddings, cast to the parameters' dtype and projected by
+        ``vision_proj`` (not scaled); ``sentinel``: ``stack_forward``'s
+        ``remat_policy``, ``unroll_periods``, ``mi_periods`` and
+        ``tag_block_out``; ``aux``: a list the MoE layers append their
+        auxiliary losses to."""
         x = embed(self.table, cfg, tokens)
+        if prefix is not None:
+            x = torch.cat([prefix.to(x.dtype) @ self.vision_proj, x], dim=1)
         x = transformer.stack_forward([*self.prologue, *self.layers], cfg,
                                       x, positions,
                                       caches=caches, cache_index=cache_index,
@@ -96,16 +113,22 @@ def init_params(cfg, seed: int = 0, device=None, *,
 def _logits(params, cfg, batch, *, caches=None, cache_index=None,
             decode: bool = False, positions=None, paged_view=None, aux=None,
             **sentinel):
-    """The body of ``forward`` and ``loss_fn``."""
+    """The body of ``forward`` and ``loss_fn``.  Outside decode a
+    ``batch["prefix_embed"]`` goes before the tokens (where the config has
+    a prefix), and the default positions run over both."""
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B, S = tokens.shape[:2]
+    prefix = batch.get("prefix_embed") \
+        if cfg.num_prefix_tokens and not decode else None
+    if prefix is not None:
+        S += prefix.shape[1]
     if positions is None:
         if decode:
             ci = torch.as_tensor(cache_index, device=tokens.device)
             positions = ci[:, None] if ci.dim() >= 1 else ci.expand(B, S)
         else:
             positions = torch.arange(S, device=tokens.device).expand(B, S)
-    return params(cfg, tokens, positions, caches=caches,
+    return params(cfg, tokens, positions, prefix=prefix, caches=caches,
                   cache_index=cache_index, decode=decode,
                   paged_view=paged_view, aux=aux, **sentinel)
 
@@ -113,7 +136,9 @@ def _logits(params, cfg, batch, *, caches=None, cache_index=None,
 @torch.no_grad()
 def forward(params, cfg, batch, *, caches=None, cache_index=None,
             decode: bool = False, positions=None, paged_view=None):
-    """Logits (B, S, padded_vocab) for ``batch["tokens"]`` (B, S).
+    """Logits (B, S, padded_vocab) for ``batch["tokens"]`` (B, S), or (B,
+    S, K, padded_vocab) for (B, S, K) codebook tokens; with a
+    ``batch["prefix_embed"]`` (B, P, d) the rows are P + S, prefix first.
 
     ``caches`` (one entry per layer: ``kvcache.init_cache`` or
     ``PagedKVPools.tree``) are updated in place.  decode=True: one token
@@ -129,9 +154,13 @@ def forward(params, cfg, batch, *, caches=None, cache_index=None,
 
 def loss_fn(params, cfg, batch, *, remat_policy=None, unroll_periods=False,
             mi_periods: int = 1, tag_block_out: bool = False):
-    """Causal LM loss: the mean NLL of ``batch["labels"]`` (B, S) under the
-    forward's logits, with the padded vocab entries masked out of the
-    softmax, plus the MoE layers' auxiliary losses.  It builds the
+    """Causal LM loss: the mean NLL of ``batch["labels"]`` (B, S), or (B,
+    S, K) for codebooks, under the forward's logits, with the padded vocab
+    entries masked out of the softmax, plus the MoE layers' auxiliary
+    losses.  A config with a prefix counts the rows after its
+    ``num_prefix_tokens`` only (labels (B, P + S), the prefix's rows
+    padding), as the reference's does whether or not the batch carries
+    ``prefix_embed``.  It builds the
     autograd graph when grad is enabled and the parameters require it; the
     keywords are the reference's (``core.offload.loss_kwargs`` gives them
     for a ``SentinelConfig``) and change memory, never the value.  A
@@ -152,14 +181,20 @@ def loss_fn(params, cfg, batch, *, remat_policy=None, unroll_periods=False,
         logits = logits + pad
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
-    return (logz - gold).mean() + sum(aux)
+    nll = logz - gold
+    if cfg.num_prefix_tokens:                 # the text suffix only
+        nll = nll[:, cfg.num_prefix_tokens:]
+    return nll.mean() + sum(aux)
 
 
 def prefill(params, cfg, batch, max_seq=None):
     """Run the whole prompt into a fresh dense cache of ``max_seq`` (default
-    S) rows.  Returns (last row's logits (B, V), caches)."""
+    S, or P + S with a ``prefix_embed``) rows.  Returns (last row's logits
+    (B, V) or (B, K, V), caches)."""
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B, S = tokens.shape[:2]
+    if "prefix_embed" in batch:
+        S += cfg.num_prefix_tokens
     caches = kvcache.init_cache(cfg, B, max_seq or S, param_dtype(cfg),
                                 tokens.device)
     logits = forward(params, cfg, batch, caches=caches)
@@ -167,8 +202,9 @@ def prefill(params, cfg, batch, max_seq=None):
 
 
 def decode_step(params, cfg, tokens, caches, cache_index):
-    """One token for every sequence: ``tokens`` (B, 1) at ``cache_index``
-    (a scalar or (B,)).  Returns (logits (B, V), caches)."""
+    """One token for every sequence: ``tokens`` (B, 1), or (B, 1, K) for
+    codebooks, at ``cache_index`` (a scalar or (B,)).  Returns (logits
+    (B, V) or (B, K, V), caches)."""
     logits = forward(params, cfg, {"tokens": tokens}, caches=caches,
                      cache_index=cache_index, decode=True)
     return logits[:, -1], caches

@@ -111,7 +111,7 @@ class DisaggregatedEngine(ContinuousBatcher):
         if self.pool is None:
             raise ValueError(
                 "DisaggregatedEngine needs the persistent pools layout: "
-                "set cfg.use_paged_decode")
+                "set cfg.use_paged_decode (and not cfg.prefix_lm)")
         pg = self.page_tokens
         self.device_hot_peak: dict = {}    # shard name -> peak hot pool bytes
         self._dev_note_version = None
@@ -126,7 +126,8 @@ class DisaggregatedEngine(ContinuousBatcher):
             names = ("prefill", "decode")
         else:
             if not all(cfg.layer_kind(l) in kvcache.ATTN_KINDS
-                       for l in range(cfg.num_layers)):
+                       for l in range(cfg.num_layers)) \
+                    or cfg.num_prefix_tokens or cfg.num_codebooks:
                 raise ValueError(
                     "multi-shard decode needs a pure-attention stack: every "
                     "layer's KV must live in the physical page pools (the "

@@ -28,6 +28,11 @@ reference selects them:
       are then written into the pools.
 
 Every other layout admits by one dense prefill spliced into its cache.
+A prefix-LM config (paligemma) never takes the pools: ``paged=True`` gives
+it paged-merged, whose decode stays on the dense core (K1 has no prefix
+mask), and the batcher takes its text-only prompts.  A codebook config
+(musicgen) is refused: the batcher decodes one token id a slot, and such
+streams serve through ``generate``.
 ``sim_migration_bytes`` counts every byte moved device->host, so the
 layouts' migration traffic compares directly; ``counters()`` exports the
 integer books the reference engine keeps; ``predict_pool_counters``
@@ -78,20 +83,22 @@ def make_prefill(cfg):
 
 
 def make_serve_step(cfg):
-    """(params, tokens (B, 1), caches, index) -> (logits, caches); the
-    caches are updated in place."""
+    """(params, tokens (B, 1) or (B, 1, K), caches, index) -> (logits,
+    caches); the caches are updated in place."""
     def step(params, tokens, caches, index):
         return model.decode_step(params, cfg, tokens, caches, index)
     return step
 
 
 def sample(logits, generator, temperature: float):
-    """Greedy (argmax) at temperature 0, else one draw per row from
-    softmax(logits / temperature) with ``generator``."""
+    """Greedy (argmax) at temperature 0, else one draw per row (per row
+    and codebook for (B, K, V) logits) from softmax(logits / temperature)
+    with ``generator``."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[..., 0]
+    return torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                             generator=generator).reshape(probs.shape[:-1])
 
 
 class ContinuousBatcher:
@@ -107,6 +114,13 @@ class ContinuousBatcher:
                  scfg: Optional[ServeConfig] = None, plan=None,
                  paged: bool = False, slot_tenants=None,
                  prefill_chunk_tokens: Optional[int] = None, device=None):
+        if cfg.num_codebooks:
+            # the reference's batcher has no codebook path either: it
+            # fails at submit (ROADMAP R10)
+            raise ValueError(
+                f"{cfg.name}: the batcher decodes one token id a slot; "
+                f"codebook streams ({cfg.num_codebooks} codes a step) serve "
+                "through generate")
         if paged and plan is None:
             raise ValueError("paged=True requires a plan (plan=...)")
         self.device = resolve(device)
@@ -152,7 +166,9 @@ class ContinuousBatcher:
             if max_seq % page:                 # buffer must tile in pages
                 page = next(p for p in range(page, 0, -1) if max_seq % p == 0)
             self.page_tokens = page
-            if cfg.use_paged_decode:
+            if cfg.use_paged_decode and not cfg.prefix_lm:
+                # K1 has no prefix mask: a prefix-LM config takes
+                # paged-merged, whose decode stays on the dense core
                 self.pool = kvcache.PagedKVPools(cfg, batch_slots, max_seq,
                                                  page, dt, self.device)
                 self.ptable = self.pool.table
@@ -198,11 +214,15 @@ class ContinuousBatcher:
         self.prefill_skipped_tokens = 0        # rows skipped via shared pages
         self.decode_steps = 0                  # steps that ran a decode
         # pool-direct prefill (chunks straight into the pages) needs every
-        # layer's cache to be a pool: pure-attention stacks only; any other
-        # stack on the pools admits by one dense prefill (_admit_dense)
-        self._pool_prefill_ok = self.pool is not None and all(
-            cfg.layer_kind(l) in kvcache.ATTN_KINDS
-            for l in range(cfg.num_layers))
+        # layer's cache to be a pool: pure-attention stacks only, and no
+        # modality stub; any other stack on the pools admits by one dense
+        # prefill (_admit_dense)
+        self._pool_prefill_ok = (
+            self.pool is not None
+            and all(cfg.layer_kind(l) in kvcache.ATTN_KINDS
+                    for l in range(cfg.num_layers))
+            and not cfg.prefix_lm and not cfg.num_prefix_tokens
+            and not cfg.num_codebooks)
         if self.prefill_chunk_tokens and not self._pool_prefill_ok:
             raise ValueError(
                 "prefill_chunk_tokens requires the persistent-pools layout "
@@ -1058,13 +1078,15 @@ def serve_trace_for(cfg, requests: Sequence[tuple], *, slots: int,
 
 def generate(params, cfg, prompts, num_tokens: int,
              scfg: Optional[ServeConfig] = None, generator=None):
-    """Prefill ``prompts["tokens"]`` (B, S) into a dense cache, then decode
-    ``num_tokens`` tokens per row in lockstep.  Returns (B, num_tokens).
-    Temperature sampling draws from ``generator`` (a ``torch.Generator``
-    on the prompts' device); JAX's random stream is not reproduced."""
+    """Prefill ``prompts["tokens"]`` (B, S), or (B, S, K) for codebooks,
+    after ``prompts["prefix_embed"]`` (B, P, d) where given, into a dense
+    cache, then decode ``num_tokens`` tokens per row in lockstep.  Returns
+    (B, num_tokens), or (B, num_tokens, K).  Temperature sampling draws
+    from ``generator`` (a ``torch.Generator`` on the prompts' device);
+    JAX's random stream is not reproduced."""
     scfg = scfg or ServeConfig()
-    tokens = prompts["tokens"]
-    S = tokens.shape[1]
+    S = prompts["tokens"].shape[1] + (
+        cfg.num_prefix_tokens if "prefix_embed" in prompts else 0)
     max_seq = max(scfg.max_seq, S + num_tokens)
     last, caches = model.prefill(params, cfg, prompts, max_seq=max_seq)
     step_fn = make_serve_step(cfg)

@@ -75,16 +75,16 @@ def both():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_fields_equal_the_reference(arch):
-    """Every field the port has equals the reference's, full and reduced;
-    the reference's fields the port leaves out (codebooks, prefix-LM) are
-    at their defaults for these archs."""
+    """Every field equals the reference's, full and reduced: the port has
+    every field of the reference's config, the codebook and prefix-LM
+    ones (at their defaults here) among them."""
     for cfg_t, cfg_j in ((get_config(arch), ref_config(arch)),
                          (get_config(arch).reduced(),
                           ref_config(arch).reduced())):
         t, j = dataclasses.asdict(cfg_t), dataclasses.asdict(cfg_j)
-        assert t == {k: j[k] for k in t}
-        assert {k: v for k, v in j.items() if k not in t} == {
-            "prefix_lm": False, "num_codebooks": 0, "num_prefix_tokens": 0}
+        assert t == j
+        assert (t["prefix_lm"], t["num_codebooks"],
+                t["num_prefix_tokens"]) == (False, 0, 0)
         assert cfg_t.padded_vocab == cfg_j.padded_vocab
         assert cfg_t.num_periods == cfg_j.num_periods
 

@@ -264,11 +264,13 @@ TRACE_REQS = [(300, 16, 0), (600, 16, None), (400, 16, 0)]
 PORT_COST = T.CostModel.from_dict(R.TPU_V5E_COST.to_dict())
 
 
-@pytest.mark.parametrize("arch", POOL_ARCHS + (MLA_ARCH,))
+@pytest.mark.parametrize("arch", POOL_ARCHS + (MLA_ARCH, "musicgen-medium",
+                                  "paligemma-3b"))
 def test_serve_trace_and_plan_equal_the_reference(arch):
     """The full config's ServeTrace (KV bytes a token from its cache
     geometry, weights from its dense dimensions) and the latency plan at
-    20 % of its peak KV, on the same cost model, serialised."""
+    20 % of its peak KV, on the same cost model, serialised; the modality
+    stubs' configs too."""
     kw = dict(slots=2, block_tokens=16, layer_group=8,
               shared_prefix_tokens=256)
     ns = {"ref": types.SimpleNamespace(engine=ref_engine, rt=R,

@@ -54,6 +54,8 @@ def test_port_modules_import_no_jax_and_no_reference():
         "deepseek_v2_lite")} <= set(mods)
     assert {"repro_torch.models.xlstm", "repro_torch.configs.xlstm_1p3b",
             "repro_torch.configs.lstm_ptb"} <= set(mods)
+    assert {"repro_torch.configs.musicgen_medium",
+            "repro_torch.configs.paligemma_3b"} <= set(mods)
     # importing builds and loads no kernel: nvcc runs at a kernel's first
     # call only (this machine may have none)
     code = ("import importlib, json, sys\n"
@@ -154,9 +156,10 @@ def test_unported_layouts_raise():
     """All four engine layouts are ported, and every layer kind of the
     reference with its cache (the MLA latent, the xLSTM and LSTM states
     among them); a layer kind the reference does not have raises when its
-    config is built, and the two archs whose fields are not ported yet
-    (musicgen-medium's codebooks, paligemma-3b's prefix-LM) raise naming
-    the ROADMAP item that ports them.  As in the reference, paged=True
+    config is built.  Every arch of the reference is registered: the list
+    of unported archs is gone, and musicgen-medium (codebooks) and
+    paligemma-3b (the prefix-LM) build, full and reduced, equal to the
+    reference's configs field for field.  As in the reference, paged=True
     needs a plan and a re-plan applies to the pools only; an incremental
     re-plan applies only against the plan it was diffed from."""
     cfg = get_config("smollm-360m").reduced()
@@ -164,9 +167,15 @@ def test_unported_layouts_raise():
     dataclasses.replace(cfg, period=("mlstm", "slstm"))
     with pytest.raises(ValueError, match="unknown layer kinds"):
         dataclasses.replace(cfg, period=("mlstm", "conv"))
+    from repro.configs import base as ref_base
+    from repro_torch.configs import base, list_archs
+    assert not hasattr(base, "UNPORTED_ARCHS")
+    assert list_archs() == ref_base.list_archs()
     for arch in ("musicgen-medium", "paligemma-3b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-            get_config(arch)
+        for got, ref in ((get_config(arch), ref_base.get_config(arch)),
+                         (get_config(arch).reduced(),
+                          ref_base.get_config(arch).reduced())):
+            assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     with pytest.raises(ValueError, match="requires a plan"):
         ContinuousBatcher(params, cfg, 2, 32, paged=True, device="cpu")
     plan = PlacementPlan(page_tokens=4)

@@ -255,16 +255,16 @@ def test_slstm_matches_reference_and_is_recurrent():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_fields_equal_the_reference(arch):
-    """Every field the port has equals the reference's, full and reduced
-    (the reference's codebook and prefix-LM fields are at their
-    defaults)."""
+    """Every field equals the reference's, full and reduced: the port has
+    every field of the reference's config, the codebook and prefix-LM
+    ones (at their defaults here) among them."""
     for cfg_t, cfg_j in ((get_config(arch), ref_config(arch)),
                          (get_config(arch).reduced(),
                           ref_config(arch).reduced())):
         t, j = dataclasses.asdict(cfg_t), dataclasses.asdict(cfg_j)
-        assert t == {k: j[k] for k in t}
-        assert {k: v for k, v in j.items() if k not in t} == {
-            "prefix_lm": False, "num_codebooks": 0, "num_prefix_tokens": 0}
+        assert t == j
+        assert (t["prefix_lm"], t["num_codebooks"],
+                t["num_prefix_tokens"]) == (False, 0, 0)
         assert cfg_t.padded_vocab == cfg_j.padded_vocab
         assert cfg_t.num_periods == cfg_j.num_periods
 
