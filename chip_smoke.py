@@ -122,11 +122,14 @@ Phases, each printing its own lines:
          moved off the card; step time, tokens/s, peak memory and
          device-busy share of each mode, offload's time and memory over
          full's;
-     5d. zamba2-7b at full width and depth (bf16, B 1 x S 4096), offload at
-         the planned MI with the AdamW moments in pinned host memory, 2
-         steps on a repeated batch: the loss finite and falling, K4 65
-         times a forward and 64 a recompute; step time, adamw.update's
-         time, peak memory, pinned host bytes;
+     5d. zamba2-7b at full width on 41 of its 81 layers (its Mamba
+         prologue and 8 of 16 periods; cut for the script's time limit
+         since phases 9 and 10 came), bf16, B 1 x S 4096, offload at the
+         planned MI with the AdamW moments in pinned host memory, 2 steps
+         on a repeated batch: the loss finite and falling, K4 once a
+         Mamba layer a forward and once a period's Mamba layer a
+         recompute; step time, adamw.update's time, peak memory, pinned
+         host bytes;
   6. the attention families (ROADMAP item 9), each loaded alone and freed
      before the next, bf16 from seed 0 at full width and depth, 8 slots,
      page 16, 32 decode tokens a request:
@@ -135,14 +138,16 @@ Phases, each printing its own lines:
          chunk 0 and on concat): every forward's logits within atol 1e-4,
          tokens and integer counters identical;
      6b. gemma3-12b on the pools (2048-token slots, chunk 256, hot windows
-         256-480), 12 prompts of 300-1800 tokens, four over 1024 and four
-         sharing a 256-token prefix: tiered == all-hot tokens, K1 ==
-         decode steps x 48 with its LOCAL window and without, counters ==
-         predict_pool_counters;
-     6c. gemma2-2b on the pools (8192-token slots), 8 prompts of 500-6000
-         tokens, two over 4096: the same gates, K1 == steps x 26 with
-         softcap 50 in every launch, every logit within +-30; then the
-         serving CLI at full width (--arch gemma2-2b -n 16), exit 0;
+         256-480), at half depth (24 of 48 layers; cut for the script's
+         time limit since phases 9 and 10 came), 12 prompts of 300-1800
+         tokens, four over 1024 and four sharing a 256-token prefix:
+         tiered == all-hot tokens, K1 == decode steps x 24 with its LOCAL
+         window and without, counters == predict_pool_counters;
+     6c. gemma2-2b on the pools (8192-token slots), at half depth (12 of
+         26 layers, the same cut), 8 prompts of 500-6000 tokens, two over
+         4096: the same gates, K1 == steps x 12 with softcap 50 in every
+         launch, every logit within +-30; then the serving CLI at full
+         width and depth (--arch gemma2-2b -n 16), exit 0;
      6d. internlm2-1.8b and granite-moe-3b (40 experts, top 8) on the
          pools (1024-token slots) over phase 3's requests, at half depth
          (12 and 16 layers; cut for the script's time limit): the same
@@ -150,8 +155,9 @@ Phases, each printing its own lines:
      6e. deepseek-v2-lite (MLA, 64 experts top 6 and 2 shared, a dense
          first layer) on all-HBM and concat (a global 256-token hot
          window: the latent's cold prefix in pinned host memory), 12
-         prompts of 100-500 tokens: identical tokens, no kernel launch,
-         the latent 27 x 576 x 2 bytes a token;
+         prompts of 100-500 tokens, at half depth (14 of 27 layers, the
+         same cut as 6b): identical tokens, no kernel launch, the latent
+         14 x 576 x 2 bytes a token;
      each run's prefill ms per admission (a chunk on the pools), decode
      tokens/s, pure-decode step, peak device memory and a profile of
      decode steps;
@@ -185,9 +191,11 @@ Phases, each printing its own lines:
          on all-HBM, concat and paged-merged (a prompt shorter than the
          prefix among five: ROADMAP R9), tokens and counters == the CPU's,
          tiered == all-HBM, no pools;
-     8b. at full width and depth (bf16, seed 0): musicgen-medium's
-         generate at B 8 on 256 frames of 4 codes, 32 tokens, and the
-         serving CLI; paligemma-3b's generate at B 4 on 256 patch
+     8b. at full width and half depth (24 of 48 and 9 of 18 layers; cut
+         for the script's time limit since phases 9 and 10 came), bf16,
+         seed 0: musicgen-medium's generate at B 8 on 256 frames of 4
+         codes, 32 tokens, and the serving CLI at full depth;
+         paligemma-3b's generate at B 4 on 256 patch
          embeddings and 64 text tokens, 32 tokens, then its batcher (8
          slots of 2048, phase 3's 12 requests) on all-HBM, concat and
          paged-merged with use_paged_decode set: identical tokens, no
@@ -199,7 +207,38 @@ Phases, each printing its own lines:
          step's meta-device profile, the moments in pinned host memory:
          offload's loss and gradient norm == full's, its carries ==
          estimate_offload_traffic; step ms, peak and carry bytes;
-  9. the attention entry points ops.flash_attention (K2) and
+  9. MoE under Sentinel's blocked modes (ROADMAP item 12), which runs none
+     of the four kernels (every kernel's launches counted 0 on each path):
+     9a. granite-moe-3b and deepseek-v2-lite reduced in fp32 on the card
+         against the CPU: the loss (with every MoE layer's aux) and every
+         gradient in the four modes at MI 1 and 2, each mode == full,
+         offload's bytes == estimate_offload_traffic;
+     9b. granite-moe-3b at full width and depth (32 layers, 3.30 B
+         parameters), bf16 from seed 0, B 1 x S 1024, two steps in each
+         of the four modes at the MI planned on H100_COST, the moments
+         (26.4 GB) in pinned host memory: losses finite and falling,
+         every mode == full, offload's carries == the estimate;
+     9c. deepseek-v2-lite at full width on its dense first layer and 8 of
+         its 26 MoE layers (5.18 B parameters: all 27 layers' moments,
+         about 126 GB, pass the machine's 96 GiB of host memory), the same
+         steps and gates;
+  10. the disaggregated engine on the attention families (ROADMAP item
+     13):
+     10a. each family reduced in fp32, one shard (all five) and two
+         shards aliased on the device (the four GQA families, slots
+         re-homed mid-run) on the card and on the CPU: tokens and ledger
+         == the CPU's, tokens == a colocated all-hot run's, K1 == shard
+         forwards x attention layers; deepseek refused at two shards;
+     10b. each family at full width on half its layers (the cut for the
+         script's time limit), bf16 from seed 0, 12 prompts of 300-512
+         tokens on 8 slots of 1024, whole-prompt admission: the colocated
+         pools engine (admitting densely), one shard (tokens ==
+         colocated, ledger == predict_pool_counters(dense_admit=True), K1
+         == decode steps x attention layers) and, for the four GQA
+         families, two shards aliased on the card (ledger ==
+         predict_pool_counters, K1 == shard forwards x attention layers,
+         the tokens' agreement with one shard printed);
+  11. the attention entry points ops.flash_attention (K2) and
      ops.decode_attention (K3), which no model path of the reference calls:
      - both kernels against their plain versions over the reference's
        sweeps in f32 and bf16, window/softcap cases, Sq < Skv, ragged Sq,
@@ -1582,7 +1621,9 @@ def check_families(card):
     card against the CPU; 6b gemma3-12b, 6c gemma2-2b (and the serving CLI
     on it), 6d internlm2-1.8b and granite-moe-3b on the pools, 6e
     deepseek-v2-lite on all-HBM and concat, each at full width and depth
-    (6d at half depth).  Returns K1's launches by path."""
+    (6b, 6c and 6d at half depth, for the script's clock since phases 9
+    and 10 came; the CLI at full depth).  Returns K1's launches by
+    path."""
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
     k1 = {"reduced families, card == CPU (phase 6a)": check_families_small()}
@@ -1594,7 +1635,8 @@ def check_families(card):
     g3 = [g3[i] for i in rng.permutation(12)]
     launches, seen, _, _ = serve_family(
         "gemma3-12b", card, lengths=g3, seed=22, max_seq=GEMMA3_MAX_SEQ,
-        windows=[256 + 32 * s for s in range(SLOTS)])
+        windows=[256 + 32 * s for s in range(SLOTS)],
+        layers=_half_depth(get_config("gemma3-12b")).num_layers)
     if set(seen) != {(0, 0.0), (1024, 0.0)}:
         raise AssertionError(f"gemma3-12b: K1 took {seen}")
     k1["gemma3-12b serving, pools (phase 6b)"] = launches
@@ -1605,6 +1647,7 @@ def check_families(card):
     launches, seen, biggest, _ = serve_family(
         "gemma2-2b", card, lengths=g2, seed=23, max_seq=GEMMA2_MAX_SEQ,
         windows=[512 + 64 * s for s in range(SLOTS)],
+        layers=_half_depth(get_config("gemma2-2b")).num_layers,
         cli=lambda: cli.update(line=run_serving_cli("gemma2-2b", 16)))
     if set(seen) != {(0, 50.0), (4096, 50.0)}:
         raise AssertionError(f"gemma2-2b: K1 took {seen}, not softcap 50 "
@@ -1628,18 +1671,20 @@ def check_families(card):
             layers=get_config(arch).num_layers // 2)
         k1[f"{arch} serving, pools (phase 6d)"] = launches
     # 6e: 12 prompts of 100-500 tokens (one dense admission prefill each,
-    # within the MoE group rule), the latent tiered to pinned host memory
+    # within the MoE group rule), the latent tiered to pinned host memory,
+    # at half depth since phases 9 and 10 came
+    n_ds = _half_depth(get_config("deepseek-v2-lite-16b")).num_layers
     launches, _, _, row_bytes = serve_family(
         "deepseek-v2-lite-16b", card,
         lengths=[int(n) for n in rng.integers(100, 501, 12)], seed=25,
         max_seq=MAX_SEQ, windows=[256], layouts=("all-HBM", "concat"),
-        shared=0)
+        shared=0, layers=n_ds)
     _assert_no_launch("deepseek-v2-lite serving")
-    if launches != 0 or row_bytes != 27 * 576 * 2:
+    if launches != 0 or row_bytes != n_ds * 576 * 2:
         raise AssertionError(f"deepseek: {launches} K1 launches, "
                              f"{row_bytes} latent bytes a token")
     print(f"deepseek-v2-lite check: concat == all-HBM tokens; no kernel "
-          f"launch; latent {row_bytes:.0f} B a token == 27 x 576 x 2",
+          f"launch; latent {row_bytes:.0f} B a token == {n_ds} x 576 x 2",
           flush=True)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
     return k1
@@ -2540,17 +2585,16 @@ def generate_full(params, cfg, prompts, decode, card, what, dev="cuda"):
 
 
 def run_musicgen_full(card, note, dev="cuda"):
-    """Phase 8b, musicgen-medium at full width and depth (48 layers,
-    d_model 1536, 24 heads of 64, 4 codebooks of 2048; 1.837 B
-    parameters), bf16 from seed 0: generate at B 8 on prompts of 256
-    frames of 4 codes, 32 greedy tokens of 4 codes; then the serving CLI
-    at full width (-n 32)."""
+    """Phase 8b, musicgen-medium at full width (d_model 1536, 24 heads of
+    64, 4 codebooks of 2048) on 24 of its 48 layers, bf16 from seed 0:
+    generate at B 8 on prompts of 256 frames of 4 codes, 32 greedy tokens
+    of 4 codes; then the serving CLI at full width and depth (-n 32)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models.model import init_params
     t0 = time.perf_counter()
-    cfg = get_config("musicgen-medium")
+    cfg = _half_depth(get_config("musicgen-medium"))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2580,9 +2624,9 @@ def run_musicgen_full(card, note, dev="cuda"):
 
 
 def run_paligemma_full(card, note, dev="cuda"):
-    """Phase 8b, paligemma-3b at full width and depth (18 layers, d_model
-    2048, 8 query heads and 1 KV head of 256, vocab 257,216; 2.513 B
-    parameters), bf16 from seed 0: generate at B 4 on 256 patch
+    """Phase 8b, paligemma-3b at full width (d_model 2048, 8 query heads and
+    1 KV head of 256, vocab 257,216) on 9 of its 18 layers, bf16 from
+    seed 0: generate at B 4 on 256 patch
     embeddings and 64 text tokens, 32 greedy tokens; then the batcher, 8
     slots of 2048 tokens, phase 3's 12 text prompts (100-700 tokens, four
     sharing a 256-token prefix) on all-HBM, concat (a global hot window of
@@ -2594,7 +2638,7 @@ def run_paligemma_full(card, note, dev="cuda"):
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     t0 = time.perf_counter()
-    cfg = get_config("paligemma-3b")
+    cfg = _half_depth(get_config("paligemma-3b"))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2717,6 +2761,369 @@ def check_modality(card):
     print(f"phase 8 took {time.perf_counter() - t0:.1f} s; K1-K4 launches "
           f"on its paths: {paths}", flush=True)
     return paths
+
+
+# ------------------------------ MoE under Sentinel's blocked modes (phase 9) --
+
+# phase 9: granite-moe-3b and deepseek-v2-lite train in every Sentinel mode
+# (ROADMAP item 12); none of K1-K4 is on a training path
+MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
+MOE_TRAIN = (1, 1024)                 # B x S of phases 9b and 9c
+MOE_TRAIN_STEPS = 2
+# 9c's cut: deepseek-v2-lite's dense first layer and 8 of its 26 MoE
+# layers (5.18 B parameters, 41.4 GB of f32 moments): all 27 layers'
+# moments, about 126 GB, pass the machine's 96 GiB of host memory
+DEEPSEEK_TRAIN_LAYERS = 1 + 8
+
+
+def check_moe_train_small(note):
+    """Phase 9a: granite-moe-3b and deepseek-v2-lite reduced, fp32,
+    parameters from seed 0 on the CPU and the same values on the card: the
+    loss (the NLL plus every MoE layer's aux) and every gradient on the
+    card == on the CPU, in all four modes at MI 1 and 2; each mode's loss
+    and gradient norm on the card == full's (MODE_LOSS_RTOL,
+    MODE_GNORM_RTOL); offload's bytes == estimate_offload_traffic."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import offload
+    from repro_torch.core.profiler import TraceProfile
+    from repro_torch.models.model import init_params, loss_fn
+    worst, runs = 0.0, 0
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch).reduced()
+        cpu = init_params(cfg, seed=0, device="cpu", requires_grad=True)
+        gpu = copy.deepcopy(cpu).to("cuda")
+        toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 17))
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+                 "labels": torch.from_numpy(toks[:, 1:])}
+        prof = TraceProfile(num_periods=cfg.num_periods, num_steps=0)
+        carry = 2 * 16 * cfg.d_model * 4
+        full = None
+        for mode in MODES:
+            for mi in (1, 2):
+                scfg = offload.SentinelConfig(mode=mode, mi_periods=mi)
+                got = {}
+                for dev, p in (("cuda", gpu), ("cpu", cpu)):
+                    offload.reset_traffic()
+                    loss = loss_fn(p, cfg, {k: v.to(dev) for k, v in
+                                            batch.items()},
+                                   **offload.loss_kwargs(scfg))
+                    grads = torch.autograd.grad(loss, list(p.parameters()))
+                    gn = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                              for g in grads)))
+                    got[dev] = (loss.detach().cpu(), [g.cpu() for g in grads],
+                                dict(offload.traffic), gn)
+                what = f"{arch} reduced {mode} mi {mi}"
+                torch.testing.assert_close(
+                    got["cuda"][0], got["cpu"][0], **SMALL_LOSS_TOL,
+                    msg=lambda m: f"{what} loss: {m}")
+                for a, b in zip(got["cuda"][1], got["cpu"][1]):
+                    torch.testing.assert_close(
+                        a, b, **SMALL_GRAD_TOL,
+                        msg=lambda m: f"{what} grad: {m}")
+                    worst = max(worst, float((a - b).abs().max()))
+                est = offload.estimate_offload_traffic(prof, mi, carry)
+                want = est["bytes_offloaded"] if mode == "offload" else 0
+                blocks = est["blocks"] if mode == "offload" else 0
+                tr = got["cuda"][2]
+                if tr["d2h"] + tr["h2d"] != want or \
+                        tr["out"] != tr["in"] or tr["in"] != blocks:
+                    raise AssertionError(f"{what}: offloaded {tr}, estimate "
+                                         f"{want} B in {blocks} carries")
+                l, g = float(got["cuda"][0]), got["cuda"][3]
+                full = full or (l, g)
+                if not (abs(l - full[0]) <= MODE_LOSS_RTOL * abs(full[0])
+                        and abs(g - full[1]) <= MODE_GNORM_RTOL * full[1]):
+                    raise AssertionError(f"{what}: loss {l}, gradient norm "
+                                         f"{g}; full's {full}")
+                runs += 1
+    note("MoE reduced training")
+    print(f"small MoE training check: {runs} runs (granite-moe-3b and "
+          f"deepseek-v2-lite reduced, fp32, 4 modes x MI 1 and 2): loss with "
+          f"the aux and every gradient on the card == on the CPU (loss atol "
+          f"{SMALL_LOSS_TOL['atol']:g}; gradients atol "
+          f"{SMALL_GRAD_TOL['atol']:g} + rtol {SMALL_GRAD_TOL['rtol']:g}), "
+          f"max_abs_err {worst:.3e}; every mode == full on the card; offload "
+          f"bytes == estimate_offload_traffic", flush=True)
+
+
+def train_moe_full(card, note):
+    """Phases 9b and 9c: granite-moe-3b at full width and depth (32 layers,
+    3.30 B parameters) and deepseek-v2-lite at full width on
+    DEEPSEEK_TRAIN_LAYERS layers, bf16 from seed 0, B 1 x S 1024 from
+    make_batch, MOE_TRAIN_STEPS steps in each of the four modes from one
+    state at the MI runtime.plan picks on H100_COST, the AdamW moments in
+    pinned host memory: every loss finite and falling on the repeated
+    batch, each mode's losses and gradient norms == full's, offload's
+    carries == estimate_offload_traffic (train_recurrent's gates)."""
+    from repro_torch.configs import get_config
+    B, S = MOE_TRAIN
+    for arch, layers in (("granite-moe-3b-a800m", None),
+                         ("deepseek-v2-lite-16b", DEEPSEEK_TRAIN_LAYERS)):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
+        release_pinned()
+        prof, _, scfg = plan_step(cfg, B, S, card, offload_opt_state=True)
+        res = train_recurrent(cfg, card, note, B=B, S=S,
+                              steps=MOE_TRAIN_STEPS, scfg=scfg, prof=prof,
+                              modes=MODES)
+        for mode, r in res.items():
+            if not r["losses"][-1] < r["losses"][0]:
+                raise AssertionError(f"{arch} {mode}: losses {r['losses']} "
+                                     f"do not fall")
+        f, o = res["full"], res["offload"]
+        print(f"{arch} train check ({cfg.num_layers} layers): losses fall in "
+              f"every mode, and every mode == full (loss and gradient "
+              f"norm); full {f['ms']:.1f} ms at {f['peak'] / 1e9:.2f} GB, "
+              f"offload {o['ms']:.1f} ms at {o['peak'] / 1e9:.2f} GB "
+              f"({o['ms'] / f['ms']:.3f} of full's step, "
+              f"{o['peak'] / f['peak']:.3f} of its peak), {o['d2h']} B of "
+              f"carries a step; remat {res['remat']['ms']:.1f} ms, save_hbm "
+              f"{res['save_hbm']['ms']:.1f} ms; took "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
+def check_moe_train(card):
+    """Phase 9: 9a, 9b and 9c.  Returns each kernel's launches on each
+    path (all 0)."""
+    t0 = time.perf_counter()
+    paths = _no_kernel_paths((
+        ("granite-moe-3b and deepseek-v2-lite reduced training (phase 9a)",
+         check_moe_train_small),
+        ("granite-moe-3b and deepseek-v2-lite training, four modes "
+         "(phases 9b, 9c)", lambda note: train_moe_full(card, note))))
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s; K1-K4 launches "
+          f"on its paths: {paths}", flush=True)
+    return paths
+
+
+# --------------------- the disaggregated engine on the families (phase 10) --
+
+def _other_kernels_idle(what):
+    """K2, K3 and K4 launched nothing since the last reset_counts."""
+    from repro_torch.kernels import decode_attention as k3
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import ssd as k4
+    if k2.flash_attention.launches or k3.decode_attention.launches or \
+            k4.ssd.launches:
+        raise AssertionError(f"{what}: K2, K3 or K4 launched")
+
+
+def _half_depth(cfg):
+    """``cfg`` on its prologue and half its period layers, a whole number
+    of periods."""
+    n = cfg.num_layers - len(cfg.prologue)
+    periods = max(1, n // 2 // cfg.period_len)
+    return dataclasses.replace(
+        cfg, num_layers=len(cfg.prologue) + periods * cfg.period_len)
+
+
+def check_disagg_families_small():
+    """Phase 10a: each family reduced in fp32, the disaggregated engine on
+    the card and on the CPU from the same parameters (4 slots of 32 tokens,
+    page 4, six requests sharing a 9-token prefix): one shard for all five,
+    and two shards aliased on each device for the four GQA families, slots
+    re-homed [0,0,1,1] -> [1,0,1,0] before step 3.  The card's tokens and
+    ledger == the CPU's, the tokens == a colocated all-hot run's on the
+    card, K1 once a layer per shard forward; deepseek is refused at two
+    shards on the card as on the CPU.  Returns K1's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.plan import PlacementPlan
+    total = 0
+    for arch in FAMILIES:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  use_paged_decode=True)
+        params_cpu = init_params(cfg, seed=0, device="cpu")
+        params_gpu = copy.deepcopy(params_cpu).to("cuda")
+        rng = np.random.default_rng(3)
+        pref = rng.integers(0, cfg.vocab_size, 9)
+        reqs = [(np.concatenate([pref, rng.integers(0, cfg.vocab_size,
+                                                    n - 9)]), "sys")
+                for n in (12, 13, 11, 12, 14, 12)]
+        plan = PlacementPlan(hot_window=16, page_tokens=4,
+                             slot_hot_windows=[8] * 4,
+                             slot_devices=[0, 0, 1, 1])
+        plan2 = dataclasses.replace(plan, slot_hot_windows=[4, 8, 4, 8],
+                                    slot_devices=[1, 0, 1, 0])
+        one_plan = dataclasses.replace(plan, slot_devices=None)
+        run = dict(max_seq=32, slots=4, decode=6)
+        n_k1 = _n_k1_layers(cfg)
+        col = serve(params_gpu, cfg, dataclasses.replace(
+            one_plan, hot_window=32, slot_hot_windows=None), reqs,
+            device="cuda", **run)
+        cases = [("one shard", one_plan, 1, ())]
+        if n_k1 == cfg.num_layers:
+            cases.append(("two shards", plan, 4, [(3, plan2)]))
+        else:
+            for dev in ("cuda", "cpu"):
+                try:
+                    serve(params_gpu if dev == "cuda" else params_cpu, cfg,
+                          plan, reqs, device=dev, disagg=True,
+                          devices=[torch.device(dev)] * 4, **run)
+                except ValueError as e:
+                    if "pure-attention stack" not in str(e):
+                        raise
+                else:
+                    raise AssertionError(f"{arch}: two shards not refused")
+        for name, p, n_dev, schedule in cases:
+            got, forwards = {}, []
+            for dev, prm in (("cuda", params_gpu), ("cpu", params_cpu)):
+                got[dev] = serve(
+                    prm, cfg, p, reqs, device=dev, disagg=True,
+                    devices=[torch.device(dev)] * n_dev, schedule=schedule,
+                    on_engine=(lambda e: _count_shard_forwards(e, forwards))
+                    if dev == "cuda" else None, **run)
+            g, c = got["cuda"], got["cpu"]
+            if g["out"] != c["out"] or _ledger(g["b"]) != _ledger(c["b"]):
+                raise AssertionError(f"disagg reduced {arch} {name}: card "
+                                     f"tokens or ledger differ from the "
+                                     f"CPU's")
+            if g["out"] != col["out"]:
+                raise AssertionError(f"disagg reduced {arch} {name}: tokens "
+                                     f"differ from the colocated all-hot "
+                                     f"run")
+            if g["k1"] != sum(forwards) * n_k1:
+                raise AssertionError(f"disagg reduced {arch} {name}: "
+                                     f"{g['k1']} K1 launches for "
+                                     f"{sum(forwards)} shard forwards x "
+                                     f"{n_k1}")
+            g["b"].mesh_table.check()
+            _other_kernels_idle(f"disagg reduced {arch} {name}")
+            total += g["k1"]
+            print(f"disagg reduced check {arch} ({name}): fp32 tokens and "
+                  f"ledger on the card == on the CPU; tokens == colocated "
+                  f"all-hot; K1 {g['k1']} == {sum(forwards)} shard forwards "
+                  f"x {n_k1}", flush=True)
+    return total
+
+
+def disagg_family(arch, card):
+    """Phase 10b, one family at full width on half its layers (bf16, seed
+    0), 12 prompts of 300-512 tokens (four sharing a 256-token prefix; a
+    whole MoE prompt must fill whole 512-token dispatch groups, as in the
+    reference) on 8 slots of 1024 tokens, page 16, hot windows 128-240,
+    whole-prompt admission (chunk 0): the colocated pools engine admitting
+    densely, the one-shard engine (tokens == colocated, ledger ==
+    predict_pool_counters(dense_admit=True), K1 == decode steps x
+    attention layers) and, for a GQA family, two shards aliased on the
+    card (slot_devices alternating: ledger == predict_pool_counters, K1 ==
+    shard forwards x attention layers; its tokens' agreement with the
+    one-shard run printed, not gated, as phase 3d-2's).  Returns K1's
+    launches on the one- and two-shard runs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.plan import PlacementPlan
+    from repro_torch.serve.engine import predict_pool_counters
+    t0 = time.perf_counter()
+    cfg = _half_depth(dataclasses.replace(get_config(arch),
+                                          use_paged_decode=True))
+    params = init_params(cfg, seed=0)
+    lengths = np.random.default_rng(26).integers(300, 513, 12)
+    reqs = family_requests(cfg.vocab_size, lengths, seed=27)
+    preq = [(tuple(int(x) for x in t), DECODE, None, k) for t, k in reqs]
+    plan = PlacementPlan(hot_window=192, page_tokens=PAGE,
+                         slot_hot_windows=[128 + 16 * s
+                                           for s in range(SLOTS)])
+    run = dict(max_seq=MAX_SEQ, slots=SLOTS, decode=DECODE, device="cuda")
+    n_k1 = _n_k1_layers(cfg)
+    # the colocated engine admits whole prompts by one dense prefill, as
+    # the disaggregated one does: pool-direct admission computes the same
+    # KV in other kernels, whose bf16 roundings moved internlm2's tokens
+    col = serve(params, cfg, plan, reqs,
+                on_engine=lambda b: setattr(b, "_pool_prefill_ok", False),
+                **run)
+    one = serve(params, cfg, plan, reqs, disagg=True,
+                devices=[torch.device("cuda", 0)], **run)
+    _other_kernels_idle(f"{arch} disagg one shard")
+    b1 = one["b"]
+    common = dict(slots=SLOTS, max_seq=MAX_SEQ, page_tokens=b1.page_tokens,
+                  row_bytes=b1._row_bytes, dense_admit=True)
+    pred = predict_pool_counters(preq, plan, **common)
+    b1.mesh_table.check()
+    if one["out"] != col["out"]:
+        same = sum(a == b for o, p in zip(one["seq"], col["seq"])
+                   for a, b in zip(o, p))
+        raise AssertionError(f"{arch} disagg one shard: tokens differ from "
+                             f"the colocated pools engine ({same} agree)")
+    if _ledger(b1) != _pred_ledger(pred) or b1.counters()["repacks"]:
+        raise AssertionError(f"{arch} disagg one shard: ledger "
+                             f"{_ledger(b1)} != predicted "
+                             f"{_pred_ledger(pred)}")
+    steps = b1.decode_steps
+    if one["k1"] != steps * n_k1:
+        raise AssertionError(f"{arch} disagg one shard: {one['k1']} K1 "
+                             f"launches for {steps} decode steps x {n_k1}")
+    print(f"{arch} disagg one shard ({cfg.num_layers} layers): tokens == "
+          f"colocated pools; ledger == predict_pool_counters(dense_admit="
+          f"True) (xdev {b1.xdev_migration_bytes:.0f} B, "
+          f"sim_migration_bytes {b1.sim_migration_bytes:.0f}); K1 "
+          f"{one['k1']} = {steps} decode steps x {n_k1}; mean pure decode "
+          f"step {_step_ms(one):.3f} ms (colocated {_step_ms(col):.3f}) "
+          f"[{card}]", flush=True)
+    two_k1 = None
+    if n_k1 == cfg.num_layers:
+        plan2 = dataclasses.replace(plan, slot_devices=[s % 2 for s in
+                                                        range(SLOTS)])
+        forwards = []
+        two = serve(params, cfg, plan2, reqs, disagg=True,
+                    devices=[torch.device("cuda", 0)] * 4,
+                    on_engine=lambda e: _count_shard_forwards(e, forwards),
+                    **run)
+        _other_kernels_idle(f"{arch} disagg two shards")
+        b2 = two["b"]
+        pred2 = predict_pool_counters(preq, plan2, **common)
+        b2.mesh_table.check()
+        if _ledger(b2) != _pred_ledger(pred2) or b2.counters()["repacks"]:
+            raise AssertionError(f"{arch} disagg two shards: ledger "
+                                 f"{_ledger(b2)} != predicted "
+                                 f"{_pred_ledger(pred2)}")
+        if len(forwards) != b2.decode_steps or \
+                two["k1"] != sum(forwards) * n_k1:
+            raise AssertionError(f"{arch} disagg two shards: {two['k1']} K1 "
+                                 f"launches for {sum(forwards)} shard "
+                                 f"forwards x {n_k1}")
+        if len(two["out"]) != len(reqs) or \
+                any(len(o) != DECODE for o in two["out"]):
+            raise AssertionError(f"{arch} disagg two shards: malformed "
+                                 f"outputs")
+        same = sum(a == b for o, p in zip(two["seq"], one["seq"])
+                   for a, b in zip(o, p))
+        edges = {f"{s}->{d}": v for (s, d), v in
+                 b2.edge_migration_bytes.items()}
+        print(f"{arch} disagg two shards: ledger == predict_pool_counters "
+              f"(edges {edges}, hot peaks {b2.counters()['device_hot_peak']}"
+              f"); K1 {two['k1']} = {sum(forwards)} shard forwards x {n_k1}; "
+              f"{same} of {sum(len(o) for o in one['seq'])} tokens agree "
+              f"with the one-shard run (not gated, as phase 3d-2); mean pure "
+              f"decode step {_step_ms(two):.3f} ms, "
+              f"{_step_ms(two) / _step_ms(one):.3f} times one shard's "
+              f"[{card}]", flush=True)
+        two_k1 = two["k1"]
+    one_k1 = one["k1"]
+    del params, col, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{arch} phase 10b took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return one_k1, two_k1
+
+
+def check_disagg_families(card):
+    """Phase 10: 10a and 10b.  Returns K1's launches by path."""
+    t0 = time.perf_counter()
+    k1 = {"reduced families disaggregated, card == CPU (phase 10a)":
+          check_disagg_families_small()}
+    for arch in FAMILIES:
+        one, two = disagg_family(arch, card)
+        k1[f"{arch} disaggregated, one shard (phase 10b)"] = one
+        if two is not None:
+            k1[f"{arch} disaggregated, two aliased shards (phase 10b)"] = two
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return k1
 
 
 # ---------------------------------------------------------------- timing ----
@@ -4605,11 +5012,13 @@ def train_smollm(card):
 
 
 def train_zamba(card):
-    """Phase 5d: zamba2-7b at full width and depth (81 layers), bf16,
-    B 1 x S 4096, mode offload at the planned MI with the AdamW moments in
-    pinned host memory, 2 steps on one repeated batch.  Fails unless the
-    loss is finite and falls, and K4 ran 65 times in each forward and 64 in
-    each recompute.  Prints the step time, peak device memory, the pinned
+    """Phase 5d: zamba2-7b at full width on half its depth (its Mamba
+    prologue layer and 8 of its 16 periods, 41 layers, for the script's
+    clock since phases 9 and 10 came), bf16, B 1 x S 4096, mode offload
+    at the planned MI with the AdamW moments in pinned host memory, 2
+    steps on one repeated batch.  Fails unless the loss is finite and
+    falls, and K4 ran once a Mamba layer in each forward and once a
+    period's Mamba layer in each recompute.  Prints the step time, peak device memory, the pinned
     host bytes (the carries a step, the moments), adamw.update's time and
     a profile of a third step.  Returns the K4 launches."""
     import torch
@@ -4620,7 +5029,7 @@ def train_zamba(card):
     from repro_torch.optim import adamw
     from repro_torch.train import loop
     t0 = time.perf_counter()
-    cfg = get_config("zamba2-7b")
+    cfg = _half_depth(get_config("zamba2-7b"))
     B, S = ZAMBA_TRAIN
     prof, _, scfg = plan_step(cfg, B, S, card, offload_opt_state=True)
     ocfg = adamw.OptConfig(total_steps=2, warmup_steps=1)
@@ -4682,7 +5091,8 @@ def train_zamba(card):
            mv["in"] != est["blocks"] for mv in moved):
         raise AssertionError(f"zamba2-7b offload: {moved}, estimate {est}")
     print(f"zamba2-7b train (offload, MI {scfg.mi_periods} of "
-          f"{cfg.num_periods} periods, all 81 layers, moments on the host): "
+          f"{cfg.num_periods} periods, {cfg.num_layers} layers, moments on "
+          f"the host): "
           f"losses {losses[0]:.5f} -> {losses[1]:.5f} on a repeated batch "
           f"(finite, falling); step {', '.join(f'{t:.1f}' for t in times)} "
           f"ms, {B * S / (times[-1] * 1e-3):.0f} tokens/s; adamw.update "
@@ -4778,6 +5188,12 @@ def main() -> int:
     # path's count, read after every run of it
     paths = check_recurrent(card)
     paths.update(check_modality(card))
+    # phase 9's paths (MoE training) run none of the four kernels either;
+    # phase 10's run K1 alone
+    paths.update(check_moe_train(card))
+    for what, n in check_disagg_families(card).items():
+        paths[what] = {"paged_decode": n, "flash_attention": 0,
+                       "decode_attention": 0, "ssd": 0}
     for what, tally in paths.items():
         for rec, name in ((k1, "paged_decode"), (k2, "flash_attention"),
                           (k3, "decode_attention"), (k4, "ssd")):

@@ -124,6 +124,16 @@ class ModelConfig:
         p = self.vocab_pad_to
         return (self.vocab_size + p - 1) // p * p
 
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for the long_500k shape: a recurrent kind in the
+        period, or local attention there (gemma2/3 decode their local
+        layers in O(window)), as the reference's."""
+        kinds = set(self.period)
+        if kinds & {MAMBA, MLSTM, SLSTM, LSTM}:
+            return True
+        return LOCAL in kinds
+
     def layer_kind(self, layer: int) -> str:
         """Kind of layer ``layer`` of the whole stack, prologue first."""
         n = len(self.prologue)
@@ -166,6 +176,22 @@ class ModelConfig:
         )
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
 _REGISTRY: dict = {}
 
 
@@ -194,3 +220,20 @@ def _load_all():
         deepseek_v2_lite, gemma2_2b, gemma3_12b, granite_moe_3b,
         internlm2_1p8b, lstm_ptb, musicgen_medium, paligemma_3b, smollm_360m,
         xlstm_1p3b, zamba2_7b)
+
+
+def cells(include_skips: bool = False):
+    """All (arch, shape, skipped) dry-run cells, as the reference's: every
+    arch but the paper's own lstm-ptb at every shape, long_500k only for a
+    subquadratic arch unless ``include_skips``."""
+    out = []
+    for arch in list_archs():
+        cfg = get_config(arch)
+        if arch == "lstm-ptb":
+            continue  # the paper's own model: not a dry-run cell
+        for sname in SHAPES:
+            skip = sname == "long_500k" and not cfg.subquadratic
+            if skip and not include_skips:
+                continue
+            out.append((arch, sname, skip))
+    return out

@@ -45,6 +45,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.profiler import TraceProfile
+from repro_torch.sharding import map_axes
 from repro_torch.runtime import PlacementPlan, mi_to_periods
 
 MODES = ("offload", "save_hbm", "remat", "full")
@@ -131,11 +132,21 @@ def opt_state_placement(device, *, offload: bool) -> Placement:
     pinned host memory (Sentinel: rarely-accessed long-lived objects live
     in slow memory), streamed through the device leaf by leaf by
     ``optim.adamw.update``; a failed pinning raises.  Otherwise
-    ``device`` (on the CPU, host memory is the device).  The reference's
-    ``opt_state_sharding`` also shards them; sharding rules wait for the
-    port's mesh (ROADMAP item 11)."""
+    ``device`` (on the CPU, host memory is the device).  Their layout
+    over a mesh is ``opt_state_sharding``'s."""
     device = torch.device(device)
     return Placement(device, offload and device.type == "cuda")
+
+
+def opt_state_sharding(rules, logical_axes, *, offload: bool):
+    """The sharding of each optimizer-moment leaf of ``logical_axes`` (a
+    tree of axes leaves) under ``rules``, placed in ``"pinned_host"``
+    memory when ``offload`` (Sentinel: rarely-accessed long-lived objects
+    live in slow memory), else on the device (``memory_kind`` None)."""
+    def one(_, ax):
+        s = rules.sharding(ax)
+        return s.with_memory_kind("pinned_host") if offload else s
+    return map_axes(one, logical_axes)
 
 
 def estimate_offload_traffic(profile: TraceProfile, mi_periods: int,

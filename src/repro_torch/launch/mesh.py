@@ -1,15 +1,35 @@
-"""Device groups for prefill/decode disaggregation (port of
-``repro/launch/mesh.py::disagg_groups``).
+"""The production mesh, its sharding rules, and the device groups for
+prefill/decode disaggregation (port of ``repro/launch/mesh.py``).
 
-The reference's ``make_production_mesh`` and ``make_rules`` build a JAX
-device mesh and its tensor/data-parallel sharding rules; they wait for the
-port's sharding module (ROADMAP item 11), which needs more than one GPU.
+``make_production_mesh`` gives the reference's mesh as shapes only (no
+device is touched), for the dry-run's per-device reckoning on any
+machine; partitioned execution over it waits for ROADMAP item 11b.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.device import resolve
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> shd.Mesh:
+    """(16, 16) over ("data", "model"), or (2, 16, 16) with "pod" first."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return shd.Mesh(shape, axes)
+
+
+def make_rules(mesh, *, kind: str = "train", fsdp: bool = False,
+               seq_shard: bool = False, seq_parallel: bool = False,
+               dp_only: bool = False) -> shd.AxisRules:
+    """kind: train | prefill | decode. long-context decode sets seq_shard;
+    seq_parallel = Megatron-SP residual sharding; dp_only folds the model
+    axis into data parallelism (small models)."""
+    if kind == "train":
+        return shd.tp_dp_rules(mesh, fsdp=fsdp, seq_parallel=seq_parallel,
+                               dp_only=dp_only)
+    return shd.serve_rules(mesh, seq_shard=seq_shard)
 
 
 def disagg_groups(devices=None):
@@ -23,9 +43,14 @@ def disagg_groups(devices=None):
     device: its entries alias, as one device does (``[cuda:0] * 4`` gives
     two decode shards and two prefill devices on one card).
 
-    ``devices`` is a sequence of ``torch.device``s or device strings; with
-    None it is every CUDA card, and without a card this raises, as
+    ``devices`` is a sequence of ``torch.device``s or device strings, or a
+    ``sharding.Mesh`` with devices (its devices in mesh order); with None
+    it is every CUDA card, and without a card this raises, as
     ``device.resolve`` does."""
+    if isinstance(devices, shd.Mesh):
+        if devices.devices is None:
+            raise ValueError(f"{devices} holds shapes only, no devices")
+        devices = devices.devices
     if devices is None:
         resolve(None)                      # raises when there is no card
         devices = [torch.device("cuda", i)

@@ -84,6 +84,9 @@ def _gqa_core(q, k, v, bias, softcap_val: float):
 
 
 class Attention(nn.Module):
+    AXES = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
+            "q_norm": (None,), "k_norm": (None,)}
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
         H, KV, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
@@ -307,6 +310,9 @@ def _pool_decode_core(cfg, q, k, v, cache, cache_index, paged_view, window,
 
 
 class MLA(nn.Module):
+    AXES = {"wq": ("embed", "heads"), "w_dkv": ("embed", None),
+            "w_krope": ("embed", None), "w_uk": (None, "heads"),
+            "w_uv": (None, "heads"), "wo": ("heads", "embed")}
     """DeepSeek-V2 multi-head latent attention.  The cache holds the
     compressed latent {"ckv": (B, S, kv_lora_rank), "krope": (B, S,
     qk_rope_dim)} (one rope key shared by the heads); K and V are expanded

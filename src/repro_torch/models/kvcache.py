@@ -77,6 +77,41 @@ def init_cache(cfg, batch: int, max_seq: int, dtype, device) -> list:
                              device) for l in range(cfg.num_layers)]
 
 
+def _layer_cache_axes(kind: str) -> dict:
+    """The logical axes of each leaf of one layer's dense cache entry, as
+    the reference's ``cache_logical_axes`` names them: the recurrent
+    states' flat leaves take the axes of the reference's tuple members
+    (mLSTM C, n, m; sLSTM c, n, m, h)."""
+    if kind in ATTN_KINDS:
+        return {"k": ("batch", "kv_seq", "kv_heads"),
+                "v": ("batch", "kv_seq", "kv_heads")}
+    if kind == MLA:
+        return {"ckv": ("batch", "kv_seq", "kv_latent"),
+                "krope": ("batch", "kv_seq", None)}
+    if kind == MAMBA:
+        return {"h": ("batch", "ssm_heads", None, None),
+                "conv": ("batch", None, "ssm_heads")}
+    if kind == MLSTM:
+        return {"C": ("batch", "heads", None, None),
+                "n": ("batch", "heads", None), "m": ("batch", "heads"),
+                "conv": ("batch", None, "mlp")}
+    if kind == SLSTM:
+        state = ("batch", "heads", None)
+        return {"c": state, "n": state, "m": state, "h": state,
+                "conv": ("batch", None, "mlp")}
+    if kind == LSTM:
+        return {"h": ("batch", "embed"), "c": ("batch", "embed")}
+    raise ValueError(kind)
+
+
+def cache_logical_axes(cfg) -> list:
+    """Logical sharding axes for every leaf of ``init_cache``'s entries,
+    one dict per layer, prologue first (the reference's, without its
+    stacked ``layers`` axis)."""
+    return [_layer_cache_axes(cfg.layer_kind(l))
+            for l in range(cfg.num_layers)]
+
+
 def _map(fn, tree):
     """``fn`` over the leaves of a per-layer cache list; None stays None."""
     return [{k: None if a is None else fn(a) for k, a in layer.items()}

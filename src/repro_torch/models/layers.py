@@ -62,6 +62,8 @@ def apply_rope(x, positions, theta: float):
 
 class MLP(nn.Module):
     """Gated MLP: (act(x @ wg) * (x @ wi)) @ wo."""
+    AXES = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+            "wo": ("mlp", "embed")}
 
     def __init__(self, d_model: int, d_ff: int, *, device, dtype):
         super().__init__()
@@ -102,6 +104,24 @@ def unembed(table, cfg, x):
         return softcap(torch.einsum("bsd,kvd->bskv", x, table),
                        cfg.final_softcap)
     return softcap(x @ table.T, cfg.final_softcap)
+
+
+# ---------------------------------------------------------- logical axes ----
+
+def param_axes(module: nn.Module) -> dict:
+    """``{name: logical axes}`` for every parameter of ``module``, from the
+    ``AXES`` table of the module class that owns it (the reference's
+    ``Param`` axes, leaf by leaf; a per-layer leaf has no stacked
+    ``layers`` axis).  A leaf with more dims than its entry (musicgen's
+    codebook table and head) takes leading ``None``s, as the reference's
+    ``(None, "vocab", "embed")``."""
+    out = {}
+    for prefix, m in module.named_modules(remove_duplicate=True):
+        for pname, p in m.named_parameters(recurse=False):
+            axes = type(m).AXES[pname]
+            name = f"{prefix}.{pname}" if prefix else pname
+            out[name] = (None,) * (p.dim() - len(axes)) + tuple(axes)
+    return out
 
 
 # ------------------------------------------------------------------ init ----

@@ -28,6 +28,7 @@ from repro_torch.device import resolve
 from repro_torch.models import kvcache, transformer
 from repro_torch.models.layers import (embed, frozen, init_weights, rmsnorm,
                                        unembed)
+from repro_torch.models.layers import param_axes as module_axes
 
 
 def param_dtype(cfg):
@@ -46,6 +47,8 @@ class Model(nn.Module):
     for K codebooks.  A SHARED_ATTN slot of ``layers`` is the ``shared``
     module itself, so ``named_parameters`` lists its weights once, as
     ``shared.*``."""
+    AXES = {"table": ("vocab", "embed"), "head": ("vocab", "embed"),
+            "final_norm": ("embed",), "vision_proj": ("embed", "embed")}
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
@@ -110,6 +113,13 @@ def init_params(cfg, seed: int = 0, device=None, *,
     return params.requires_grad_(requires_grad)
 
 
+def param_axes(cfg) -> dict:
+    """``{name: logical axes}`` for every parameter of ``cfg``'s model, named
+    as ``Model.named_parameters`` names them (built on the meta device)."""
+    return module_axes(Model(cfg, device=torch.device("meta"),
+                             dtype=param_dtype(cfg)))
+
+
 def _logits(params, cfg, batch, *, caches=None, cache_index=None,
             decode: bool = False, positions=None, paged_view=None, aux=None,
             **sentinel):
@@ -163,14 +173,7 @@ def loss_fn(params, cfg, batch, *, remat_policy=None, unroll_periods=False,
     ``prefix_embed``.  It builds the
     autograd graph when grad is enabled and the parameters require it; the
     keywords are the reference's (``core.offload.loss_kwargs`` gives them
-    for a ``SentinelConfig``) and change memory, never the value.  A
-    blocked mode (``remat_policy``) on a MoE config raises: its blocks do
-    not carry the aux loss yet."""
-    if cfg.moe is not None and remat_policy is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: Sentinel's blocked modes do not carry a MoE "
-            "layer's auxiliary loss through a block yet (ROADMAP, modules to "
-            "port: item 12, MoE under the blocked modes)")
+    for a ``SentinelConfig``) and change memory, never the value."""
     aux = []
     logits = _logits(params, cfg, batch, remat_policy=remat_policy,
                      unroll_periods=unroll_periods, mi_periods=mi_periods,

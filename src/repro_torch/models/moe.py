@@ -22,6 +22,10 @@ class MoE(nn.Module):
     """The router (d, E), the expert banks ``wi``/``wg`` (E, d, F) and
     ``wo`` (E, F, d), and the optional shared MLP of width
     F x num_shared_experts, named as the reference's tree."""
+    AXES = {"router": ("embed", None),
+            "wi": ("experts", "embed", "expert_mlp"),
+            "wg": ("experts", "embed", "expert_mlp"),
+            "wo": ("experts", "expert_mlp", "embed")}
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()

@@ -46,6 +46,10 @@ def init_mamba_cache(cfg, batch: int, dtype, device) -> dict:
 
 
 class MambaBlock(nn.Module):
+    AXES = {"w_in": ("embed", "ssm_heads"), "conv_w": (None, "ssm_heads"),
+            "conv_b": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+            "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+            "norm": ("ssm_heads",), "w_out": ("ssm_heads", "embed")}
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
         d = cfg.d_model

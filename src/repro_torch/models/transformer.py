@@ -9,7 +9,9 @@ weights.  Caches are one entry per layer: attention layers write theirs in
 place; a recurrent layer's (MAMBA, MLSTM, SLSTM, LSTM) new state replaces
 the entries of its cache dict.
 A MoE layer's auxiliary loss is appended to the ``aux`` list a caller
-passes (``model.loss_fn`` sums it), as the reference's stack sums it.
+passes (``model.loss_fn`` sums it), as the reference's stack sums it; in
+Sentinel's blocks each block appends one float32 sum of its layers'
+losses, a second output of the block with its own gradient.
 
 A train step runs the period layers as Sentinel's blocks of ``mi_periods``
 periods (``stack_forward``, ``core/offload.py``)."""
@@ -36,6 +38,7 @@ class Block(nn.Module):
     MLP, MoE (``moe``) where the config has one and ``dense_ff`` is 0,
     else a gated MLP (``mlp``) of width ``dense_ff`` or ``cfg.d_ff``, as
     the reference's ``init_block``."""
+    AXES = {"ln1": ("embed",), "ln2": ("embed",)}
 
     def __init__(self, cfg, kind: str, *, device, dtype, dense_ff: int = 0):
         super().__init__()
@@ -77,6 +80,7 @@ class StateLayer(nn.Module):
     block, ``mamba``, ``mlstm`` or ``slstm``, and the residual), or LSTM
     (the block ``lstm`` alone: no norm and no residual), as the
     reference's ``apply_block``."""
+    AXES = {"ln1": ("embed",)}
 
     BLOCKS = {MAMBA: MambaBlock, MLSTM: xlstm.MLSTMBlock,
               SLSTM: xlstm.SLSTMBlock, LSTM: xlstm.LSTMBlock}
@@ -140,13 +144,17 @@ def stack_forward(layers, cfg, x, positions, *, caches=None,
         count that does not divide is refused), each a ``_Block``: its
         forward keeps its carry-in (the previous block's output, or the
         prologue's) and nothing else, its backward recomputes it.
+        On a MoE config a block also returns the float32 sum of its
+        layers' auxiliary losses (a list local to the block, so the
+        backward's recompute appends nowhere else), which ``stack_forward``
+        appends to ``aux``; the aux is no carry, each block's starts at 0.
       - tag_block_out: the carry is named for the policy, so "offload"
         keeps it in pinned host memory (``CarryStore``); otherwise it
         stays on the device.
       - unroll_periods: mark each period for ``profiler.trace_profile``
         (the reference's ``period_{i}`` scopes); no blocks.
     """
-    def run(lo, hi, x):
+    def run(lo, hi, x, aux=aux):
         for l in range(lo, hi):
             x = layers[l](cfg, x, positions,
                           cache=caches[l] if caches is not None else None,
@@ -175,13 +183,32 @@ def stack_forward(layers, cfg, x, positions, *, caches=None,
     store = CarryStore("host" if remat_policy == "offload" and tag_block_out
                        else "device")
     width = mi_periods * span
+    moe = cfg.moe is not None
     for b in range(P // mi_periods):
         lo = n_pro + b * width
         weights = {id(w): w for layer in layers[lo:lo + width]
                    for w in layer.parameters() if w.requires_grad}
-        x = _Block.apply(lambda x, lo=lo: run(lo, lo + width, x), store, b,
-                         x, *weights.values())
+        if not moe:
+            x = _Block.apply(lambda x, lo=lo: run(lo, lo + width, x), store,
+                             b, x, *weights.values())
+            continue
+        x, block_aux = _Block.apply(
+            lambda x, lo=lo: _run_with_aux(run, lo, lo + width, x), store, b,
+            x, *weights.values())
+        if aux is not None:
+            aux.append(block_aux)
     return x
+
+
+def _run_with_aux(run, lo, hi, x):
+    """(the layers' output, the float32 sum of their auxiliary losses, in
+    layer order, from 0)."""
+    local = []
+    y = run(lo, hi, x, local)
+    total = torch.zeros((), dtype=torch.float32, device=y.device)
+    for a in local:
+        total = total + a
+    return y, total
 
 
 class _Block(torch.autograd.Function):
@@ -191,7 +218,9 @@ class _Block(torch.autograd.Function):
     previous block's fetch), runs the layers again with grad and returns
     the gradients of the carry-in and of the block's weights.  A weight
     that several blocks use (zamba2's shared block) gets each block's
-    share, which autograd sums."""
+    share, which autograd sums.  ``run`` returns the output, or on a MoE
+    config (output, aux sum): the backward then differentiates both, a
+    missing aux gradient taken as zero."""
 
     @staticmethod
     def forward(ctx, run, store, b, x, *weights):
@@ -200,11 +229,13 @@ class _Block(torch.autograd.Function):
         return run(x)
 
     @staticmethod
-    def backward(ctx, gy):
+    def backward(ctx, gy, gaux=None):
         need_x = ctx.needs_input_grad[3]
         x = ctx.store.get(ctx.b).detach().requires_grad_(need_x)
         with torch.enable_grad():
-            y = ctx.run(x)
+            out = ctx.run(x)
+        if isinstance(out, tuple):
+            gy = (gy, torch.zeros_like(out[1]) if gaux is None else gaux)
         wrt = ((x,) if need_x else ()) + ctx.weights
-        grads = torch.autograd.grad(y, wrt, gy, allow_unused=True)
+        grads = torch.autograd.grad(out, wrt, gy, allow_unused=True)
         return (None, None, None) + ((None,) if not need_x else ()) + grads

@@ -45,6 +45,11 @@ def _weights(device, dtype):
 
 
 class MLSTMBlock(nn.Module):
+    AXES = {"w_up": ("embed", "mlp"), "w_gate": ("embed", "mlp"),
+            "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+            "wq": ("mlp", "heads"), "wk": ("mlp", "heads"),
+            "wv": ("mlp", "heads"), "w_if": ("mlp", None), "norm": ("mlp",),
+            "w_down": ("mlp", "embed")}
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
         d = cfg.d_model
@@ -83,6 +88,9 @@ class MLSTMBlock(nn.Module):
 
 
 class SLSTMBlock(nn.Module):
+    AXES = {"conv_w": (None, "mlp"), "conv_b": ("mlp",),
+            "w_ifzo": ("embed", "heads"), "r_ifzo": ("heads", None, None, None),
+            "norm": ("mlp",), "w_out": ("embed", "embed")}
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
         d = cfg.d_model
@@ -110,6 +118,7 @@ class SLSTMBlock(nn.Module):
 
 
 class LSTMBlock(nn.Module):
+    AXES = {"w": ("embed", "heads"), "b": ("heads",)}
     """The classic LSTM of the paper's PTB model: one gate matrix ``w``
     (2d, 4d) over [x_t, h_{t-1}] and its bias ``b``; h in the activation
     dtype, c in float32, cast where the reference casts them."""

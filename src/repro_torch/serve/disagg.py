@@ -37,10 +37,10 @@ the KV is not copied (``Tensor.to`` returns the tensor itself); the ledger
 still counts the logical edge traffic, as the reference's does.  Between
 distinct devices it is ``tensor.to(dst, non_blocking=True)``.
 
-Tensor-parallel prefill (the reference's ``tp_prefill``) needs the sharding
-rules and more than one GPU (ROADMAP item 11); asked for over more than one
-prefill device it raises, and otherwise it is ignored, as the reference's
-``bool(tp_prefill) and len(prefill_devices) > 1`` makes it.
+Tensor-parallel prefill (the reference's ``tp_prefill``) needs a prefill
+partitioned over more than one GPU (ROADMAP item 11b); asked for over more
+than one prefill device it raises, and otherwise it is ignored, as the
+reference's ``bool(tp_prefill) and len(prefill_devices) > 1`` makes it.
 
 ``price_disagg`` is the planner-side model of the same trade: a serving
 trace priced colocated against disaggregated at equal total device memory,
@@ -92,9 +92,9 @@ class DisaggregatedEngine(ContinuousBatcher):
         self.n_shards = len(self.decode_devices)
         if tp_prefill and len(self.prefill_devices) > 1:
             raise NotImplementedError(
-                "tensor-parallel prefill over the prefill group needs the "
-                "sharding rules and more than one GPU (ROADMAP, modules to "
-                "port: item 11)")
+                "tensor-parallel prefill over the prefill group needs a "
+                "partitioned prefill over more than one GPU (ROADMAP, "
+                "modules to port: item 11b)")
         super().__init__(_params_on(params, self.decode_device), cfg,
                          batch_slots, max_seq, scfg=scfg, plan=plan,
                          paged=True, slot_tenants=slot_tenants,

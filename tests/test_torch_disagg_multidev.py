@@ -5,7 +5,7 @@ four JAX host devices, forced by ``XLA_FLAGS`` before JAX is imported, so
 it runs in a subprocess of its own that prints one JSON record.  Its
 tiered pools need the R1 patch (ROADMAP R1), which the scenario script
 applies before it builds an engine; it leaves out the reference's
-tensor-parallel prefill, which the port does not have (ROADMAP item 11).
+tensor-parallel prefill, which the port does not have (ROADMAP item 11b).
 The port runs the same scenario in this process with
 ``devices=[cpu] * 4`` (two decode shards and two prefill devices, all
 aliases of the CPU): its group sizes, shard count, tokens, per-edge ledger,
@@ -290,11 +290,11 @@ def test_replay_parity_across_shards(reference, port):
 
 def test_tp_prefill_waits_for_the_sharding_rules(port):
     """Tensor-parallel prefill over two prefill devices raises, naming
-    ROADMAP item 11; with one prefill device it is ignored, as in the
+    ROADMAP item 11b; with one prefill device it is ignored, as in the
     reference."""
     params, cfg = port["params"], port["cfg"]
     plan = port["plans"][0]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11b"):
         T_disagg.DisaggregatedEngine(params, cfg, SLOTS, MAX_SEQ, plan=plan,
                                      devices=[torch.device("cpu")] * 4,
                                      tp_prefill=True)

@@ -143,18 +143,6 @@ def test_loss_matches_reference(both, arch):
     assert (float(aux) > 0) == (cfg_t.moe is not None)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
-                                  "deepseek-v2-lite-16b"])
-def test_loss_refuses_a_blocked_mode_on_moe(both, arch):
-    """The blocked modes' blocks do not carry the aux loss yet: loss_fn
-    refuses them on a MoE config rather than drop it."""
-    _, _, cfg_t, params_t = both[arch]
-    toks = torch.from_numpy(_toks(4, (1, 8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        model.loss_fn(params_t, cfg_t, {"tokens": toks, "labels": toks},
-                      remat_policy="remat", mi_periods=1)
-
-
 def _moe_pair(both, arch, **moe_fields):
     """Both configs with ``moe_fields`` replaced, and the first period
     layer's MoE parameters of each package."""

@@ -56,6 +56,9 @@ def test_port_modules_import_no_jax_and_no_reference():
             "repro_torch.configs.lstm_ptb"} <= set(mods)
     assert {"repro_torch.configs.musicgen_medium",
             "repro_torch.configs.paligemma_3b"} <= set(mods)
+    assert {"repro_torch.sharding", "repro_torch.launch.specs",
+            "repro_torch.launch.costing", "repro_torch.launch.dryrun"} <= \
+        set(mods)
     # importing builds and loads no kernel: nvcc runs at a kernel's first
     # call only (this machine may have none)
     code = ("import importlib, json, sys\n"
