@@ -238,8 +238,9 @@ Phases, each printing its own lines:
          families, two shards aliased on the card (ledger ==
          predict_pool_counters, K1 == shard forwards x attention layers,
          the tokens' agreement with one shard printed);
-  11. the attention entry points ops.flash_attention (K2) and
-     ops.decode_attention (K3), which no model path of the reference calls:
+  2b. (run right after phase 2) the attention entry points
+     ops.flash_attention (K2) and ops.decode_attention (K3), which no model
+     path of the reference calls:
      - both kernels against their plain versions over the reference's
        sweeps in f32 and bf16, window/softcap cases, Sq < Skv, ragged Sq,
        G 1, 3, 5 and 8, D 8, 64, 112 and 256, strided inputs, and rows with
@@ -257,7 +258,26 @@ Phases, each printing its own lines:
        F.scaled_dot_product_attention call's; K2's wgmma kernel against its
        mma.sync kernel in turns at zamba2's shape and at D 64 and 128; K3
        at the wrapper's split count against one split in turns at both of
-       its shapes.
+       its shapes;
+  11. tensor-parallel prefill over the disaggregated engine's prefill
+     group (ROADMAP item 11b), last:
+     11a. smollm-360m, internlm2-1.8b and granite-moe-3b reduced in fp32,
+         a 12-token prompt through TensorParallelPrefill on [cuda:0] * 2
+         and * 4 ranks against the same on [cpu] * n and the card's
+         one-device prefill: logits and caches within atol 1e-4, the
+         collectives' ledger (bytes and counts) == the CPU's;
+     11b. devices=[cuda:0] * 4 (two decode shards, a prefill group of two
+         aliased ranks), bf16 from seed 0: smollm-360m at full depth on
+         phase 3's requests under phase 3d's two-shard plan, and
+         internlm2-1.8b at half depth on phase 10b's, each without and
+         with tp_prefill: both edge ledgers == predict_pool_counters(
+         dense_admit=True), K1 the same with and without TP, the ledger's
+         bytes == the closed form (all-reduce (2L + 1) x S x d x 2 B,
+         smollm's cut heads add all-gather L x S x (960 + 320 + 320) x 2
+         B, S the admitted prompt tokens), and each admission's last-row
+         logits no farther from an fp32 one-device prefill than 1.5 times
+         the bf16 one-device prefill's; each admission's ms with and
+         without TP and the tokens' agreement printed.
 
 Every kernel time is the median over launches that each follow an L2
 flush and a device-side spin, so the events time the card's work and not
@@ -646,11 +666,11 @@ def requests(vocab: int, seed: int = 0):
 
 def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device,
           schedule=(), paged=True, on_engine=None, disagg=False,
-          devices=None):
+          devices=None, tp_prefill=False):
     """Run one engine to completion (the pools layout where ``cfg`` has
     ``use_paged_decode`` and ``paged``; see serve/engine.py for the other
     layouts; with ``disagg`` a DisaggregatedEngine over ``devices``, its
-    own default when None).  ``schedule`` lists ``(step, plan or
+    own default when None, with ``tp_prefill`` passed on).  ``schedule`` lists ``(step, plan or
     PlanDelta)`` re-plans, each applied before the engine step of that
     index; ``on_engine(b)`` runs on the new engine before its first step.
     Returns a dict: sorted outputs ``out`` and the same in the order the
@@ -665,7 +685,7 @@ def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device,
     from repro_torch.serve.engine import ContinuousBatcher
     if disagg:
         b = DisaggregatedEngine(params, cfg, slots, max_seq, plan=plan,
-                                devices=devices)
+                                devices=devices, tp_prefill=tp_prefill)
     else:
         b = ContinuousBatcher(params, cfg, slots, max_seq, plan=plan,
                               paged=paged, device=device)
@@ -3126,6 +3146,264 @@ def check_disagg_families(card):
     return k1
 
 
+# ------------------------------ tensor-parallel prefill (phase 11) ----------
+
+# phase 11a's reduced configs: the main path's smollm (whose reduced heads
+# split whole at 2 ranks, its KV heads cut at 4), internlm2 and granite's
+# experts
+TP_SMALL = ("smollm-360m", "internlm2-1.8b", "granite-moe-3b-a800m")
+# 11b: a TP admission's last-row logits may lie at most this many times as
+# far from an fp32 one-device prefill as the bf16 one-device prefill's do
+TP_BF16_RATIO = 1.5
+
+
+def check_tp_small(card):
+    """Phase 11a: each TP_SMALL config reduced in fp32, a 12-token prompt
+    (max_seq 32) through ``TensorParallelPrefill`` on ``[cuda:0] * n`` and
+    ``[cpu] * n`` ranks, n = 2 and 4, from the same parameters: the last
+    row's logits and the caches on the card within atol 1e-4 of the CPU's
+    and of the card's one-device prefill, and the collectives' ledger
+    (bytes and counts, type for type) equal to the CPU's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serve.disagg import TensorParallelPrefill
+    worst = 0.0
+    for arch in TP_SMALL:
+        cfg = get_config(arch).reduced()
+        params_cpu = model.init_params(cfg, seed=0, device="cpu")
+        params_gpu = copy.deepcopy(params_cpu).to("cuda")
+        tokens = torch.as_tensor(np.random.default_rng(11).integers(
+            0, cfg.vocab_size, (1, 12)))
+        one = model.prefill(params_gpu, cfg, {"tokens": tokens.cuda()},
+                            max_seq=32)[0]
+        for n in (2, 4):
+            got = {}
+            for dev, prm in (("cuda", params_gpu), ("cpu", params_cpu)):
+                d = torch.device(dev, 0) if dev == "cuda" else \
+                    torch.device(dev)
+                tp = TensorParallelPrefill(prm, cfg, [d] * n, max_seq=32)
+                try:
+                    got[dev] = tp({"tokens": tokens}) + (tp.ledger,)
+                finally:
+                    tp.close()
+            (g_last, g_kv, g_led), (c_last, c_kv, c_led) = \
+                got["cuda"], got["cpu"]
+            for a, b, what in [(g_last, c_last.cuda(), "CPU's TP logits"),
+                               (g_last, one, "the one-device logits")] + \
+                    [(g[k], c[k].cuda(), f"CPU's cache {k}")
+                     for g, c in zip(g_kv, c_kv) for k in g]:
+                err = float((a - b).abs().max())
+                worst = max(worst, err)
+                if not err <= SMALL_LOGITS_TOL["atol"]:
+                    raise AssertionError(f"TP reduced {arch} x{n}: {err} "
+                                         f"from the {what}")
+            if g_led != c_led:
+                raise AssertionError(f"TP reduced {arch} x{n}: ledger "
+                                     f"{g_led} != the CPU's {c_led}")
+            nz = {k: v for k, v in g_led["bytes"].items() if v}
+            print(f"TP reduced check {arch} x{n} ranks on {card.split(',')[0]}"
+                  f": logits and caches within atol 1e-4 of the CPU's TP "
+                  f"run and the card's one-device prefill; ledger == the "
+                  f"CPU's ({nz} B, counts "
+                  f"{ {k: v for k, v in g_led['counts'].items() if v} })",
+                  flush=True)
+    print(f"phase 11a: worst max_abs_err {worst:.3g} [{card}]", flush=True)
+
+
+def _record_admissions(b, out):
+    """Wrap ``b``'s prefill seam: each admission appends (its tokens, its
+    last-row logits, its ms, the card synchronized before and after, its
+    fresh KV)."""
+    import torch
+    inner = b._prefill
+
+    def timed(p, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        last, fresh = inner(p, batch)
+        torch.cuda.synchronize()
+        out.append((batch["tokens"], last, 1e3 * (time.perf_counter() - t),
+                    fresh))
+        return last, fresh
+    b._prefill = timed
+
+
+def _tp_expected_bytes(cfg, tokens: int, n: int) -> dict:
+    """The ledger's closed form for a TP prefill of ``tokens`` prompt
+    tokens over n ranks (per-device result shapes, so the same at every
+    n where the heads split the same way): an all-reduce of (S, d) after
+    each layer's two row-split products and the embedding; where the
+    query heads do not split whole, q, k and v gathered every layer, and
+    where only the KV heads do not, k and v."""
+    L, d, hd = cfg.num_layers, cfg.d_model, cfg.head_dim
+    b = 2 if cfg.dtype == "bfloat16" else 4
+    out = {"all-reduce": float((2 * L + 1) * tokens * d * b)}
+    cols = 0
+    if cfg.num_heads % n:
+        cols = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+    elif cfg.num_kv_heads % n:
+        cols = 2 * cfg.num_kv_heads * hd
+    if cols:
+        out["all-gather"] = float(L * tokens * cols * b)
+    return out
+
+
+def tp_family(name, cfg, params, plan, reqs, card):
+    """Phase 11b, one model at full width: ``reqs`` on 8 slots of 1024,
+    page 16, under ``plan`` (two decode shards), through the disaggregated
+    engine on ``devices=[cuda:0] * 4`` (two decode shards, a prefill group
+    of two aliased ranks) without and with ``tp_prefill``.  Gates: both
+    edge ledgers == predict_pool_counters(dense_admit=True), and each
+    other; K1's launches the same; the TP ledger's bytes == the closed
+    form; each admission's last-row logits and its fresh KV (every layer's
+    k and v) no farther from an fp32 one-device prefill's than
+    TP_BF16_RATIO times the bf16 one-device prefill's.  Returns K1's
+    launches with TP."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.serve.engine import predict_pool_counters
+    t0 = time.perf_counter()
+    preq = [(tuple(int(x) for x in t), DECODE, None, k) for t, k in reqs]
+    run = dict(max_seq=MAX_SEQ, slots=SLOTS, decode=DECODE, device="cuda")
+    got = {}
+    for tp in (False, True):
+        adm = []
+        got[tp] = serve(params, cfg, plan, reqs, disagg=True,
+                        devices=[torch.device("cuda", 0)] * 4,
+                        tp_prefill=tp,
+                        on_engine=lambda e, adm=adm: _record_admissions(e,
+                                                                        adm),
+                        **run)
+        _other_kernels_idle(f"{name} TP={tp}")
+        got[tp]["adm"] = adm
+    base, tpr = got[False], got[True]
+    b0, b1 = base["b"], tpr["b"]
+    if not b1.tp_prefill or b0.tp_prefill or len(b1.prefill_devices) != 2:
+        raise AssertionError(f"{name}: tp_prefill not on the 2-rank group")
+    pred = predict_pool_counters(
+        preq, plan, slots=SLOTS, max_seq=MAX_SEQ, page_tokens=b1.page_tokens,
+        row_bytes=b1._row_bytes, dense_admit=True)
+    for b in (b0, b1):
+        b.mesh_table.check()
+        if _ledger(b) != _pred_ledger(pred) or b.counters()["repacks"]:
+            raise AssertionError(f"{name}: ledger {_ledger(b)} != predicted "
+                                 f"{_pred_ledger(pred)}")
+    if tpr["k1"] != base["k1"] or not tpr["k1"]:
+        raise AssertionError(f"{name}: {tpr['k1']} K1 launches with TP, "
+                             f"{base['k1']} without")
+    S = sum(int(t.shape[1]) for t, *_ in tpr["adm"])
+    led = b1.counters()["collectives"]
+    nz = {k: v for k, v in led["bytes"].items() if v}
+    want = _tp_expected_bytes(cfg, S, len(b1.prefill_devices))
+    if nz != want:
+        raise AssertionError(f"{name}: collectives {nz} B != the closed "
+                             f"form {want} B for {S} prompt tokens")
+    # the fp32 one-device prefill of every admitted prompt
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = copy.deepcopy(params).float()
+    ratios, kv_ratios, lines = [], [], []
+
+    def kv_dist(fresh, fresh32):
+        """max_abs over every layer's k and v (the engine's caches hold
+        max_seq rows, the prompt's first)."""
+        return max(float((a[k][:, :b[k].shape[1]].float() - b[k]).abs()
+                         .max()) for a, b in zip(fresh, fresh32) for k in a)
+
+    for (toks, l_bf, ms0, kv_bf), (toks_tp, l_tp, ms1, kv_tp) in zip(
+            base["adm"], tpr["adm"]):
+        if not torch.equal(toks, toks_tp):
+            raise AssertionError(f"{name}: the runs admitted other prompts")
+        l32, kv32 = model.prefill(params32, cfg32, {"tokens": toks})
+        d_bf = float((l_bf.float() - l32).abs().max())
+        d_tp = float((l_tp.float() - l32).abs().max())
+        dk_bf, dk_tp = kv_dist(kv_bf, kv32), kv_dist(kv_tp, kv32)
+        ratios.append(d_tp / d_bf)
+        kv_ratios.append(dk_tp / dk_bf)
+        lines.append(f"{toks.shape[1]} tokens: {ms0:.1f} ms one device, "
+                     f"{ms1:.1f} ms TP; max_abs from fp32 logits bf16 "
+                     f"{d_bf:.4f}, TP {d_tp:.4f}; KV bf16 {dk_bf:.4f}, TP "
+                     f"{dk_tp:.4f}")
+        if not d_tp <= TP_BF16_RATIO * d_bf:
+            raise AssertionError(f"{name}: TP logits {d_tp} from fp32, over "
+                                 f"{TP_BF16_RATIO} x bf16's {d_bf}")
+        if not dk_tp <= TP_BF16_RATIO * dk_bf:
+            raise AssertionError(f"{name}: TP fresh KV {dk_tp} from fp32, "
+                                 f"over {TP_BF16_RATIO} x bf16's {dk_bf}")
+        del kv32
+    del params32
+    same = sum(a == b for o, p in zip(tpr["seq"], base["seq"])
+               for a, b in zip(o, p))
+    total = sum(len(o) for o in base["seq"])
+    print(f"{name} TP prefill admissions [{card}]: " + "; ".join(lines),
+          flush=True)
+    print(f"{name} TP prefill check ({cfg.num_layers} layers, 2 aliased "
+          f"ranks): ledgers == predict_pool_counters(dense_admit=True) with "
+          f"and without TP; K1 {tpr['k1']} == without TP; collectives "
+          f"{nz} B == the closed form for {S} prompt tokens (counts "
+          f"{ {k: v for k, v in led['counts'].items() if v} }); TP/bf16 "
+          f"distance from fp32, logits {min(ratios):.3f}-{max(ratios):.3f}"
+          f", fresh KV {min(kv_ratios):.3f}-{max(kv_ratios):.3f} (limit "
+          f"{TP_BF16_RATIO}); {same} of {total} tokens agree with the run "
+          f"without TP (not gated: greedy bf16 tokens part at the first "
+          f"near-tie and every later token follows); mean admission "
+          f"{np.mean([a[2] for a in base['adm']]):.1f} ms one device, "
+          f"{np.mean([a[2] for a in tpr['adm']]):.1f} ms TP (aliased ranks "
+          f"share the card) [{card}]", flush=True)
+    launches = tpr["k1"]
+    b1.close()
+    del got, base, tpr, b0, b1
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{name} phase 11b took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
+def check_tp(card):
+    """Phase 11: 11a, then 11b on smollm-360m at full depth (phase 3's
+    requests under phase 3d's two-shard plan) and internlm2-1.8b at half
+    depth (phase 10b's requests and plan).  Returns K1's launches by
+    path."""
+    import torch
+    from repro_torch import runtime
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime import H100_COST
+    from repro_torch.runtime.plan import PlacementPlan
+    from repro_torch.serve.engine import serve_trace_for
+    t0 = time.perf_counter()
+    reset_counts()
+    check_tp_small(card)
+    k1 = {}
+    cfg = dataclasses.replace(get_config("smollm-360m"), use_paged_decode=True)
+    params = init_params(cfg, seed=0)
+    reqs = requests(cfg.vocab_size)
+    trace = serve_trace_for(cfg, [(len(t), DECODE, k) for t, k in reqs],
+                            slots=SLOTS, block_tokens=PAGE, layer_group=8,
+                            shared_prefix_tokens=256, params=params)
+    plan = runtime.plan_serving(trace, H100_COST, 0.2 * trace.peak_kv_bytes(),
+                                objective="latency", decode_devices=2)
+    k1["smollm-360m TP prefill, two aliased shards (phase 11b)"] = \
+        tp_family("smollm-360m", cfg, params, plan, reqs, card)
+    del params
+    cfg = _half_depth(dataclasses.replace(get_config("internlm2-1.8b"),
+                                          use_paged_decode=True))
+    params = init_params(cfg, seed=0)
+    lengths = np.random.default_rng(26).integers(300, 513, 12)
+    reqs = family_requests(cfg.vocab_size, lengths, seed=27)
+    plan = PlacementPlan(hot_window=192, page_tokens=PAGE,
+                         slot_hot_windows=[128 + 16 * s for s in range(SLOTS)],
+                         slot_devices=[s % 2 for s in range(SLOTS)])
+    k1["internlm2-1.8b TP prefill, two aliased shards (phase 11b)"] = \
+        tp_family("internlm2-1.8b", cfg, params, plan, reqs, card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return k1
+
+
 # ---------------------------------------------------------------- timing ----
 
 def time_ms(fn, reps=20, flush_bytes=64 << 20):
@@ -5192,6 +5470,10 @@ def main() -> int:
     # phase 10's run K1 alone
     paths.update(check_moe_train(card))
     for what, n in check_disagg_families(card).items():
+        paths[what] = {"paged_decode": n, "flash_attention": 0,
+                       "decode_attention": 0, "ssd": 0}
+    # phase 11's TP admissions run no kernel; decode runs K1 on each shard
+    for what, n in check_tp(card).items():
         paths[what] = {"paged_decode": n, "flash_attention": 0,
                        "decode_attention": 0, "ssd": 0}
     for what, tally in paths.items():

@@ -8,9 +8,17 @@ rule flags, ``cost_analytic`` per chip (``launch/costing.py``: the aten
 ops the step runs, its backward and recomputes included) and
 ``memory.argument_bytes``, each device's bytes of the step's arguments
 (parameters, optimizer state, batch, cache) by ``sharding.shard_shape``
-under the cell's rules.  It has no ``temp_bytes``, ``cost`` or
-``collectives``: those are read from XLA's compiled, partitioned program,
-and the port runs no partitioned program (ROADMAP item 11b).
+under the cell's rules.  The prefill and decode cells of a pure-attention
+stack (smollm-360m, gemma2-2b, gemma3-12b, internlm2-1.8b,
+granite-moe-3b) also carry ``collectives`` in the reference's format
+(``{"bytes": {type: B}, "counts": {type: n}}``): the partitioned step of
+mesh position (0, ..., 0) runs on meta tensors under a
+``collectives.ShapeGroup`` over the ``model`` axis, whose ledger counts
+each collective's per-device result bytes, executions in ``counts``
+(the reference counts HLO sites).  Train cells, ``long_500k`` and the
+other archs' serve cells carry ``collectives_note`` instead: their
+partitioned programs wait for ROADMAP item 11b's second half.  There is no
+``temp_bytes`` or ``cost``: those are XLA's.
 
 Exit code 0 when every cell passes.
 """
@@ -22,11 +30,55 @@ import json
 import time
 import traceback
 
+import torch
+
+from repro_torch import sharding as shd
+from repro_torch.collectives import ShapeGroup
 from repro_torch.configs.base import SHAPES, cells, get_config
 from repro_torch.core.offload import SentinelConfig
 from repro_torch.launch import specs
 from repro_torch.launch.costing import step_cost
 from repro_torch.launch.mesh import make_production_mesh, make_rules
+from repro_torch.models.kvcache import ATTN_KINDS
+
+SECOND_HALF = ("the partitioned program of this cell waits for ROADMAP "
+               "item 11b, second half")
+
+
+def partitioned(cfg, shape_name: str) -> bool:
+    """Whether the port runs this cell's partitioned program: a prefill or
+    decode cell (not ``long_500k``) of a pure-attention stack without a
+    modality stub."""
+    return SHAPES[shape_name].kind != "train" and \
+        shape_name != "long_500k" and \
+        all(cfg.layer_kind(l) in ATTN_KINDS
+            for l in range(cfg.num_layers)) and \
+        not cfg.num_codebooks and not cfg.num_prefix_tokens
+
+
+def _blocks(tree, shardings):
+    """Meta tensors of each leaf's per-device block (``shard_shape``)."""
+    if torch.is_tensor(tree):
+        return torch.empty(shardings.shard_shape(tuple(tree.shape)),
+                           dtype=tree.dtype, device="meta")
+    if isinstance(tree, dict):
+        return {k: _blocks(v, shardings[k]) for k, v in tree.items()}
+    return type(tree)(_blocks(v, s) for v, s in zip(tree, shardings))
+
+
+def rank_collectives(fn, args, in_sh, rules) -> dict:
+    """The collectives ledger of the step ``fn`` run as mesh position (0,
+    ..., 0): its parameter blocks (``sharding.shard_params``) and argument
+    blocks on meta, under a rank context whose ``ShapeGroup`` spans the
+    ``model`` axis."""
+    mesh = rules.mesh
+    coords = {a: 0 for a in mesh.axis_names}
+    params = shd.shard_params(args[0], rules, coords)
+    rest = [_blocks(a, sh) for a, sh in zip(args[1:], in_sh[1:])]
+    group = ShapeGroup(mesh.shape["model"])
+    with shd.rank_context(shd.RankContext(group, 0, rules, coords)):
+        fn(params, *rest)
+    return group.ledger
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
@@ -71,6 +123,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "matmul_flops_per_chip": cost["matmul_flops"] / rec["chips"],
         "bytes_per_chip": cost["bytes"] / rec["chips"],
     }
+    if partitioned(cfg, shape_name):
+        rec["collectives"] = rank_collectives(fn, args, in_sh, rules)
+    else:
+        rec["collectives_note"] = SECOND_HALF
     rec["run_s"] = round(time.time() - t0, 1)
     rec["ok"] = True
     return rec

@@ -13,6 +13,17 @@ decode (one token per slot, read back through
 ``ops.paged_decode_attention``).  MLA keeps a dense latent cache {"ckv",
 "krope"} in every layout, as the reference's (it has no paged path).
 Caches are updated in place where the reference used ``.at[].set``.
+
+Under a rank context (``sharding.rank_context``) GQA runs on the rank's
+blocks of wq, wk, wv (column-split) and wo (row-split), and ``_RankHeads``
+says how: where the split lands on whole heads the rank runs its own
+query heads against the KV heads they read; where it cuts a head (or
+leaves the rank's queries without their KV heads whole) the projections
+are gathered, attention runs whole, and the rank takes its block of the
+output back before its row block of wo, as XLA partitions the
+reference's program.  The output of wo is a partial sum, all-reduced.  The
+pool layouts and MLA under a rank context wait for item 11b's second
+half.
 """
 from __future__ import annotations
 
@@ -23,6 +34,8 @@ from repro_torch.configs.base import ATTN, LOCAL
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.paged_decode import gather_pools, pool_layout
 from repro_torch.models.layers import apply_rope, frozen, rmsnorm, softcap
+from repro_torch.sharding import (constrain, current_rank, rank_block,
+                                  refuse_partitioned)
 
 NEG_INF = -2.0 ** 20
 
@@ -83,6 +96,40 @@ def _gqa_core(q, k, v, bias, softcap_val: float):
     return torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
 
 
+class _RankHeads:
+    """One rank's view of a GQA layer under a rank context.
+
+    ``H`` query heads from ``h0`` and the ``KV`` KV heads from ``kv0``
+    that they read.  ``gather_q``: the rank's block of wq cuts a head (or
+    its heads do not fall in whole KV groups), so q is gathered and every
+    head runs.  ``gather_kv``: the rank's block of wk and wv is not
+    exactly the KV heads its queries read, so k and v are gathered (and
+    the ``KV`` heads from ``kv0`` picked from them).
+    ``q_split``/``kv_split``: the rules split wq (and wo) / wk and wv."""
+
+    def __init__(self, cfg, attn):
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        G = H // KV
+        qc, kc = attn.wq.shape[1], attn.wk.shape[1]
+        self.q_split, self.kv_split = qc < H * hd, kc < KV * hd
+        Hl = qc // hd
+        whole = self.q_split and qc % hd == 0 and \
+            (Hl % G == 0 or G % Hl == 0)
+        self.gather_q = self.q_split and not whole
+        self.h0, self.H = (rank_block("heads") * Hl, Hl) if whole else (0, H)
+        self.KV = max(1, self.H // G)
+        self.kv0 = self.h0 // G
+        own = self.kv_split and kc == self.KV * hd and \
+            rank_block("kv_heads") * self.KV == self.kv0
+        self.gather_kv = self.kv_split and not own
+        self.pick = not own and self.KV < KV
+
+    def kv_heads(self, t):
+        """The KV heads this rank's queries read, of whole-head k or v
+        (B, S, KV, hd)."""
+        return t[:, :, self.kv0:self.kv0 + self.KV] if self.pick else t
+
+
 class Attention(nn.Module):
     AXES = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
             "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
@@ -99,19 +146,30 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             self.q_norm, self.k_norm = w(hd), w(hd)
 
-    def qkv(self, cfg, x, positions, kind: str = ATTN):
+    def qkv(self, cfg, x, positions, kind: str = ATTN, tp=None):
         """q (B, Sq, H, hd) and k, v (B, Sq, KV, hd) of x (B, Sq, d): with
         QK-norm (a plain RMS norm, the reference's ``plus_one=False``)
         where the config has it, then the rotary embedding on q and k at
         the layer kind's theta (global layers take ``rope_theta_global``
-        when it is set)."""
+        when it is set).  Under a rank context (``tp``, a ``_RankHeads``)
+        H and KV are the heads the rank holds, or every head where its
+        blocks were gathered."""
         B, Sq, _ = x.shape
-        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        hd = cfg.head_dim
         theta = cfg.rope_theta_global \
             if kind != LOCAL and cfg.rope_theta_global else cfg.rope_theta
-        q = (x @ self.wq).reshape(B, Sq, H, hd)
-        k = (x @ self.wk).reshape(B, Sq, KV, hd)
-        v = (x @ self.wv).reshape(B, Sq, KV, hd)
+        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        if tp is not None:
+            if tp.gather_q:
+                q = constrain(q, ("batch", "seq", None),
+                              held=("batch", "seq", "heads"))
+            if tp.gather_kv:
+                k, v = (constrain(t, ("batch", "seq", None),
+                                  held=("batch", "seq", "kv_heads"))
+                        for t in (k, v))
+        q = q.reshape(B, Sq, -1, hd)
+        k = k.reshape(B, Sq, -1, hd)
+        v = v.reshape(B, Sq, -1, hd)
         if cfg.qk_norm:
             q = rmsnorm(q, self.q_norm, cfg.norm_eps, plus_one=False)
             k = rmsnorm(k, self.k_norm, cfg.norm_eps, plus_one=False)
@@ -126,12 +184,17 @@ class Attention(nn.Module):
         pool prefill, else pool decode.  ``cache_index``: the write offset,
         a scalar or a (B,) tensor of per-slot offsets (0 when None)."""
         B, Sq, _ = x.shape
-        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        G = H // KV
+        hd = cfg.head_dim
         window = cfg.sliding_window if kind == LOCAL else 0
+        tp = None
+        if current_rank() is not None:
+            if paged_view is not None:
+                refuse_partitioned("paged or pooled attention")
+            tp = _RankHeads(cfg, self)
 
-        q, k, v = self.qkv(cfg, x, positions, kind)
-        q = q.reshape(B, Sq, KV, G, hd)
+        q, k, v = self.qkv(cfg, x, positions, kind, tp)
+        KV = k.shape[2] if tp is None else tp.KV
+        q = q.reshape(B, Sq, KV, -1, hd)
 
         if cache is not None and "k_hot" in cache:
             core = _pool_prefill_core if paged_view.get("prefill") \
@@ -140,19 +203,28 @@ class Attention(nn.Module):
                        positions)
         elif cache is not None:
             out = _dense_core(cfg, q, k, v, cache, cache_index, paged_view,
-                              window, positions)
+                              window, positions, tp)
         else:
+            if tp is not None:
+                k, v = tp.kv_heads(k), tp.kv_heads(v)
             pos = positions[0] if positions.dim() > 1 else positions
             bias = attn_bias(positions, pos, window=window,
                              prefix_len=_prefix_len(cfg))
             if bias.dim() == 2:
                 bias = bias[None]
             out = _gqa_core(q, k, v, bias, cfg.attn_softcap)
-        return out.reshape(B, Sq, H * hd) @ self.wo
+        out = out.reshape(B, Sq, -1)
+        # where every head ran, the rank takes its block back for its row
+        # block of wo, whose product is then a partial sum
+        out = constrain(out, ("batch", "seq", "heads"),
+                        held=("batch", "seq", None)
+                        if tp is not None and tp.gather_q else None)
+        return constrain(out @ self.wo, ("batch", "seq", "embed"),
+                         partial=tp is not None and tp.q_split)
 
 
 def _dense_core(cfg, q, k, v, cache, cache_index, paged_view, window,
-                positions):
+                positions, tp=None):
     """Attention over a dense cache {"k", "v"} (B, Smax, KV*hd): the new
     rows are written in place, row-wise at a (B,) ``cache_index`` (each
     slot at its own length) or as one slice at a scalar offset, then every
@@ -162,22 +234,51 @@ def _dense_core(cfg, q, k, v, cache, cache_index, paged_view, window,
     updated cache is read through the pool layout instead
     (``_paged_decode_core``), except under ``cfg.prefix_lm``: K1 has no
     prefix mask, so the reference keeps such a decode on the dense
-    path."""
+    path.
+
+    Under a rank context (``tp``) the cache holds the rank's block of the
+    KV heads wherever the rules split them.  Where k and v were gathered,
+    the rank writes its block of them and attends over whole heads: the
+    gathered new rows after the cache's earlier rows gathered (at a scalar
+    offset only those before it, so a prefill gathers no row twice), or the
+    whole cache gathered after a per-slot write."""
     B, Sq, KV, G, hd = q.shape
     k_all, v_all = cache["k"], cache["v"]
-    write_rows(k_all, k.reshape(B, Sq, KV * hd), cache_index)
-    write_rows(v_all, v.reshape(B, Sq, KV * hd), cache_index)
-    Smax = k_all.shape[1]
+    kf, vf = k.reshape(B, Sq, -1), v.reshape(B, Sq, -1)
+    gathered = tp is not None and tp.gather_kv
+    if gathered:
+        kf, vf = (constrain(t, ("batch", "seq", "kv_heads"),
+                            held=("batch", "seq", None)) for t in (kf, vf))
+    write_rows(k_all, kf, cache_index)
+    write_rows(v_all, vf, cache_index)
     if (paged_view is not None and cfg.use_paged_decode and Sq == 1
             and cache_index is not None and not cfg.prefix_lm):
         return _paged_decode_core(cfg, q, k_all, v_all, cache_index,
                                   paged_view, window)
-    bias = attn_bias(positions, torch.arange(Smax, device=q.device),
+    k_use, v_use = k_all, v_all
+    if gathered:
+        def whole(t):
+            return constrain(t, ("batch", "kv_seq", None),
+                             held=("batch", "kv_seq", "kv_heads"))
+
+        if torch.is_tensor(cache_index) and cache_index.dim() >= 1:
+            k_use, v_use = whole(k_all), whole(v_all)
+        else:
+            off = 0 if cache_index is None else int(cache_index)
+            k_use, v_use = k.reshape(B, Sq, -1), v.reshape(B, Sq, -1)
+            if off:
+                k_use = torch.cat([whole(k_all[:, :off]), k_use], 1)
+                v_use = torch.cat([whole(v_all[:, :off]), v_use], 1)
+    S_use = k_use.shape[1]
+    bias = attn_bias(positions, torch.arange(S_use, device=q.device),
                      window=window, prefix_len=_prefix_len(cfg))
     if bias.dim() == 2:
         bias = bias[None]
-    return _gqa_core(q, k_all.reshape(B, Smax, KV, hd),
-                     v_all.reshape(B, Smax, KV, hd), bias, cfg.attn_softcap)
+    k_use = k_use.reshape(B, S_use, -1, hd)
+    v_use = v_use.reshape(B, S_use, -1, hd)
+    if tp is not None:
+        k_use, v_use = tp.kv_heads(k_use), tp.kv_heads(v_use)
+    return _gqa_core(q, k_use, v_use, bias, cfg.attn_softcap)
 
 
 def _prefix_len(cfg) -> int:
@@ -337,6 +438,7 @@ class MLA(nn.Module):
         cache whose new rows are written in place at ``cache_index`` (a
         scalar offset, 0 when None, or a (B,) tensor of per-slot offsets)
         and which every query then reads whole under the causal mask."""
+        refuse_partitioned("MLA")
         B, Sq, _ = x.shape
         H, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
                          cfg.v_head_dim)

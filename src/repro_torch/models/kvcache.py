@@ -40,6 +40,7 @@ from repro_torch.configs.base import (ATTN, LOCAL, LSTM, MAMBA, MLA, MLSTM,
                                       SHARED_ATTN, SLSTM)
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.sharding import local_shape
 
 ATTN_KINDS = (ATTN, LOCAL, SHARED_ATTN)
 # the sequence leaves of a dense cache: GQA KV and the MLA latent
@@ -49,12 +50,12 @@ SEQ_KEYS = ("k", "v", "ckv", "krope")
 def init_layer_cache(cfg, kind: str, batch: int, max_seq: int, dtype,
                      device):
     if kind in ATTN_KINDS:
-        # KV heads folded into one dim, as the reference's
-        D = cfg.num_kv_heads * cfg.head_dim
-        return {"k": torch.zeros(batch, max_seq, D, dtype=dtype,
-                                 device=device),
-                "v": torch.zeros(batch, max_seq, D, dtype=dtype,
-                                 device=device)}
+        # KV heads folded into one dim, as the reference's; under a rank
+        # context the rank's block of them where the rules split them
+        shape = local_shape((batch, max_seq, cfg.num_kv_heads * cfg.head_dim),
+                            _layer_cache_axes(kind)["k"])
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
     if kind == MLA:
         return {"ckv": torch.zeros(batch, max_seq, cfg.kv_lora_rank,
                                    dtype=dtype, device=device),

@@ -3,6 +3,13 @@ seeded initialisation (port of ``repro/models/layers.py``).
 
 Weights keep the reference's (d_in, d_out) orientation, so a projection is
 ``x @ w`` in both packages and parameters copy across unchanged.
+
+Under a rank context (``sharding.rank_context``) the MLP and the
+embeddings run on the rank's parameter blocks: the MLP column-parallel in
+and row-parallel out (its output a partial sum, all-reduced), the
+embedding vocab-parallel (a masked lookup, all-reduced), the unembedding
+leaving the logits vocab-local, as the reference's ``constrain`` sites
+lay them out.
 """
 from __future__ import annotations
 
@@ -11,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.sharding import constrain, rank_block
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
@@ -67,12 +76,17 @@ class MLP(nn.Module):
 
     def __init__(self, d_model: int, d_ff: int, *, device, dtype):
         super().__init__()
+        self.d_ff = d_ff
         self.wi = frozen(torch.empty(d_model, d_ff, device=device, dtype=dtype))
         self.wg = frozen(torch.empty(d_model, d_ff, device=device, dtype=dtype))
         self.wo = frozen(torch.empty(d_ff, d_model, device=device, dtype=dtype))
 
     def forward(self, x, act: str):
-        return (act_fn(act)(x @ self.wg) * (x @ self.wi)) @ self.wo
+        # h stays the rank's d_ff block (the reference's layers.py:98); its
+        # row block of wo then gives a partial sum
+        h = act_fn(act)(x @ self.wg) * (x @ self.wi)
+        return constrain(h @ self.wo, ("batch", "seq", "embed"),
+                         partial=self.wo.shape[0] < self.d_ff)
 
 
 # ------------------------------------------------------------- embedding ----
@@ -83,23 +97,38 @@ def embed(table, cfg, tokens):
     codebook order, as the reference's Python ``sum``.  With
     ``cfg.scale_embed`` (gemma) the result is scaled by sqrt(d) rounded to
     the table's dtype first, as the reference's ``jnp.asarray(sqrt(d),
-    x.dtype)``."""
+    x.dtype)``.  A rank holding a block of the vocab looks up the ids in
+    its block, zeros elsewhere, and the ranks' rows are summed (one id's
+    row is nonzero on one rank only, so the sum is exact)."""
+    V = table.shape[-2]
+    split = V < cfg.padded_vocab
+    v0 = rank_block("vocab") * V
+
+    def lookup(ids, t):
+        if not split:
+            return F.embedding(ids, t)
+        local = ids - v0
+        mine = (local >= 0) & (local < V)
+        rows = F.embedding(torch.where(mine, local, 0), t)
+        return rows * mine[..., None].to(rows.dtype)
+
     if cfg.num_codebooks:
-        x = F.embedding(tokens[..., 0], table[0])
+        x = lookup(tokens[..., 0], table[0])
         for k in range(1, cfg.num_codebooks):
-            x = x + F.embedding(tokens[..., k], table[k])
+            x = x + lookup(tokens[..., k], table[k])
     else:
-        x = F.embedding(tokens, table)
+        x = lookup(tokens, table)
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
-    return x
+    return constrain(x, ("batch", "seq_res", "embed"), partial=split)
 
 
 def unembed(table, cfg, x):
     """x: (B, S, d) -> logits (B, S, padded_vocab), or (B, S, K,
     padded_vocab) for K codebooks (``table`` (K, V, d)), under the final
-    softcap where the config has one (gemma2)."""
+    softcap where the config has one (gemma2).  A rank holding a block of
+    the vocab gives the logits of its block (the softcap is elementwise)."""
     if cfg.num_codebooks:
         return softcap(torch.einsum("bsd,kvd->bskv", x, table),
                        cfg.final_softcap)

@@ -93,6 +93,8 @@ class Model(nn.Module):
                                       decode=decode, paged_view=paged_view,
                                       aux=aux, **sentinel)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+        # a rank's logits stay vocab-local, as the reference's constrain
+        # (its model.py:94) leaves them
         return unembed(self.table if self.head is None else self.head, cfg,
                        x)
 

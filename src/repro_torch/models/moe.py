@@ -9,6 +9,13 @@ combines through one-hot einsums; here the same selection is a gather into
 the (G, E, C, d) expert buffers and a weighted gather back, which give the
 same kept tokens, drops and combine weights.  Shared experts (DeepSeek) run
 as one dense MLP on every token.
+
+Under a rank context (``sharding.rank_context``) a rank holding a block of
+the experts routes every token as one device does (the router is whole),
+fills and runs its own experts' buffers only, and its combine is a partial
+sum, all-reduced.  Where the experts do not divide over the ranks
+``param_spec`` keeps every expert whole (the hidden dim does not take the
+axis either), and each rank runs them all.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import MLP, act_fn, frozen
+from repro_torch.sharding import constrain, rank_block
 
 
 class MoE(nn.Module):
@@ -72,6 +80,11 @@ def moe_mlp(params, cfg, x, act: str):
     gsz, G, C = capacity(cfg, B * S)
     E, K = m.num_experts, m.experts_per_token
 
+    # the experts this rank holds: [e0, e0 + El) (all of them on one
+    # device)
+    El = params.wi.shape[0]
+    e0 = rank_block("experts") * El if El < E else 0
+
     xt = x.reshape(G, gsz, d)
     # the router's logits in the activation dtype, then float32
     logits = (xt @ params.router).float()                      # (G, gsz, E)
@@ -83,30 +96,35 @@ def moe_mlp(params, cfg, x, act: str):
     onehot = nn.functional.one_hot(idx, E).reshape(G, gsz * K, E)
     pos = ((onehot.cumsum(dim=1) - onehot) * onehot).sum(-1)   # (G, gsz*K)
     keep = pos < C
+    e_flat = idx.reshape(G, gsz * K)
+    if El < E:                                 # another rank's experts
+        keep = keep & (e_flat >= e0) & (e_flat < e0 + El)
 
     # dispatch: buffer row (g, e, c) holds the one token kept there, zeros
     # where no token landed; dropped choices write a spare last row, so no
     # step waits on the host to count them
-    e_flat = idx.reshape(G, gsz * K)
-    slot = torch.where(keep, e_flat * C + pos, E * C)          # (G, gsz*K)
+    slot = torch.where(keep, (e_flat - e0) * C + pos, El * C)  # (G, gsz*K)
     g_idx = torch.arange(G, device=x.device)[:, None].expand_as(slot)
     tok = torch.arange(gsz, device=x.device).repeat_interleave(K)
-    ex_in = x.new_zeros(G, E * C + 1, d)
+    ex_in = x.new_zeros(G, El * C + 1, d)
     ex_in[g_idx, slot] = xt[:, tok]
-    ex_in = ex_in[:, :E * C].reshape(G, E, C, d)
+    # the buffers are the rank's experts' (the reference's constrain sites
+    # at its moe.py:63-87 name that layout)
+    ex_in = ex_in[:, :El * C].reshape(G, El, C, d)
 
     h = act_fn(act)(torch.einsum("gecd,edf->gecf", ex_in, params.wg)) * \
         torch.einsum("gecd,edf->gecf", ex_in, params.wi)
-    ex_out = torch.einsum("gecf,efd->gecd", h, params.wo).reshape(G, E * C, d)
+    ex_out = torch.einsum("gecf,efd->gecd", h, params.wo).reshape(G, El * C, d)
 
     # combine: each kept choice's expert output at its weight (cast to the
     # activation dtype, as the reference's), summed over the k choices in
     # float32 and rounded once
     w = weights.to(x.dtype).reshape(G, gsz * K) * keep
-    picked = ex_out[g_idx, slot.clamp(max=E * C - 1)].float() * \
+    picked = ex_out[g_idx, slot.clamp(max=El * C - 1)].float() * \
         w.float()[..., None]
     out = picked.reshape(G, gsz, K, d).sum(dim=2).to(x.dtype) \
         .reshape(B, S, d)
+    out = constrain(out, ("batch", "seq", "embed"), partial=El < E)
     if params.shared is not None:
         out = out + params.shared(x, act)
 

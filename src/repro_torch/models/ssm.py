@@ -16,6 +16,7 @@ from torch import nn
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import frozen, rmsnorm
+from repro_torch.sharding import refuse_partitioned
 
 
 def dims(cfg):
@@ -88,6 +89,7 @@ class MambaBlock(nn.Module):
         zero, as the reference's); ``decode`` (S == 1) continues the conv
         from ``cache["conv"]`` and steps the state with ``ops.ssd_decode``.
         """
+        refuse_partitioned("a Mamba block")
         if decode and (cache is None or x.shape[1] != 1):
             raise ValueError("Mamba decode takes one token and a cache")
         z, (xh, dt, A, Bm, Cm), tail = self.ssd_inputs(

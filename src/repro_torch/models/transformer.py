@@ -58,6 +58,9 @@ class Block(nn.Module):
 
     def forward(self, cfg, x, positions, *, cache=None, cache_index=None,
                 decode=False, paged_view=None, aux=None):
+        # the reference's constrain sites at the norms and the residual
+        # (its transformer.py:106-138) move no data under a rank context:
+        # serve_rules keep the sequence and d_model whole
         h = rmsnorm(x, self.ln1, cfg.norm_eps)
         if self.kind == MLA:
             a = self.mla(cfg, h, positions, cache=cache,

@@ -21,6 +21,7 @@ from torch import nn
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import frozen, rmsnorm
 from repro_torch.models.ssm import _causal_conv
+from repro_torch.sharding import refuse_partitioned
 
 CONV_K = 4
 PROJ = 2          # mLSTM up-projection factor
@@ -67,6 +68,7 @@ class MLSTMBlock(nn.Module):
         """A prefill or forward starts the conv from zeros and the
         recurrence from the cache's state (the empty state without one);
         ``decode`` continues the conv from ``cache["conv"]``."""
+        refuse_partitioned("an mLSTM block")
         B, S, _ = x.shape
         d_inner, H, dk, dv = mlstm_dims(cfg)
         xm = x @ self.w_up
@@ -103,6 +105,7 @@ class SLSTMBlock(nn.Module):
         self.w_out = w(d, d)
 
     def forward(self, cfg, x, cache=None, decode: bool = False):
+        refuse_partitioned("an sLSTM block")
         B, S, d = x.shape
         H, D = slstm_dims(cfg)
         tail = cache["conv"] if cache is not None and decode else None
@@ -130,6 +133,7 @@ class LSTMBlock(nn.Module):
         self.w, self.b = w(2 * d, 4 * d), w(4 * d)
 
     def forward(self, cfg, x, cache=None, decode: bool = False):
+        refuse_partitioned("an LSTM block")
         B, S, d = x.shape
         if cache is not None:
             h, c = cache["h"], cache["c"]

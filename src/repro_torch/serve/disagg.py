@@ -37,10 +37,20 @@ the KV is not copied (``Tensor.to`` returns the tensor itself); the ledger
 still counts the logical edge traffic, as the reference's does.  Between
 distinct devices it is ``tensor.to(dst, non_blocking=True)``.
 
-Tensor-parallel prefill (the reference's ``tp_prefill``) needs a prefill
-partitioned over more than one GPU (ROADMAP item 11b); asked for over more
-than one prefill device it raises, and otherwise it is ignored, as the
-reference's ``bool(tp_prefill) and len(prefill_devices) > 1`` makes it.
+With ``tp_prefill=True`` and more than one prefill device, the prefill
+group runs the prompt tensor-parallel under ``sharding.serve_rules`` on a
+``("model",)`` mesh over the prefill devices (``TensorParallelPrefill``):
+every rank runs the same model code on its parameter blocks under a rank
+context, its collectives go through one ``collectives.Group``, whose
+ledger is ``engine.collectives`` and ``counters()["collectives"]``.  The
+last-row logits come back concatenated over the vocab and the fresh KV
+over the KV heads, in rank order (the prefill->decode stream, not a
+collective); the edge ledger is the same as without it.  The ranks' sums
+add in another order than one device's product does, so the logits agree
+to rounding, not bit for bit; with one prefill device the flag is ignored,
+as the reference's ``bool(tp_prefill) and len(prefill_devices) > 1``
+makes it.  A rank that fails makes the admission raise: nothing falls back
+to one device.
 
 ``price_disagg`` is the planner-side model of the same trade: a serving
 trace priced colocated against disaggregated at equal total device memory,
@@ -54,6 +64,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import collectives
+from repro_torch import sharding as shd
 from repro_torch.launch.mesh import disagg_groups
 from repro_torch.models import kvcache, model
 from repro_torch.runtime.plan import validate_slot_devices
@@ -69,6 +81,72 @@ def _params_on(params, device: torch.device):
     if next(params.parameters()).device == device:
         return params
     return copy.deepcopy(params).to(device)
+
+
+class TensorParallelPrefill:
+    """``model.prefill`` partitioned over ``devices`` (a ``("model",)``
+    mesh under ``sharding.serve_rules``; a device may repeat): each rank
+    holds its blocks of the parameters (``sharding.shard_params``) on its
+    device and runs the one-device code under a rank context, on a worker
+    thread of ``self.group``, whose ``ledger`` records what the
+    collectives moved.  A call returns (the last row's logits (B, V), the
+    caches) on ``devices[0]``, each gathered over the ranks in rank order
+    where the rules split it."""
+
+    def __init__(self, params, cfg, devices, max_seq=None):
+        self.cfg, self.max_seq = cfg, max_seq
+        self.devices = list(devices)
+        n = len(self.devices)
+        self.rules = shd.serve_rules(
+            shd.Mesh((n,), ("model",), devices=self.devices))
+        self.group = collectives.Group(self.devices)
+        self.params = [shd.shard_params(params, self.rules, {"model": r},
+                                        device=d)
+                       for r, d in enumerate(self.devices)]
+
+    @property
+    def ledger(self) -> dict:
+        return self.group.ledger
+
+    def close(self):
+        """Stop the ranks' worker threads."""
+        self.group.close()
+
+    def _rank(self, batch, r: int):
+        dev = self.devices[r]
+        ctx = shd.RankContext(self.group, r, self.rules, {"model": r})
+        with shd.rank_context(ctx):
+            return model.prefill(
+                self.params[r], self.cfg,
+                {k: v.to(dev) for k, v in batch.items()},
+                max_seq=self.max_seq)
+
+    def __call__(self, batch):
+        outs = self.group.run(lambda r: self._rank(batch, r))
+        home = self.devices[0]
+
+        def join(parts, full_dims):
+            """Rank 0's tensor, or the ranks' blocks concatenated on the
+            one dim that is shorter than its full size."""
+            t = parts[0]
+            for i, (n, full) in enumerate(zip(t.shape, full_dims)):
+                if n < full:
+                    return torch.cat([p.to(home) for p in parts], dim=i)
+            return t.to(home)
+
+        cfg = self.cfg
+        last = join([o[0] for o in outs],
+                     (*outs[0][0].shape[:-1], cfg.padded_vocab))
+        fresh = []
+        for l, entry in enumerate(outs[0][1]):
+            full = kvcache.init_layer_cache(
+                cfg, cfg.layer_kind(l), 1, 1, model.param_dtype(cfg),
+                torch.device("meta"))
+            fresh.append({
+                k: join([o[1][l][k] for o in outs],
+                        (v.shape[0], v.shape[1], *full[k].shape[2:]))
+                for k, v in entry.items()})
+        return last, fresh
 
 
 class DisaggregatedEngine(ContinuousBatcher):
@@ -90,11 +168,6 @@ class DisaggregatedEngine(ContinuousBatcher):
         self.decode_devices = list(decode_devs)
         self.decode_device = decode_devs[0]
         self.n_shards = len(self.decode_devices)
-        if tp_prefill and len(self.prefill_devices) > 1:
-            raise NotImplementedError(
-                "tensor-parallel prefill over the prefill group needs a "
-                "partitioned prefill over more than one GPU (ROADMAP, "
-                "modules to port: item 11b)")
         super().__init__(_params_on(params, self.decode_device), cfg,
                          batch_slots, max_seq, scfg=scfg, plan=plan,
                          paged=True, slot_tenants=slot_tenants,
@@ -156,13 +229,23 @@ class DisaggregatedEngine(ContinuousBatcher):
         # one staging slot on the prefill side: a request's pages are born
         # there and migrate to their decode slot as one tier transition
         self._stage = self.mesh_table.gslot(0, 0)
-        self.params_prefill = _params_on(self.params, self.prefill_device)
         base_prefill = self._prefill
+        self.tp_prefill = bool(tp_prefill) and len(self.prefill_devices) > 1
+        if self.tp_prefill:
+            self._tp = TensorParallelPrefill(self.params, cfg,
+                                             self.prefill_devices, max_seq)
+        else:
+            self.params_prefill = _params_on(self.params,
+                                             self.prefill_device)
 
         def prefill_remote(p, batch):
             del p                              # the decode side's params
-            batch = {k: v.to(self.prefill_device) for k, v in batch.items()}
-            last, fresh = base_prefill(self.params_prefill, batch)
+            if self.tp_prefill:
+                last, fresh = self._tp(batch)
+            else:
+                batch = {k: v.to(self.prefill_device)
+                         for k, v in batch.items()}
+                last, fresh = base_prefill(self.params_prefill, batch)
             # the first token decodes from the last row on the decode side;
             # the KV streams over the prefill->decode edge in _admit_pool,
             # to the owning shard's device (no copy where the two alias)
@@ -333,6 +416,19 @@ class DisaggregatedEngine(ContinuousBatcher):
                 if v > peaks.get(k, 0):
                     peaks[k] = v
 
+    def close(self):
+        """Stop the tensor-parallel prefill's rank threads (nothing to stop
+        without it)."""
+        if self.tp_prefill:
+            self._tp.close()
+
+    @property
+    def collectives(self) -> dict:
+        """What the tensor-parallel prefill's collectives moved
+        (``collectives.Group.ledger``); all zeros without it."""
+        return self._tp.ledger if self.tp_prefill \
+            else collectives.new_ledger()
+
     @property
     def xdev_migration_bytes(self) -> float:
         """Bytes that crossed a prefill->decode edge (equal to
@@ -356,6 +452,7 @@ class DisaggregatedEngine(ContinuousBatcher):
         out["xdev_migration_bytes"] = self.xdev_migration_bytes
         out["edge_migration_bytes"] = self.edge_migration_bytes
         out["device_hot_peak"] = dict(self.device_hot_peak)
+        out["collectives"] = {k: dict(v) for k, v in self.collectives.items()}
         return out
 
 

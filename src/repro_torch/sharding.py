@@ -11,18 +11,27 @@ entry per leading dim: None (replicated), a mesh axis name, or a tuple of
 names (one dim over their product); trailing dims it does not name are
 replicated, as in a ``PartitionSpec``.
 
-Not here: ``constrain`` (the reference's ``with_sharding_constraint`` on
-activations) and any partitioned execution.  An eager program on one card
-has no counterpart for them; they wait for tensor-parallel execution
-(ROADMAP item 11b).
+Partitioned execution (tensor parallelism over the ``model`` axis) runs
+the same model code on every rank of a ``collectives.Group``, each rank on
+its own thread under a ``RankContext`` (``rank_context``):
+``shard_params`` gives each rank its block of every parameter, cut by
+``param_spec``, so the rules' divisibility drop decides what splits, as
+the reference's ``_divisible`` does.  ``constrain`` is the reference's
+``with_sharding_constraint``: the identity with no rank context, and
+under one it makes a tensor hold the layout its logical axes name -- a
+partial sum is all-reduced, a dim held split that the target keeps whole
+is all-gathered, a dim held whole that the target splits is cut to the
+rank's block.  Only the ``model`` axis moves data: the rank's other dims
+(the batch over ``data``) are already its own.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 import threading
 from dataclasses import dataclass
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Any, Mapping, Optional, Sequence, Tuple
 
 _state = threading.local()
 
@@ -265,3 +274,143 @@ def serve_rules(mesh: Mesh, seq_shard: bool = False) -> AxisRules:
         r.rules["kv_seq"] = data_axes if len(data_axes) > 1 else data_axes[0]
         r.rules["batch"] = None
     return r
+
+
+# Partitioned execution -------------------------------------------------------
+
+@dataclass
+class RankContext:
+    """One rank of a partitioned program: its ``group``
+    (``collectives.Group``, or ``ShapeGroup`` on meta) over the ``model``
+    axis, its ``rank`` in the group (``coords["model"]``), the ``rules``
+    and its ``coords`` on every mesh axis."""
+    group: Any
+    rank: int
+    rules: AxisRules
+    coords: Mapping[str, int]
+
+    @property
+    def size(self) -> int:
+        return self.rules.mesh.shape["model"]
+
+
+@contextlib.contextmanager
+def rank_context(ctx: Optional[RankContext]):
+    """Run the body as ``ctx``'s rank (thread-local, like ``axis_rules``)."""
+    prev = getattr(_state, "rank", None)
+    _state.rank = ctx
+    try:
+        yield
+    finally:
+        _state.rank = prev
+
+
+def current_rank() -> Optional[RankContext]:
+    return getattr(_state, "rank", None)
+
+
+def refuse_partitioned(what: str):
+    """Raise under a rank context: ``what`` has no tensor-parallel program
+    yet (the MLA, Mamba, xLSTM and LSTM layers, the page pools)."""
+    if current_rank() is not None:
+        raise NotImplementedError(
+            f"{what} under a rank context: its tensor-parallel program "
+            f"waits for ROADMAP item 11b, second half")
+
+
+def _index(entry, coords: Mapping[str, int], mesh: Mesh) -> int:
+    """A position's block index along ``entry``'s mesh axes (row-major)."""
+    idx = 0
+    for a in _axes_of(entry):
+        idx = idx * mesh.shape[a] + coords.get(a, 0)
+    return idx
+
+
+def _on_group(spec: tuple) -> list:
+    """Per dim: whether ``spec`` splits it over the ``model`` axis."""
+    out = []
+    for e in spec:
+        axes = _axes_of(e) if e is not None else ()
+        if "model" in axes and len(axes) > 1:
+            raise NotImplementedError(
+                f"a dim split over {e}: a rank group spans model alone")
+        out.append("model" in axes)
+    return out
+
+
+def rank_block(logical: str) -> int:
+    """The rank's block index along the mesh axes the rules map the
+    logical axis to (0 with no rank context or where they keep it
+    whole)."""
+    ctx = current_rank()
+    if ctx is None:
+        return 0
+    entry = ctx.rules.spec((logical,))[0]
+    return 0 if entry is None else _index(entry, ctx.coords, ctx.rules.mesh)
+
+
+def local_shape(shape: Sequence[int], logical: Sequence[Optional[str]]):
+    """The rank's block of a tensor the rank makes itself (a cache):
+    ``shape``'s dims that the rules split over the ``model`` axis divided by
+    its size; ``shape`` itself with no rank context."""
+    ctx = current_rank()
+    if ctx is None:
+        return tuple(shape)
+    split = _on_group(ctx.rules.spec(logical, shape))
+    return tuple(n // ctx.size if s else n for n, s in zip(shape, split))
+
+
+def constrain(x, logical: Sequence[Optional[str]], *, partial: bool = False,
+              held: Optional[Sequence[Optional[str]]] = None):
+    """The reference's ``constrain``: ``x`` itself with no rank context.
+    Under one, ``x`` (this rank's tensor, laid out as the logical axes
+    ``held`` name, default ``logical``) is made to hold ``logical``'s
+    layout: all-reduced first when it is a ``partial`` sum (a product
+    whose contracted dim the rank holds a block of), then all-gathered on
+    each dim it holds split that ``logical`` keeps whole, and cut to the
+    rank's block on each dim it holds whole that ``logical`` splits."""
+    ctx = current_rank()
+    if ctx is None:
+        return x
+    if partial:
+        x = ctx.group.all_reduce(ctx.rank, x)
+    if held is None or tuple(held) == tuple(logical):
+        return x
+    n = ctx.size
+    full = [d * n if s else d
+            for d, s in zip(x.shape, _on_group(ctx.rules.spec(held)))]
+    cur = _on_group(ctx.rules.spec(held, full))
+    tgt = _on_group(ctx.rules.spec(logical, full))
+    for i, (c, t) in enumerate(zip(cur, tgt)):
+        if c and not t:
+            x = ctx.group.all_gather(ctx.rank, x, i)
+        elif t and not c:
+            x = x.narrow(i, ctx.rank * (full[i] // n), full[i] // n)
+    return x
+
+
+def shard_params(module, rules: AxisRules, coords: Mapping[str, int],
+                 device=None):
+    """A copy of ``module`` whose every parameter is the block the mesh
+    position ``coords`` holds under ``rules`` (``param_spec`` on the
+    leaf's logical axes, so a dim the mesh-axis product does not divide
+    stays whole), on ``device`` (default: where it is).  The blocks are
+    views of the module's parameters where they stay on its device; the
+    module's structure, shared blocks included, is kept."""
+    from repro_torch.models.layers import frozen, param_axes
+    axes = param_axes(module)
+    memo = {}
+    for name, p in module.named_parameters():
+        spec = param_spec(tuple(name.split(".")), axes[name],
+                          tuple(p.shape), rules).spec
+        blk = p.detach()
+        for i, e in enumerate(spec):
+            if e is None:
+                continue
+            size = math.prod(rules.mesh.shape[a] for a in _axes_of(e))
+            n = blk.shape[i] // size
+            blk = blk.narrow(i, _index(e, coords, rules.mesh) * n, n)
+        if device is not None:
+            blk = blk.to(device)
+        memo[id(p)] = frozen(blk.contiguous())
+    return copy.deepcopy(module, memo)

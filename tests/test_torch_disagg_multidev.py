@@ -4,8 +4,10 @@ The reference's two-shard scenario (tests/test_disagg_multidev.py) needs
 four JAX host devices, forced by ``XLA_FLAGS`` before JAX is imported, so
 it runs in a subprocess of its own that prints one JSON record.  Its
 tiered pools need the R1 patch (ROADMAP R1), which the scenario script
-applies before it builds an engine; it leaves out the reference's
-tensor-parallel prefill, which the port does not have (ROADMAP item 11b).
+applies before it builds an engine.  The same subprocess runs the
+reference's tensor-parallel prefill (its engine's and each reduced
+family's over 2 and 4 devices) and compiles the dry run's serve cells, so
+the port's TP prefill and its collective ledger are held to them.
 The port runs the same scenario in this process with
 ``devices=[cpu] * 4`` (two decode shards and two prefill devices, all
 aliases of the CPU): its group sizes, shard count, tokens, per-edge ledger,
@@ -19,6 +21,7 @@ token recovery, its refusals and its multi-shard mesh, the packing replay
 fuzz) run here on both packages, the machine crossed over from the
 reference's TPU_V5E_COST (``CostModel.from_dict``) or its HWSpec fields.
 """
+import copy
 import dataclasses
 import json
 import os
@@ -59,6 +62,19 @@ PORT = types.SimpleNamespace(
     tpu=T_hw.HWSpec(**dataclasses.asdict(R_hw.TPU_V5E)))
 
 MAX_SEQ, SLOTS, REPLAN_AT = 32, 4, 3
+# the reduced families the tensor-parallel prefill runs on, and the dry
+# run's serve cells (arch, kind, (data, model) mesh, global batch) whose
+# collectives the reference's compiled programs are held to
+FAMILIES = ("smollm-360m", "gemma2-2b", "gemma3-12b", "internlm2-1.8b",
+            "granite-moe-3b-a800m")
+CELLS = [(a, k, (2, 2), 4) for a in FAMILIES for k in ("prefill", "decode")] \
+    + [("smollm-360m", "prefill", (1, 4), 1)]
+# the reduced smollm with 3/1 heads of 16: a 2- or 4-way split of its 48
+# query and 16 KV columns cuts a head, as it cuts full-width smollm's 15/5
+# heads of 64, so the TP prefill gathers q, k and v
+CUT = "smollm-360m+cut"
+CUT_HEADS = {"num_heads": 3, "num_kv_heads": 1}
+TP_ARCHS = FAMILIES + (CUT,)
 
 SCENARIO = textwrap.dedent("""
     import os
@@ -79,6 +95,9 @@ SCENARIO = textwrap.dedent("""
     # ROADMAP R1: this JAX's host memory kind cannot mix with device
     # arrays in eager ops; the pools fall back to device memory
     kvcache.host_memory_kind = lambda: None
+    TP_ARCHS = TP_ARCHS_LIST
+    CUT_HEADS = CUT_HEADS_DICT
+    CELLS = CELLS_LIST
 
     rec = {}
     devs = jax.devices()
@@ -153,8 +172,84 @@ SCENARIO = textwrap.dedent("""
     rec["mig_eng"] = b2.sim_migration_bytes
     rec["series_eng"] = c["step_migration_bytes"]
     rec["host_internal"] = b2.mesh_table.host_internal_bytes
+
+    # tensor-parallel prefill over the prefill group, and what the
+    # compiled programs' collectives move (dryrun.collective_bytes; its
+    # module forces 512 host devices on import, which no longer applies
+    # once the backend has started)
+    import numpy as np
+    from repro import sharding as shd
+    from repro.configs.base import ShapeConfig
+    from repro.launch import specs
+    from repro.launch.dryrun import collective_bytes
+    from repro.launch.mesh import make_rules
+
+    def coll(c, txt):
+        return collective_bytes(
+            txt, loop_trips=float(c.num_periods + len(c.prologue)))["bytes"]
+
+    b_tp = DisaggregatedEngine(params, cfg, slots, max_seq, plan=plan,
+                               devices=devs, tp_prefill=True)
+    rec["tp_on"] = bool(b_tp.tp_prefill)
+    toks = jnp.asarray(reqs[0][0], jnp.int32)[None]
+    rec["tp_last"] = np.asarray(
+        b_tp._prefill(None, {"tokens": toks})[0]).tolist()
+    rec["one_last"] = np.asarray(
+        b2._prefill(None, {"tokens": toks})[0]).tolist()
+    f = jax.jit(lambda p, b: model.prefill(p, cfg, b, max_seq=max_seq))
+    with b_tp._prefill_mesh, shd.axis_rules(b_tp._prefill_rules):
+        rec["tp_coll"] = coll(cfg, f.lower(b_tp.params_prefill,
+                                           {"tokens": toks}).compile()
+                              .as_text())
+    rec["out_tp"] = drive(b_tp)
+    rec["edges_tp"] = {f"{s}->{d}": v for (s, d), v in
+                       b_tp.counters()["edge_migration_bytes"].items()}
+
+    fam = {}
+    for name in TP_ARCHS:
+        arch, _, cut = name.partition("+")
+        c = get_config(arch).reduced()
+        if cut:
+            c = dataclasses.replace(c, **CUT_HEADS)
+        p, _ = split_params(model.init_params(jax.random.PRNGKey(0), c))
+        t = jax.random.randint(jax.random.PRNGKey(5), (1, 12), 0,
+                               c.vocab_size)
+        f = jax.jit(lambda p, b, c=c: model.prefill(p, c, b, max_seq=32))
+        sds, axes = specs.param_structs(c)
+        for n in (2, 4):
+            mesh = jax.sharding.Mesh(np.asarray(devs[:n]), ("model",))
+            rules = shd.serve_rules(mesh)
+            ptp = jax.device_put(p, specs.shardings_from_axes(axes, rules,
+                                                              sds))
+            with mesh, shd.axis_rules(rules):
+                last, _ = f(ptp, {"tokens": t})
+                txt = f.lower(ptp, {"tokens": t}).compile().as_text()
+            fam[f"{name}/{n}"] = {"tokens": np.asarray(t).tolist(),
+                                  "last": np.asarray(last).tolist(),
+                                  "coll": coll(c, txt)}
+    rec["families_tp"] = fam
+
+    cells = {}
+    for arch, kind, mesh_shape, batch in CELLS:
+        c = get_config(arch).reduced()
+        mesh = jax.sharding.Mesh(
+            np.asarray(devs[:mesh_shape[0] * mesh_shape[1]])
+            .reshape(mesh_shape), ("data", "model"))
+        rules = make_rules(mesh, kind=kind)
+        shape = ShapeConfig("tiny", 16, batch, kind)
+        build = specs.build_prefill_cell if kind == "prefill" \
+            else specs.build_decode_cell
+        with mesh, shd.axis_rules(rules):
+            fn, args, in_sh = build(c, shape, rules)
+            txt = jax.jit(fn, in_shardings=in_sh).lower(*args).compile() \
+                .as_text()
+        cells[f"{arch}/{kind}/{mesh_shape}"] = coll(c, txt)
+    rec["cells"] = cells
     print(json.dumps(rec))
-""").replace("REPLAN_AT", str(REPLAN_AT))
+""").replace("REPLAN_AT", str(REPLAN_AT)) \
+    .replace("TP_ARCHS_LIST", repr(TP_ARCHS)) \
+    .replace("CUT_HEADS_DICT", repr(CUT_HEADS)) \
+    .replace("CELLS_LIST", repr(CELLS))
 
 
 def _edges(d):
@@ -226,9 +321,21 @@ def port(reference):
                  reqs, R.PlacementPlan.from_json(reference["plan"]),
                  plan_schedule=[(REPLAN_AT, R.PlacementPlan.from_json(
                      reference["plan2"]))], **common)]
-    return dict(b2=b2, out_2=out_2, out_ref=out_ref, plans=(plan, plan2),
+    b_tp = T_disagg.DisaggregatedEngine(params, cfg, SLOTS, MAX_SEQ,
+                                        plan=plan, devices=devices,
+                                        tp_prefill=True)
+    toks = torch.tensor(reqs[0][0])[None]
+    tp_last = b_tp._prefill(None, {"tokens": toks})[0]
+    one_last = b2._prefill(None, {"tokens": toks})[0]
+    tp_coll = copy.deepcopy(b_tp.collectives)
+    out_tp = drive(b_tp)
+    pred_tp = T_engine.predict_pool_counters(reqs, plan, **common)
+    yield dict(b2=b2, out_2=out_2, out_ref=out_ref, plans=(plan, plan2),
                 preds=preds, groups=[len(g) for g in disagg_groups(devices)],
-                params=params, cfg=cfg)
+                params=params, cfg=cfg, b_tp=b_tp, tp_last=tp_last,
+                one_last=one_last, tp_coll=tp_coll, out_tp=out_tp,
+                pred_tp=pred_tp)
+    b_tp.close()
 
 
 def test_plans_equal_the_reference(reference, port):
@@ -289,19 +396,181 @@ def test_replay_parity_across_shards(reference, port):
 
 
 def test_tp_prefill_waits_for_the_sharding_rules(port):
-    """Tensor-parallel prefill over two prefill devices raises, naming
-    ROADMAP item 11b; with one prefill device it is ignored, as in the
-    reference."""
+    """Tensor-parallel prefill runs under the sharding rules over two
+    prefill devices (a ("model",) mesh under ``serve_rules``); with one
+    prefill device it is ignored, as in the reference."""
+    b = port["b_tp"]
+    assert b.tp_prefill and len(b.prefill_devices) == 2
+    assert b._tp.rules.mesh.shape == {"model": 2}
+    assert b.counters()["collectives"]["bytes"]["all-reduce"] > 0
     params, cfg = port["params"], port["cfg"]
-    plan = port["plans"][0]
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        T_disagg.DisaggregatedEngine(params, cfg, SLOTS, MAX_SEQ, plan=plan,
-                                     devices=[torch.device("cpu")] * 4,
-                                     tp_prefill=True)
-    b = T_disagg.DisaggregatedEngine(
-        params, cfg, SLOTS, MAX_SEQ, plan=plan,
+    one = T_disagg.DisaggregatedEngine(
+        params, cfg, SLOTS, MAX_SEQ, plan=port["plans"][0],
         devices=[torch.device("cpu")] * 3, tp_prefill=True)
-    assert b.n_shards == 2 and len(b.prefill_devices) == 1
+    assert one.n_shards == 2 and len(one.prefill_devices) == 1
+    assert not one.tp_prefill
+    assert one.counters()["collectives"] == \
+        {"bytes": dict.fromkeys(one.collectives["bytes"], 0.0),
+         "counts": dict.fromkeys(one.collectives["counts"], 0)}
+
+
+def _nonzero(ledger_bytes):
+    return {k: v for k, v in ledger_bytes.items() if v}
+
+
+def test_tp_prefill_equals_the_reference_and_one_device(reference, port):
+    """The 12-token prompt's last-row logits from the port's TP prefill
+    over two ranks against the reference's TP prefill and the port's
+    one-device prefill (1e-4), and its collectives against the
+    reference's compiled program: 15,360 B of all-reduce (5 executions of
+    a (1, 12, 64) f32 tensor: the embedding and each layer's two row-split
+    products), nothing else."""
+    tp, one = port["tp_last"], port["one_last"]
+    ref_tp = torch.tensor(reference["tp_last"])
+    assert reference["tp_on"]
+    torch.testing.assert_close(tp, ref_tp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(tp, one, atol=1e-4, rtol=0)
+    # the reference's docstring says "~1e-6"; on this prompt its drift
+    # measured 2.15e-6 and 2.26e-6 on two CPU hosts (ROADMAP R12)
+    drift = float((ref_tp - torch.tensor(reference["one_last"])).abs().max())
+    assert 0 < drift < 1e-5
+    assert _nonzero(reference["tp_coll"]) == {"all-reduce": 15360.0}
+    assert _nonzero(port["tp_coll"]["bytes"]) == {"all-reduce": 15360.0}
+    assert port["tp_coll"]["counts"]["all-reduce"] == 5
+
+
+def test_tp_engine_tokens_and_ledger_equal_the_reference(reference, port):
+    """With ``tp_prefill=True`` the engine's greedy tokens are the
+    reference's (its ``tp_tokens_equal``: the colocated all-hot run's) and
+    its per-edge ledger is the reference's and the replay's, exactly."""
+    assert port["out_tp"] == reference["out_tp"] == reference["out_ref"]
+    b = port["b_tp"]
+    b.mesh_table.check()
+    edges = _edges(b.edge_migration_bytes)
+    assert edges == reference["edges_tp"] == \
+        _edges(port["pred_tp"]["edge_migration_bytes"])
+    assert b.collectives["counts"]["all-reduce"] > 5
+
+
+# XLA's own resharding, pinned (ROADMAP R12): at 4 ranks the reduced
+# configs' 32 KV columns split into 8, half a 16-wide head; the port
+# gathers k and v (2 layers a period x (k + v) x (1, 12, 32) f32), XLA
+# reshards with all-gather, all-to-all and collective-permute, and on
+# gemma3 adds 576 B to its all-reduce.  Where the split cuts CUT's query
+# heads, at 2 and 4 ranks, the port gathers q, k and v ((1, 12, 48 + 16 +
+# 16) f32 a layer) and XLA reshards too, its all-reduce 24,576 B to the
+# port's 15,360 (at full width it runs the port's program: ROADMAP R12)
+XLA_OWN = {
+    ("smollm-360m", 4): {"all-gather": 8192.0, "all-to-all": 1536.0,
+                         "collective-permute": 768.0},
+    ("internlm2-1.8b", 4): {"all-gather": 8192.0, "all-to-all": 1536.0,
+                            "collective-permute": 768.0},
+    ("granite-moe-3b-a800m", 4): {"all-gather": 8192.0, "all-to-all": 1536.0,
+                                  "collective-permute": 768.0},
+    ("gemma2-2b", 4): {"all-gather": 16384.0, "all-to-all": 3072.0,
+                       "collective-permute": 1536.0},
+    ("gemma3-12b", 4): {"all-gather": 49152.0, "all-to-all": 9216.0,
+                        "collective-permute": 4608.0,
+                        "all-reduce": 77376.0},
+    (CUT, 2): {"all-gather": 9216.0, "all-to-all": 6144.0,
+               "collective-permute": 3072.0, "all-reduce": 24576.0},
+    (CUT, 4): {"all-gather": 9216.0, "all-to-all": 3072.0,
+               "collective-permute": 3840.0, "all-reduce": 24576.0},
+}
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name", TP_ARCHS)
+def test_family_tp_prefill_equals_the_reference(reference, name, n):
+    """Each reduced family's TP prefill of a 12-token prompt on ``[cpu] *
+    n`` against the reference's over n forced devices (1e-4), and the
+    ledger against the reference's ``collective_bytes``: equal type for
+    type at 2 ranks; at 4, the all-reduce bytes equal where XLA does not
+    reshard them and both sides pinned where it does.  ``CUT``'s heads
+    are cut at both counts: its q, k and v are gathered."""
+    rec = reference["families_tp"][f"{name}/{n}"]
+    arch, _, cut = name.partition("+")
+    cfg_j = ref_config(arch).reduced()
+    cfg = get_config(arch).reduced()
+    if cut:
+        cfg_j = dataclasses.replace(cfg_j, **CUT_HEADS)
+        cfg = dataclasses.replace(cfg, **CUT_HEADS)
+    params_j, _ = split_params(ref_model.init_params(jax.random.PRNGKey(0),
+                                                     cfg_j))
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, params_j),
+                             device="cpu")
+    tp = T_disagg.TensorParallelPrefill(params, cfg,
+                                        [torch.device("cpu")] * n, 32)
+    last, _ = tp({"tokens": torch.tensor(rec["tokens"])})
+    tp.close()
+    torch.testing.assert_close(last, torch.tensor(rec["last"]), atol=1e-4,
+                               rtol=0)
+    port = _nonzero(tp.ledger["bytes"])
+    ref = _nonzero(rec["coll"])
+    layers = cfg.num_layers
+    row = 12 * cfg.d_model * 4
+    assert port["all-reduce"] == (2 * layers + 1) * row
+    pinned = XLA_OWN.get((name, n))
+    if pinned is None:
+        assert port == ref
+        return
+    # the port gathers q, k and v where the split cuts a query head, else
+    # k and v: (1, 12, their columns) f32 a layer
+    heads = cfg.num_heads + 2 * cfg.num_kv_heads if cut \
+        else 2 * cfg.num_kv_heads
+    assert port == {"all-reduce": (2 * layers + 1) * row,
+                    "all-gather": layers * 12 * heads * cfg.head_dim * 4}
+    assert ref == {"all-reduce": port["all-reduce"], **pinned}
+
+
+# the reference gathers granite's MoE tokens over the data axis (a
+# dispatch group spans the global batch); the port's rank keeps its own
+# batch's groups
+XLA_OWN_CELLS = {
+    "granite-moe-3b-a800m/prefill/(2, 2)": {"all-gather": 169984.0},
+    "granite-moe-3b-a800m/decode/(2, 2)": {"all-gather": 2944.0},
+    "smollm-360m/prefill/(1, 4)": {"all-gather": 4096.0,
+                                   "all-to-all": 2048.0,
+                                   "collective-permute": 1024.0},
+}
+
+
+@pytest.mark.parametrize("arch,kind,mesh_shape,batch", CELLS)
+def test_dryrun_cell_collectives_equal_the_reference(reference, arch, kind,
+                                                     mesh_shape, batch):
+    """The dry run's serve cells on a (data, model) mesh under
+    ``make_rules``, reduced fp32, S 16: the port's ``collectives`` of mesh
+    position (0, 0) against the reference's ``collective_bytes`` of the
+    compiled cell, type for type (40,960 B and 2,560 B on the 2 x 2
+    mesh for smollm-360m and internlm2-1.8b); XLA's own resharding
+    pinned beside the port's."""
+    from repro_torch import sharding as shd
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_rules
+    key = f"{arch}/{kind}/{mesh_shape}"
+    ref = _nonzero(reference["cells"][key])
+    cfg = get_config(arch).reduced()
+    rules = make_rules(shd.Mesh(mesh_shape, ("data", "model")), kind=kind)
+    build = specs.build_prefill_cell if kind == "prefill" \
+        else specs.build_decode_cell
+    fn, args, in_sh = build(cfg, ShapeConfig("tiny", 16, batch, kind), rules)
+    port = _nonzero(dryrun.rank_collectives(fn, args, in_sh, rules)["bytes"])
+    rows = (batch // mesh_shape[0]) * (16 if kind == "prefill" else 1)
+    reduce = (2 * cfg.num_layers + 1) * rows * cfg.d_model * 4
+    assert port["all-reduce"] == ref["all-reduce"] == reduce
+    if mesh_shape == (2, 2) and arch in ("smollm-360m", "internlm2-1.8b"):
+        assert port == {"all-reduce": 40960.0 if kind == "prefill"
+                        else 2560.0}
+    pinned = XLA_OWN_CELLS.get(key)
+    if pinned is None:
+        assert port == ref
+        return
+    assert ref == {"all-reduce": reduce, **pinned}
+    # the port gathers the reduced smollm's k and v at 4 ranks, as in its
+    # TP prefill
+    assert port == ({"all-reduce": reduce, "all-gather": 8192.0}
+                    if mesh_shape == (1, 4) else {"all-reduce": reduce})
 
 
 # ---------------------------------------------------- in-process cases ----
