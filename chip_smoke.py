@@ -278,6 +278,22 @@ Phases, each printing its own lines:
          logits no farther from an fp32 one-device prefill than 1.5 times
          the bf16 one-device prefill's; each admission's ms with and
          without TP and the tokens' agreement printed.
+  12. the partitioned train step (train.loop.PartitionedStep: TP and DP
+     over a (data, model) mesh, FSDP; ROADMAP item 11b part 1), last:
+     12a. smollm-360m and granite-moe-3b reduced in fp32, one step on a
+         (2, 2) mesh of [cuda:0] * 4 against the same on [cpu] * 4 and the
+         card's one-device step, in each mode at MI 1 (offload with pinned
+         moments), FSDP off and on: loss, gradient norm and every
+         reassembled parameter within atol 1e-4, ledgers == the CPU's,
+         every replicated leaf equal across its ranks (a lost rank context
+         or a backward on autograd's shared device thread fails here);
+     12b. smollm-360m at full width and depth, bf16, B 4 x S 1024, two
+         steps in full and two in offload at phase 5c's planned MI, on
+         (2, 2) of [cuda:0] * 4 with FSDP against the card's one-device
+         step: loss and gradient norm within 2**-10 and 2**-6 of it,
+         offload == full, the ledger == train_expected_ledger's closed
+         form, each rank's carries == estimate_offload_traffic; step ms
+         and peak memory printed.  K1-K4 launch 0 times.
 
 Every kernel time is the median over launches that each follow an L2
 flush and a device-side spin, so the events time the card's work and not
@@ -290,6 +306,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -299,6 +316,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -3249,6 +3267,106 @@ def _tp_expected_bytes(cfg, tokens: int, n: int) -> dict:
     return out
 
 
+def train_expected_ledger(cfg, B: int, S: int, D: int, M: int, *,
+                          blocked: bool, fsdp: bool) -> dict:
+    """The ledger's closed form for one partitioned train step of a dense
+    GQA stack (ATTN/LOCAL layers, no QK-norm, no MoE) on a (D, M) (data,
+    model) mesh under tp_dp_rules, B x S tokens: mesh position (0, 0)'s
+    collectives, per-device result bytes and executions by type.  With
+    T = B / D x S tokens a rank and e bytes an element, per layer forward:
+    an all-reduce of (T, d) after each row-split product (wo where the
+    query columns split, the MLP's wo where d_ff splits); q gathered
+    (T, H hd) where the split cuts a head, k and v (T, KV hd) each where
+    the KV columns do not split into the KV heads the rank's queries
+    read.  Backward: an all-reduce of (T, d) at each split product's
+    input (Megatron's f: the attention's q, k, v share one where k and v
+    split, else k and v (T, KV hd) each get one; the MLP's), a
+    reduce-scatter (T, cols / M) for each gather.  The embedding (vocab
+    split): an all-reduce of (T, d) forward, and the unembedding's f an
+    all-reduce of (T, d) backward; the vocab-parallel loss, a max of (T)
+    and a sum of (2, T) in float32.  FSDP: every leaf with a d_model dim
+    gathered over data where it is used (its model block, e bytes an
+    element), once a forward, and reduce-scattered to its block back (/
+    D); without FSDP the gradients (every leaf's model block) summed over
+    data in one all-reduce.  The loss averaged over data (4 B); the
+    clip's norm one 4-byte all-reduce per set of split axes (model; with
+    FSDP data and data x model).  Blocked modes run each layer's forward
+    collectives twice (the backward's recompute)."""
+    assert cfg.moe is None and not cfg.qk_norm and not cfg.prologue
+    e = 2 if cfg.dtype == "bfloat16" else 4
+    d, H, KV, hd, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    V, L = cfg.padded_vocab, cfg.num_layers
+    T = B // D * S
+    led = {"bytes": {}, "counts": {}}
+
+    def add(kind, nbytes, n=1):
+        led["bytes"][kind] = led["bytes"].get(kind, 0.0) + float(nbytes) * n
+        led["counts"][kind] = led["counts"].get(kind, 0) + n
+
+    split = (lambda n: M > 1 and n % M == 0)
+    q_split, kv_split, mlp_split, v_split = (
+        split(H * hd), split(KV * hd), split(F), split(V))
+    Mq, Mk, Mf, Mv = (M if s else 1 for s in
+                      (q_split, kv_split, mlp_split, v_split))
+    # the rank's heads (sharding: _RankHeads at position (0, 0))
+    qc, G = H * hd // Mq, H // KV
+    Hl = qc // hd
+    whole = q_split and qc % hd == 0 and (Hl % G == 0 or G % Hl == 0)
+    gather_q = q_split and not whole
+    KVl = max(1, Hl // G) if whole else KV
+    gather_kv = kv_split and KV * hd // Mk != KVl * hd
+    layer_fwd, layer_bwd = [], []
+    if q_split:
+        layer_fwd.append(("all-reduce", T * d * e))
+        if kv_split:
+            layer_bwd.append(("all-reduce", T * d * e))
+        else:
+            layer_bwd += [("all-reduce", T * d * e)] + \
+                [("all-reduce", T * KV * hd * e)] * 2
+    if gather_q:
+        layer_fwd.append(("all-gather", T * H * hd * e))
+        layer_bwd.append(("reduce-scatter", T * H * hd // M * e))
+    if gather_kv:
+        layer_fwd += [("all-gather", T * KV * hd * e)] * 2
+        layer_bwd += [("reduce-scatter", T * KV * hd // M * e)] * 2
+    if mlp_split:
+        layer_fwd.append(("all-reduce", T * d * e))
+        layer_bwd.append(("all-reduce", T * d * e))
+    # each leaf's model block (elements), one layer's, then the rest
+    layer_leaves = [d, d, d * H * hd // Mq, d * KV * hd // Mk,
+                    d * KV * hd // Mk, H * hd // Mq * d,
+                    d * F // Mf, d * F // Mf, F // Mf * d]
+    other = [V // Mv * d, d] + ([] if cfg.tie_embeddings else [V // Mv * d])
+    with_fsdp = fsdp and D > 1 and d % D == 0
+    if with_fsdp:
+        layer_fwd += [("all-gather", n * e) for n in layer_leaves]
+        layer_bwd += [("reduce-scatter", n // D * e) for n in layer_leaves]
+    for kind, nbytes in layer_fwd * (2 if blocked else 1) + layer_bwd:
+        add(kind, nbytes, L)
+    if v_split:
+        add("all-reduce", T * d * e, 2)            # embedding; unembed's f
+        add("all-reduce", T * 4)                    # the loss's max
+        add("all-reduce", 2 * T * 4)                # its sums
+    if with_fsdp:
+        for n in other:
+            add("all-gather", n * e)
+            add("reduce-scatter", n // D * e)
+    if D > 1:
+        if not with_fsdp:
+            add("all-reduce", (L * sum(layer_leaves) + sum(other)) * e)
+        add("all-reduce", 4)                        # the loss
+    # the clip's norm: one per set of split axes
+    norm_sets = 0
+    if with_fsdp:
+        norm_sets = 2 if M > 1 else 1
+    elif M > 1 and (q_split or mlp_split or v_split):
+        norm_sets = 1
+    add("all-reduce", 4, norm_sets) if norm_sets else None
+    return {k: {t: v for t, v in led[k].items() if v}
+            for k in ("bytes", "counts")}
+
+
 def tp_family(name, cfg, params, plan, reqs, card):
     """Phase 11b, one model at full width: ``reqs`` on 8 slots of 1024,
     page 16, under ``plan`` (two decode shards), through the disaggregated
@@ -3402,6 +3520,437 @@ def check_tp(card):
     torch.cuda.empty_cache()
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
     return k1
+
+
+# ------------------------------- the partitioned train step (phase 12) --
+
+TP_TRAIN_SMALL = ("smollm-360m", "granite-moe-3b-a800m")
+TP_TRAIN_MESH = (2, 2)                # (data, model), all on cuda:0
+# 12a's full-width cases: smollm-360m at 2 layers in fp32, whose 15/5
+# heads of 64 a model axis of 2 cuts (q, k and v gathered, their
+# gathers' backward a reduce-scatter): (mesh, mode, FSDP)
+TP_TRAIN_WIDE = (((1, 2), "full", False), ((2, 2), "full", True),
+                 ((2, 2), "offload", True))
+# 12b: B x S.  Phase 5c's S; B 4, not 5c's 8, from an estimate (B 8 not
+# tried): four ranks' full mode rose 41.65 GB at B 4, nearly all of it
+# activations, which B 8 doubles to about 83 GB
+TP_TRAIN = (4, 1024)
+TP_TRAIN_STEPS = 2
+# 12b: the partitioned bf16 step against the one-device bf16 step, step by
+# step (argued from bf16 rounding in PERF.md): the loss within 2**-10 of
+# it, the gradient norm (before the clip) within 2**-6
+TP_TRAIN_LOSS_RTOL = 2.0 ** -10
+TP_TRAIN_GNORM_RTOL = 2.0 ** -6
+# 12b: each leaf's first-step gradient, the four ranks' blocks put
+# together, against one device's: |g - g1| / |g1| at most this, 2.7 times
+# the worst leaf measured (PERF.md); a rank's wrong block reads about 0.5
+TP_TRAIN_LEAF_RTOL = 0.1
+# 12a: AdamW's first step at lr 1 with eps 1 moves each parameter by
+# about its clipped gradient, so the parameters compare the gradients
+TP_SMALL_OPT = dict(lr=1.0, warmup_steps=1, eps=1.0)
+
+
+def _tp_train_cfg(arch):
+    """The reduced config; granite's dispatch groups cut to 16 tokens, so
+    each lies within one data rank's rows."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, group_size=16))
+    return cfg
+
+
+def _replicas_agree(step, states, what):
+    """Every leaf replicated over a mesh axis holds the same value, bit
+    for bit, on every rank of that axis.  Returns the pairs compared."""
+    import torch
+    from repro_torch import sharding as shd
+    named = [dict(s["params"].named_parameters()) for s in states]
+    pairs = 0
+    for name, spec in states[0]["params"].shard_specs.items():
+        seen = {}
+        for i, pos in enumerate(step.positions):
+            key = shd.block_coords(spec, pos, step.rules.mesh)
+            if key in seen:
+                if not torch.equal(named[i][name], named[seen[key]][name]):
+                    raise AssertionError(f"{what}: {name} differs between "
+                                         f"replicas {pos} and "
+                                         f"{step.positions[seen[key]]}")
+                pairs += 1
+            else:
+                seen[key] = i
+    return pairs
+
+
+def _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what):
+    """One step of the partitioned train step on ``shape`` of [cuda:0]
+    and of [cpu] at every position, and the card's one-device step, from
+    ``params`` and ``batch``: their loss, gradient norm and every
+    reassembled parameter within SMALL_LOSS_TOL, the ledgers equal, every
+    replicated leaf equal across its ranks.  Returns (the worst
+    distance, the replica pairs compared)."""
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    ocfg = adamw.OptConfig(**TP_SMALL_OPT)
+    n = shape[0] * shape[1]
+    worst, pairs, got = 0.0, 0, {}
+    for dev in (torch.device("cuda", 0), torch.device("cpu")):
+        mesh = shd.Mesh(shape, ("data", "model"), devices=[dev] * n)
+        step = loop.make_train_step(cfg, scfg, ocfg,
+                                    shd.tp_dp_rules(mesh, fsdp=fsdp))
+        try:
+            states = step.init_states(copy.deepcopy(params).to(dev))
+            states, m = step(states, {k: v.to(dev) for k, v in batch.items()})
+            pairs += _replicas_agree(step, states, f"{what} on {dev}")
+            ranks = {(float(r["loss"]), float(r["grad_norm"]))
+                     for r in m["ranks"]}
+            if len(ranks) != 1:
+                raise AssertionError(f"{what} on {dev}: the ranks disagree: "
+                                     f"{ranks}")
+            got[dev.type] = (m, step.gather(states, "cpu"), step.ledger)
+        finally:
+            step.close()
+    one = init_params(cfg, device="cuda", requires_grad=True)
+    one.load_state_dict(params.state_dict())
+    st = {"params": one,
+          "opt": adamw.init(one, ocfg, offload=scfg.offload_opt_state),
+          "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    st, m1 = loop.make_train_step(cfg, scfg, ocfg)(
+        st, {k: v.cuda() for k, v in batch.items()})
+    (mg, pg, lg), (mc, pc, lc) = got["cuda"], got["cpu"]
+    if lg != lc:
+        raise AssertionError(f"{what}: ledger {lg} != the CPU's {lc}")
+    for ref, rname in ((mc, "the CPU's"), (m1, "one device's")):
+        for k in ("loss", "grad_norm"):
+            err = abs(float(mg[k]) - float(ref[k]))
+            worst = max(worst, err)
+            if not err <= SMALL_LOSS_TOL["atol"]:
+                raise AssertionError(f"{what}: {k} {float(mg[k])} against "
+                                     f"{rname} {float(ref[k])}")
+    for (name, a), (_, b), (_, c) in zip(pg.named_parameters(),
+                                         pc.named_parameters(),
+                                         st["params"].named_parameters()):
+        for ref, rname in ((b, "the CPU's"),
+                           (c.detach().cpu(), "one device's")):
+            err = float((a - ref).abs().max())
+            worst = max(worst, err)
+            if not err <= SMALL_LOSS_TOL["atol"]:
+                raise AssertionError(f"{what}: {name} {err} from {rname}")
+    return worst, pairs
+
+
+def check_tp_train_small(note):
+    """Phase 12a: smollm-360m and granite-moe-3b reduced in fp32, one
+    step of the partitioned train step on a (2, 2) mesh of [cuda:0] * 4
+    and of [cpu] * 4 and the card's one-device step, from the same
+    parameters and batch (B 4 x S 16), in each mode at MI 1 (offload with
+    the moments in pinned host memory), FSDP off and on; then smollm-360m
+    at full width, 2 layers, fp32, in TP_TRAIN_WIDE's cases, whose cut
+    heads run the gathers of q, k and v and their reduce-scatter
+    backward.  Gates (``_tp_small_case``): the loss, the gradient norm
+    and every reassembled parameter on the card within atol 1e-4 of the
+    CPU's and of one device's; the ledgers equal type for type; every
+    replicated leaf equal across its ranks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload import SentinelConfig
+    from repro_torch.models.model import init_params
+    worst, runs, pairs = 0.0, 0, 0
+
+    def case(cfg, params, batch, shape, mode, fsdp, what):
+        nonlocal worst, runs, pairs
+        scfg = SentinelConfig(mode=mode, mi_periods=1,
+                              offload_opt_state=mode == "offload")
+        w, p = _tp_small_case(cfg, params, batch, shape, scfg, fsdp,
+                              f"{what} {shape} {mode} fsdp={fsdp}")
+        worst, runs, pairs = max(worst, w), runs + 1, pairs + p
+
+    def batch_of(cfg):
+        rng = np.random.default_rng(12)
+        return {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 16)))
+                for k in ("tokens", "labels")}
+
+    for arch in TP_TRAIN_SMALL:
+        cfg = _tp_train_cfg(arch)
+        params = init_params(cfg, seed=0, device="cpu")
+        batch = batch_of(cfg)
+        for mode in MODES:
+            for fsdp in (False, True):
+                case(cfg, params, batch, TP_TRAIN_MESH, mode, fsdp,
+                     f"{arch} reduced")
+        del params
+        release_pinned()
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    for shape, mode, fsdp in TP_TRAIN_WIDE:
+        case(cfg, params, batch_of(cfg), shape, mode, fsdp,
+             "smollm-360m full width, 2 layers")
+    del params
+    release_pinned()
+    note("partitioned reduced training")
+    print(f"phase 12a: {runs} partitioned steps ({', '.join(TP_TRAIN_SMALL)} "
+          f"reduced, fp32, (2, 2) of [cuda:0] * 4, 4 modes x FSDP off/on; "
+          f"smollm-360m full width, 2 layers, fp32, heads cut, (mesh, mode,"
+          f" FSDP) {TP_TRAIN_WIDE}): loss, gradient norm and every "
+          f"reassembled parameter within atol {SMALL_LOSS_TOL['atol']:g} of "
+          f"[cpu] * n's and of the card's one-device step (max_abs_err "
+          f"{worst:.3g}); ledgers == the CPU's; {pairs} replica pairs equal "
+          f"bit for bit", flush=True)
+
+
+class _Leaves:
+    """Gradients by leaf name, in the shape ``sharding.gather_params``
+    reads a rank's module in."""
+
+    def __init__(self, grads):
+        self.grads = grads
+
+    def named_parameters(self):
+        return iter(self.grads.items())
+
+
+@contextlib.contextmanager
+def _first_grads(out: dict):
+    """While open, every ``adamw.update`` keeps a copy of the gradients it
+    is given in ``out``, under the caller's mesh position (() on one
+    device)."""
+    from repro_torch import sharding as shd
+    from repro_torch.optim import adamw
+    real, lock = adamw.update, threading.Lock()
+
+    def update(grads, state, params, cfg):
+        ctx = shd.current_rank()
+        key = () if ctx is None else tuple(ctx.coords.values())
+        kept = {k: g.detach().clone() for k, g in grads.items()}
+        with lock:
+            out[key] = kept
+        return real(grads, state, params, cfg)
+
+    adamw.update = update
+    try:
+        yield
+    finally:
+        adamw.update = real
+
+
+def _leaf_distances(step, grads, one, like) -> dict:
+    """Per leaf, |g - g1| / |g1| in f32: ``grads`` the ranks' blocks (by
+    mesh position, ``_first_grads``) put together, ``one`` one device's
+    gradients."""
+    import torch
+    from repro_torch import sharding as shd
+    whole = shd.gather_params(
+        [_Leaves(grads[tuple(pos.values())]) for pos in step.positions],
+        step.positions, step.rules, like)
+    out = {}
+    for name, g in whole.named_parameters():
+        g1 = one[name].float()
+        out[name] = float((g.float() - g1).norm() /
+                          torch.clamp(g1.norm(), min=1e-30))
+    return out
+
+
+def train_tp_full(card, note, mi):
+    """Phase 12b: smollm-360m at full width and depth, bf16, TP_TRAIN
+    tokens from make_batch, TP_TRAIN_STEPS steps in full and in offload at
+    MI ``mi``: the card's one-device step, then the partitioned step on a
+    (2, 2) mesh of [cuda:0] * 4 under tp_dp_rules(fsdp=True), each from
+    seed 0's parameters.  Gates: each step's loss and gradient norm
+    within TP_TRAIN_LOSS_RTOL and TP_TRAIN_GNORM_RTOL of one device's, and
+    offload's within MODE_LOSS_RTOL and MODE_GNORM_RTOL of full's (both
+    partitioned); each step's ledger == train_expected_ledger; offload's
+    carries on each rank == estimate_offload_traffic for its rows.  Step
+    ms (the median of the steps after the first) and peak memory
+    printed."""
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.collectives import new_ledger
+    from repro_torch.configs import get_config
+    from repro_torch.core import offload
+    from repro_torch.core.profiler import TraceProfile
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    t0 = time.perf_counter()
+    cfg = get_config("smollm-360m")
+    B, S = TP_TRAIN
+    D, M = TP_TRAIN_MESH
+    ocfg = adamw.OptConfig(total_steps=TP_TRAIN_STEPS, warmup_steps=1)
+    dcfg = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=S,
+                      global_batch=B)
+    batches = [make_batch(dcfg, s) for s in range(TP_TRAIN_STEPS)]
+    params = init_params(cfg, seed=0)
+    carry = B // D * S * cfg.d_model * 2
+    est = offload.estimate_offload_traffic(
+        TraceProfile(num_periods=cfg.num_periods, num_steps=0), mi, carry)
+    mesh = shd.Mesh(TP_TRAIN_MESH, ("data", "model"),
+                    devices=[torch.device("cuda", 0)] * (D * M))
+    rules = shd.tp_dp_rules(mesh, fsdp=True)
+    like = init_params(cfg, device="meta")
+    res = {}
+
+    def run(mode, partitioned):
+        scfg = offload.SentinelConfig(mode=mode, mi_periods=mi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if partitioned:
+            step = loop.make_train_step(cfg, scfg, ocfg, rules)
+            state = step.init_states(params)
+        else:
+            step = loop.make_train_step(cfg, scfg, ocfg)
+            p = init_params(cfg, requires_grad=True)
+            p.load_state_dict(params.state_dict())
+            state = {"params": p, "opt": adamw.init(p, ocfg),
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device="cuda")}
+        out = dict(losses=[], gnorms=[], times=[], ledgers=[], carries=[],
+                   grads={})
+        try:
+            for s in range(TP_TRAIN_STEPS):
+                offload.reset_traffic()
+                before = copy.deepcopy(step.ledger) if partitioned else None
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                if s == 0:
+                    with _first_grads(out["grads"]):
+                        state, m = step(state, batches[s])
+                else:
+                    state, m = step(state, batches[s])
+                out["losses"].append(float(m["loss"]))
+                out["gnorms"].append(float(m["grad_norm"]))
+                torch.cuda.synchronize()
+                out["times"].append(time.perf_counter() - ts)
+                out["carries"].append(copy.deepcopy(offload.rank_traffic))
+                if partitioned:
+                    led = new_ledger()
+                    for part in ("bytes", "counts"):
+                        for k, v in step.ledger[part].items():
+                            led[part][k] = v - before[part][k]
+                    out["ledgers"].append(
+                        {k: {t: v for t, v in led[k].items() if v}
+                         for k in ("bytes", "counts")})
+                    ranks = {(float(r["loss"]), float(r["grad_norm"]))
+                             for r in m["ranks"]}
+                    if len(ranks) != 1:
+                        raise AssertionError(f"12b {mode}: the ranks "
+                                             f"disagree: {ranks}")
+            torch.cuda.synchronize()
+            if partitioned:
+                out["pairs"] = _replicas_agree(step, state, f"12b {mode}")
+                out["leaf"] = _leaf_distances(
+                    step, out["grads"], res[mode, False]["grads"][()], like)
+        finally:
+            if partitioned:
+                step.close()
+        out["peak"] = torch.cuda.max_memory_allocated()
+        out["rise"] = out["peak"] - held
+        del state
+        release_pinned()
+        return out
+
+    for mode in ("full", "offload"):
+        res[mode, False] = run(mode, False)
+        res[mode, True] = run(mode, True)
+        for k in (False, True):
+            res[mode, k].pop("grads")
+        note(f"smollm-360m partitioned training, {mode}")
+    del params
+    lines = []
+    for mode in ("full", "offload"):
+        one, tp = res[mode, False], res[mode, True]
+        want = train_expected_ledger(cfg, B, S, D, M,
+                                     blocked=mode != "full", fsdp=True)
+        leaf = tp["leaf"]
+        far = max(leaf, key=leaf.get)
+        if not leaf[far] <= TP_TRAIN_LEAF_RTOL:
+            raise AssertionError(f"12b {mode}: {far}'s first-step gradient "
+                                 f"is {leaf[far]} of one device's away from"
+                                 f" it (limit {TP_TRAIN_LEAF_RTOL})")
+        for s in range(TP_TRAIN_STEPS):
+            a, b = tp["losses"][s], one["losses"][s]
+            g, h = tp["gnorms"][s], one["gnorms"][s]
+            if not (np.isfinite(a) and abs(a - b) <= TP_TRAIN_LOSS_RTOL * b
+                    and np.isfinite(g)
+                    and abs(g - h) <= TP_TRAIN_GNORM_RTOL * h):
+                raise AssertionError(f"12b {mode} step {s}: partitioned loss "
+                                     f"{a}, gradient norm {g}; one device's "
+                                     f"{b}, {h}")
+            if tp["ledgers"][s] != want:
+                raise AssertionError(f"12b {mode} step {s}: ledger "
+                                     f"{tp['ledgers'][s]} != the closed form "
+                                     f"{want}")
+            if mode == "offload":
+                per_rank = tp["carries"][s]
+                if len(per_rank) != D * M or any(
+                        t["d2h"] + t["h2d"] != est["bytes_offloaded"] or
+                        t["out"] != t["in"] or t["in"] != est["blocks"]
+                        for t in per_rank.values()):
+                    raise AssertionError(f"12b offload step {s}: carries "
+                                         f"{per_rank}, estimate {est} a rank")
+        lines.append(
+            f"{mode}: losses one device "
+            f"{', '.join(f'{x:.6f}' for x in one['losses'])}, partitioned "
+            f"{', '.join(f'{x:.6f}' for x in tp['losses'])}; gradient norms "
+            f"{', '.join(f'{x:.6g}' for x in one['gnorms'])} / "
+            f"{', '.join(f'{x:.6g}' for x in tp['gnorms'])}; step ms one "
+            f"device {', '.join(f'{1e3 * t:.1f}' for t in one['times'])}, "
+            f"partitioned {', '.join(f'{1e3 * t:.1f}' for t in tp['times'])}"
+            f" ({tp['times'][-1] / one['times'][-1]:.2f} times); peak "
+            f"{one['peak'] / 1e9:.2f} GB one device, {tp['peak'] / 1e9:.2f} "
+            f"GB four ranks (rise {tp['rise'] / 1e9:.2f} GB); ledger a step "
+            f"{want['bytes']} B, counts {want['counts']}; first-step "
+            f"gradients |g - g1| / |g1| by leaf: median "
+            f"{float(np.median(list(leaf.values()))):.4g}, worst "
+            f"{leaf[far]:.4g} ({far}) of {len(leaf)}; {tp['pairs']} replica "
+            f"pairs equal bit for bit")
+    full, off = res["full", True], res["offload", True]
+    for s in range(TP_TRAIN_STEPS):
+        a, b = off["losses"][s], full["losses"][s]
+        g, h = off["gnorms"][s], full["gnorms"][s]
+        if not (abs(a - b) <= MODE_LOSS_RTOL * b
+                and abs(g - h) <= MODE_GNORM_RTOL * h):
+            raise AssertionError(f"12b step {s}: partitioned offload {a}, "
+                                 f"{g}; partitioned full {b}, {h}")
+    print(f"phase 12b, smollm-360m (32 layers, bf16, B {B} x S {S}) on "
+          f"{TP_TRAIN_MESH} (data, model) of [cuda:0] * 4 with FSDP, MI "
+          f"{mi}, against one device [{card}]: " + "; ".join(lines) +
+          f"; losses within {TP_TRAIN_LOSS_RTOL:g} and gradient norms within "
+          f"{TP_TRAIN_GNORM_RTOL:g} of one device's, each leaf's first-step "
+          f"gradient within {TP_TRAIN_LEAF_RTOL:g} of one device's, offload "
+          f"== full "
+          f"(partitioned), ledgers == the closed form, offload's carries == "
+          f"estimate_offload_traffic on each rank ({est['blocks']} blocks x 2"
+          f" x {carry} B); 12b took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return res
+
+
+def check_tp_train(card, mi=None):
+    """Phase 12: 12a, then 12b at MI ``mi`` (phase 5c's planned MI; when
+    run alone, planned again as 5c plans it).  Returns each kernel's
+    launches on each path (all 0)."""
+    t0 = time.perf_counter()
+    if mi is None:
+        from repro_torch.configs import get_config
+        mi = plan_step(get_config("smollm-360m"), *SMOLLM_TRAIN,
+                       card)[2].mi_periods
+    paths = _no_kernel_paths((
+        ("smollm-360m and granite-moe-3b reduced partitioned training "
+         "(phase 12a)", check_tp_train_small),
+        ("smollm-360m partitioned training, full and offload (phase 12b)",
+         lambda note: train_tp_full(card, note, mi))))
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s; K1-K4 launches "
+          f"on its paths: {paths}", flush=True)
+    return paths
 
 
 # ---------------------------------------------------------------- timing ----
@@ -5286,6 +5835,7 @@ def train_smollm(card):
           f"took {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
     del state, init, batches
     torch.cuda.empty_cache()
+    res["mi"] = planned.mi_periods
     return res
 
 
@@ -5454,7 +6004,7 @@ def main() -> int:
     k4.update(check_ssd_autograd(card))
     check_train_small()
     check_adamw_streamed()
-    train_smollm(card)
+    smollm_mi = train_smollm(card)["mi"]
     k4["launches_by_path"]["zamba2-7b training, offload (phase 5d)"] = \
         train_zamba(card)
     print(f"training phases took {time.perf_counter() - t0:.1f} s",
@@ -5476,6 +6026,8 @@ def main() -> int:
     for what, n in check_tp(card).items():
         paths[what] = {"paged_decode": n, "flash_attention": 0,
                        "decode_attention": 0, "ssd": 0}
+    # phase 12's partitioned training runs none of the four kernels
+    paths.update(check_tp_train(card, mi=smollm_mi))
     for what, tally in paths.items():
         for rec, name in ((k1, "paged_decode"), (k2, "flash_attention"),
                           (k3, "decode_attention"), (k4, "ssd")):

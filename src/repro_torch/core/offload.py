@@ -38,14 +38,14 @@ port blocks at every MI, so a mode keeps its meaning at an MI of one.
 """
 from __future__ import annotations
 
-import functools
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from repro_torch.core.profiler import TraceProfile
-from repro_torch.sharding import map_axes
+from repro_torch.sharding import current_rank, map_axes
 from repro_torch.runtime import PlacementPlan, mi_to_periods
 
 MODES = ("offload", "save_hbm", "remat", "full")
@@ -164,26 +164,51 @@ def estimate_offload_traffic(profile: TraceProfile, mi_periods: int,
 # Since the last reset_traffic(): the block carries handed to the host
 # store in forwards ("out") and taken back in backwards ("in"), and the
 # bytes of the copies issued for them, to pinned host memory ("d2h") and
-# back to the card ("h2d").  On a CPU run the carry already lies in host
-# memory and is kept as it is: it counts as a carry, and moves no byte.
+# back to the card ("h2d"), over every rank; ``rank_traffic`` holds the
+# same per mesh position of a partitioned step (its coordinates in mesh
+# axis order), so ``estimate_offload_traffic`` holds rank by rank.  On a
+# CPU run the carry already lies in host memory and is kept as it is: it
+# counts as a carry, and moves no byte.
 traffic = {"out": 0, "in": 0, "d2h": 0, "h2d": 0}
+rank_traffic = {}
+_lock = threading.Lock()
 
 
 def reset_traffic():
-    for k in traffic:
-        traffic[k] = 0
+    with _lock:
+        for k in traffic:
+            traffic[k] = 0
+        rank_traffic.clear()
 
 
-@functools.lru_cache(maxsize=None)
-def _side_stream(index: int) -> "torch.cuda.Stream":
-    return torch.cuda.Stream(device=index)
+def _position() -> Optional[tuple]:
+    ctx = current_rank()
+    return None if ctx is None else \
+        tuple(ctx.coords.get(a, 0) for a in ctx.rules.mesh.axis_names)
+
+
+def _count(key: str, n: int):
+    pos = _position()
+    with _lock:
+        traffic[key] += n
+        if pos is not None:
+            rank_traffic.setdefault(pos, dict.fromkeys(traffic, 0))[key] += n
+
+
+_streams = {}
 
 
 def side_stream(device: torch.device) -> "torch.cuda.Stream":
-    """The one copy stream of CUDA card ``device`` that carries and
-    optimizer moments move on."""
-    return _side_stream(device.index if device.index is not None
-                        else torch.cuda.current_device())
+    """The copy stream of CUDA card ``device`` that carries and optimizer
+    moments move on: one per card, and one per rank of a partitioned
+    step on it (ranks aliased on one card copy on streams of their
+    own)."""
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), _position())
+    with _lock:
+        if key not in _streams:
+            _streams[key] = torch.cuda.Stream(device=key[0])
+        return _streams[key]
 
 
 class CarryStore:
@@ -210,11 +235,11 @@ class CarryStore:
         if self.where == "device":
             self._saved[b] = x
             return
-        traffic["out"] += 1
+        _count("out", 1)
         if not x.is_cuda:
             self._saved[b] = (x, None, x.device)
             return
-        traffic["d2h"] += x.numel() * x.element_size()
+        _count("d2h", x.numel() * x.element_size())
         buf = _pinned(torch.empty(x.shape, dtype=x.dtype, pin_memory=True))
         side = side_stream(x.device)
         side.wait_stream(torch.cuda.current_stream(x.device))
@@ -242,11 +267,11 @@ class CarryStore:
 
     def _fetch(self, b: int):
         buf, d2h, device = self._saved.pop(b)
-        traffic["in"] += 1
+        _count("in", 1)
         if d2h is None:
             self._fetched[b] = (buf, None)
             return
-        traffic["h2d"] += buf.numel() * buf.element_size()
+        _count("h2d", buf.numel() * buf.element_size())
         side = side_stream(device)
         with torch.cuda.stream(side):
             side.wait_event(d2h)

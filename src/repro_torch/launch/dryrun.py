@@ -8,17 +8,20 @@ rule flags, ``cost_analytic`` per chip (``launch/costing.py``: the aten
 ops the step runs, its backward and recomputes included) and
 ``memory.argument_bytes``, each device's bytes of the step's arguments
 (parameters, optimizer state, batch, cache) by ``sharding.shard_shape``
-under the cell's rules.  The prefill and decode cells of a pure-attention
-stack (smollm-360m, gemma2-2b, gemma3-12b, internlm2-1.8b,
-granite-moe-3b) also carry ``collectives`` in the reference's format
-(``{"bytes": {type: B}, "counts": {type: n}}``): the partitioned step of
-mesh position (0, ..., 0) runs on meta tensors under a
-``collectives.ShapeGroup`` over the ``model`` axis, whose ledger counts
-each collective's per-device result bytes, executions in ``counts``
-(the reference counts HLO sites).  Train cells, ``long_500k`` and the
-other archs' serve cells carry ``collectives_note`` instead: their
-partitioned programs wait for ROADMAP item 11b's second half.  There is no
-``temp_bytes`` or ``cost``: those are XLA's.
+under the cell's rules.  The prefill, decode and train cells (not
+``long_500k``) of a pure-attention stack (smollm-360m, gemma2-2b,
+gemma3-12b, internlm2-1.8b, granite-moe-3b) also carry ``collectives`` in
+the reference's format (``{"bytes": {type: B}, "counts": {type: n}}``):
+the partitioned step of mesh position (0, ..., 0) runs on meta tensors
+under a ``collectives.ShapeMesh`` (a ``ShapeGroup`` for each set of mesh
+axes a collective spans: ``model``, and ``data`` for a train step's
+data-parallel reductions and FSDP's gathers), whose ledger counts each
+collective's per-device result bytes, a train step's backward
+collectives included, and its executions in ``counts`` (the reference
+counts HLO sites).  ``long_500k`` and the other archs' cells carry
+``collectives_note`` instead: their partitioned programs wait for
+ROADMAP item 11b part 2.  There is no ``temp_bytes`` or ``cost``: those
+are XLA's.
 
 Exit code 0 when every cell passes.
 """
@@ -27,13 +30,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import time
 import traceback
 
 import torch
 
 from repro_torch import sharding as shd
-from repro_torch.collectives import ShapeGroup
+from repro_torch.collectives import ShapeGroup, ShapeMesh
 from repro_torch.configs.base import SHAPES, cells, get_config
 from repro_torch.core.offload import SentinelConfig
 from repro_torch.launch import specs
@@ -42,15 +46,14 @@ from repro_torch.launch.mesh import make_production_mesh, make_rules
 from repro_torch.models.kvcache import ATTN_KINDS
 
 SECOND_HALF = ("the partitioned program of this cell waits for ROADMAP "
-               "item 11b, second half")
+               "item 11b part 2")
 
 
 def partitioned(cfg, shape_name: str) -> bool:
-    """Whether the port runs this cell's partitioned program: a prefill or
-    decode cell (not ``long_500k``) of a pure-attention stack without a
-    modality stub."""
-    return SHAPES[shape_name].kind != "train" and \
-        shape_name != "long_500k" and \
+    """Whether the port runs this cell's partitioned program: a prefill,
+    decode or train cell (not ``long_500k``) of a pure-attention stack
+    without a modality stub."""
+    return shape_name != "long_500k" and \
         all(cfg.layer_kind(l) in ATTN_KINDS
             for l in range(cfg.num_layers)) and \
         not cfg.num_codebooks and not cfg.num_prefix_tokens
@@ -70,9 +73,30 @@ def rank_collectives(fn, args, in_sh, rules) -> dict:
     """The collectives ledger of the step ``fn`` run as mesh position (0,
     ..., 0): its parameter blocks (``sharding.shard_params``) and argument
     blocks on meta, under a rank context whose ``ShapeGroup`` spans the
-    ``model`` axis."""
+    ``model`` axis.  A train step (``args`` (state, batch)) runs forward
+    and backward on its rows of the batch (``sharding.batch_split``),
+    under a ``ShapeMesh`` whose groups span any set of mesh axes."""
     mesh = rules.mesh
     coords = {a: 0 for a in mesh.axis_names}
+    if isinstance(args[0], dict) and "params" in args[0]:
+        state, batch = args
+        params = shd.shard_params(state["params"], rules, coords, train=True)
+        # the moments follow the rank's blocks (``param_spec``'s, as the
+        # partitioned step's do)
+        opt = {k: {n: torch.empty_like(p)
+                   for n, p in params.named_parameters()}
+               for k in state["opt"] if k != "count"}
+        opt["count"] = state["opt"]["count"]
+        rank_state = {"params": params, "opt": opt, "step": state["step"]}
+        B = batch["tokens"].shape[0]
+        axes, _ = shd.batch_split(rules, coords, B)
+        rows = B // math.prod(mesh.shape[a] for a in axes)
+        groups = ShapeMesh(mesh)
+        ctx = shd.mesh_rank(groups, rules, coords, batch_axes=axes,
+                            params=params)
+        with shd.rank_context(ctx):
+            fn(rank_state, {k: v[:rows] for k, v in batch.items()})
+        return groups.ledger
     params = shd.shard_params(args[0], rules, coords)
     rest = [_blocks(a, sh) for a, sh in zip(args[1:], in_sh[1:])]
     group = ShapeGroup(mesh.shape["model"])

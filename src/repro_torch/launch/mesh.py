@@ -3,7 +3,8 @@ prefill/decode disaggregation (port of ``repro/launch/mesh.py``).
 
 ``make_production_mesh`` gives the reference's mesh as shapes only (no
 device is touched), for the dry-run's per-device reckoning on any
-machine; partitioned execution over it waits for ROADMAP item 11b.
+machine; a ``sharding.Mesh`` with devices runs partitioned
+(``train/loop.PartitionedStep``, ``serve/disagg.TensorParallelPrefill``).
 """
 from __future__ import annotations
 

@@ -21,9 +21,12 @@ query heads against the KV heads they read; where it cuts a head (or
 leaves the rank's queries without their KV heads whole) the projections
 are gathered, attention runs whole, and the rank takes its block of the
 output back before its row block of wo, as XLA partitions the
-reference's program.  The output of wo is a partial sum, all-reduced.  The
-pool layouts and MLA under a rank context wait for item 11b's second
-half.
+reference's program.  The output of wo is a partial sum, all-reduced.
+Under grad, whatever is replicated and enters the rank's share of the
+heads passes ``sharding.to_split`` (its gradient all-reduced over
+``model``): the input of a split projection, k and v where wk and wv stay
+whole, and the QK-norm weights of a split q or k.  The pool layouts and
+MLA under a rank context wait for ROADMAP item 11b part 2.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.paged_decode import gather_pools, pool_layout
 from repro_torch.models.layers import apply_rope, frozen, rmsnorm, softcap
 from repro_torch.sharding import (constrain, current_rank, rank_block,
-                                  refuse_partitioned)
+                                  refuse_partitioned, to_split)
 
 NEG_INF = -2.0 ** 20
 
@@ -158,7 +161,11 @@ class Attention(nn.Module):
         hd = cfg.head_dim
         theta = cfg.rope_theta_global \
             if kind != LOCAL and cfg.rope_theta_global else cfg.rope_theta
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        q_split = tp is not None and tp.q_split
+        kv_split = tp is not None and tp.kv_split
+        xq = to_split(x) if q_split else x
+        xk = xq if kv_split else x
+        q, k, v = xq @ self.wq, xk @ self.wk, xk @ self.wv
         if tp is not None:
             if tp.gather_q:
                 q = constrain(q, ("batch", "seq", None),
@@ -171,10 +178,17 @@ class Attention(nn.Module):
         k = k.reshape(B, Sq, -1, hd)
         v = v.reshape(B, Sq, -1, hd)
         if cfg.qk_norm:
-            q = rmsnorm(q, self.q_norm, cfg.norm_eps, plus_one=False)
-            k = rmsnorm(k, self.k_norm, cfg.norm_eps, plus_one=False)
-        return apply_rope(q, positions, theta), apply_rope(k, positions,
-                                                           theta), v
+            qn, kn = self.q_norm, self.k_norm
+            q = rmsnorm(q, to_split(qn) if q_split else qn, cfg.norm_eps,
+                        plus_one=False)
+            k = rmsnorm(k, to_split(kn) if kv_split else kn, cfg.norm_eps,
+                        plus_one=False)
+        q, k = apply_rope(q, positions, theta), apply_rope(k, positions,
+                                                           theta)
+        if q_split and not kv_split:
+            # whole k and v serve the rank's share of the heads only
+            k, v = to_split(k), to_split(v)
+        return q, k, v
 
     def forward(self, cfg, x, positions, *, kind: str = ATTN, cache=None,
                 cache_index=None, paged_view=None):

@@ -9,7 +9,8 @@ embeddings run on the rank's parameter blocks: the MLP column-parallel in
 and row-parallel out (its output a partial sum, all-reduced), the
 embedding vocab-parallel (a masked lookup, all-reduced), the unembedding
 leaving the logits vocab-local, as the reference's ``constrain`` sites
-lay them out.
+lay them out.  Under grad the replicated input of a split product passes
+``sharding.to_split`` (its gradient all-reduced over ``model``).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.sharding import constrain, rank_block
+from repro_torch.sharding import constrain, rank_block, to_split
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
@@ -84,9 +85,12 @@ class MLP(nn.Module):
     def forward(self, x, act: str):
         # h stays the rank's d_ff block (the reference's layers.py:98); its
         # row block of wo then gives a partial sum
+        split = self.wo.shape[0] < self.d_ff
+        if split:
+            x = to_split(x)
         h = act_fn(act)(x @ self.wg) * (x @ self.wi)
         return constrain(h @ self.wo, ("batch", "seq", "embed"),
-                         partial=self.wo.shape[0] < self.d_ff)
+                         partial=split)
 
 
 # ------------------------------------------------------------- embedding ----
@@ -99,7 +103,8 @@ def embed(table, cfg, tokens):
     the table's dtype first, as the reference's ``jnp.asarray(sqrt(d),
     x.dtype)``.  A rank holding a block of the vocab looks up the ids in
     its block, zeros elsewhere, and the ranks' rows are summed (one id's
-    row is nonzero on one rank only, so the sum is exact)."""
+    row is nonzero on one rank only, so the sum is exact, and each rank's
+    block of the table takes the gradient of its own rows only)."""
     V = table.shape[-2]
     split = V < cfg.padded_vocab
     v0 = rank_block("vocab") * V
@@ -129,6 +134,8 @@ def unembed(table, cfg, x):
     padded_vocab) for K codebooks (``table`` (K, V, d)), under the final
     softcap where the config has one (gemma2).  A rank holding a block of
     the vocab gives the logits of its block (the softcap is elementwise)."""
+    if table.shape[-2] < cfg.padded_vocab:
+        x = to_split(x)
     if cfg.num_codebooks:
         return softcap(torch.einsum("bsd,kvd->bskv", x, table),
                        cfg.final_softcap)

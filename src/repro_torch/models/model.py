@@ -29,6 +29,8 @@ from repro_torch.models import kvcache, transformer
 from repro_torch.models.layers import (embed, frozen, init_weights, rmsnorm,
                                        unembed)
 from repro_torch.models.layers import param_axes as module_axes
+from repro_torch.sharding import (all_reduce_over, current_rank,
+                                  fsdp_call, rank_block)
 
 
 def param_dtype(cfg):
@@ -140,9 +142,12 @@ def _logits(params, cfg, batch, *, caches=None, cache_index=None,
             positions = ci[:, None] if ci.dim() >= 1 else ci.expand(B, S)
         else:
             positions = torch.arange(S, device=tokens.device).expand(B, S)
-    return params(cfg, tokens, positions, prefix=prefix, caches=caches,
-                  cache_index=cache_index, decode=decode,
-                  paged_view=paged_view, aux=aux, **sentinel)
+    # the model's own leaves; stack_forward gathers each layer's
+    return fsdp_call(params, (cfg, tokens, positions),
+                     dict(prefix=prefix, caches=caches,
+                          cache_index=cache_index, decode=decode,
+                          paged_view=paged_view, aux=aux, **sentinel),
+                     recurse=False)
 
 
 @torch.no_grad()
@@ -175,21 +180,50 @@ def loss_fn(params, cfg, batch, *, remat_policy=None, unroll_periods=False,
     ``prefix_embed``.  It builds the
     autograd graph when grad is enabled and the parameters require it; the
     keywords are the reference's (``core.offload.loss_kwargs`` gives them
-    for a ``SentinelConfig``) and change memory, never the value."""
+    for a ``SentinelConfig``) and change memory, never the value.
+
+    Under a rank context whose logits are its block of the vocab the loss
+    is vocab-parallel: the max and the sum of exps all-reduced over
+    ``model``, the gold logit from the rank that holds it, the padded
+    entries masked in the rank's block; no rank gathers the logits."""
     aux = []
     logits = _logits(params, cfg, batch, remat_policy=remat_policy,
                      unroll_periods=unroll_periods, mi_periods=mi_periods,
                      tag_block_out=tag_block_out, aux=aux).float()
-    if cfg.padded_vocab != cfg.vocab_size:
-        pad = torch.zeros(cfg.padded_vocab, device=logits.device)
-        pad[cfg.vocab_size:] = -1e9
-        logits = logits + pad
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
-    nll = logz - gold
+    labels = batch["labels"].long()
+    V = logits.shape[-1]
+    if current_rank() is not None and V < cfg.padded_vocab:
+        nll = _vocab_parallel_nll(cfg, logits, labels, rank_block("vocab") * V)
+    else:
+        if cfg.padded_vocab != cfg.vocab_size:
+            pad = torch.zeros(cfg.padded_vocab, device=logits.device)
+            pad[cfg.vocab_size:] = -1e9
+            logits = logits + pad
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None])[..., 0]
+        nll = logz - gold
     if cfg.num_prefix_tokens:                 # the text suffix only
         nll = nll[:, cfg.num_prefix_tokens:]
     return nll.mean() + sum(aux)
+
+
+def _vocab_parallel_nll(cfg, logits, labels, v0: int):
+    """The NLL of ``labels`` from this rank's logits of vocab entries [v0,
+    v0 + V): the padded entries masked, the max all-reduced (no
+    gradient), then the sum of exps and the gold logit (nonzero on the
+    rank holding the label only) in one all-reduce whose backward is the
+    identity."""
+    V = logits.shape[-1]
+    if cfg.padded_vocab != cfg.vocab_size:
+        ids = torch.arange(v0, v0 + V, device=logits.device)
+        logits = logits + torch.where(ids >= cfg.vocab_size, -1e9, 0.0)
+    m = all_reduce_over(logits.detach().amax(dim=-1), ("model",), op="max")
+    local = labels - v0
+    mine = (local >= 0) & (local < V)
+    gold = logits.gather(-1, local.clamp(0, V - 1)[..., None])[..., 0] * mine
+    sums = torch.stack([torch.exp(logits - m[..., None]).sum(dim=-1), gold])
+    total, gold = all_reduce_over(sums, ("model",)).unbind(0)
+    return m + torch.log(total) - gold
 
 
 def prefill(params, cfg, batch, max_seq=None):

@@ -15,7 +15,14 @@ the experts routes every token as one device does (the router is whole),
 fills and runs its own experts' buffers only, and its combine is a partial
 sum, all-reduced.  Where the experts do not divide over the ranks
 ``param_spec`` keeps every expert whole (the hidden dim does not take the
-axis either), and each rank runs them all.
+axis either), and each rank runs them all.  Under grad the dispatched
+tokens and the combine weights pass ``sharding.to_split``, since each
+rank holds only its experts' share of their gradient, so the replicated
+router's gradient comes out whole and the same on every model rank.  A
+rank whose batch is one block over the data axes averages the aux's
+``frac_tokens`` and ``frac_prob`` over them before their product, as the
+reference's means over the global batch; a dispatch group must lie
+within one rank's rows.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import MLP, act_fn, frozen
-from repro_torch.sharding import constrain, rank_block
+from repro_torch.sharding import (all_reduce_over, constrain, current_rank,
+                                  rank_block, to_split)
 
 
 class MoE(nn.Module):
@@ -77,13 +85,20 @@ def moe_mlp(params, cfg, x, act: str):
     """x: (B, S, d) -> (out (B, S, d), aux loss, a float32 scalar)."""
     m = cfg.moe
     B, S, d = x.shape
+    ctx = current_rank()
+    shards = 1 if ctx is None else ctx.batch_shards
+    if shards > 1 and (B * S) % min(m.group_size, B * S * shards):
+        raise ValueError(f"a rank's {B * S} tokens do not hold whole "
+                         f"dispatch groups of the {B * S * shards}-token "
+                         f"batch (group size {m.group_size})")
     gsz, G, C = capacity(cfg, B * S)
     E, K = m.num_experts, m.experts_per_token
 
     # the experts this rank holds: [e0, e0 + El) (all of them on one
     # device)
     El = params.wi.shape[0]
-    e0 = rank_block("experts") * El if El < E else 0
+    split = El < E
+    e0 = rank_block("experts") * El if split else 0
 
     xt = x.reshape(G, gsz, d)
     # the router's logits in the activation dtype, then float32
@@ -107,7 +122,7 @@ def moe_mlp(params, cfg, x, act: str):
     g_idx = torch.arange(G, device=x.device)[:, None].expand_as(slot)
     tok = torch.arange(gsz, device=x.device).repeat_interleave(K)
     ex_in = x.new_zeros(G, El * C + 1, d)
-    ex_in[g_idx, slot] = xt[:, tok]
+    ex_in[g_idx, slot] = (to_split(xt) if split else xt)[:, tok]
     # the buffers are the rank's experts' (the reference's constrain sites
     # at its moe.py:63-87 name that layout)
     ex_in = ex_in[:, :El * C].reshape(G, El, C, d)
@@ -119,12 +134,14 @@ def moe_mlp(params, cfg, x, act: str):
     # combine: each kept choice's expert output at its weight (cast to the
     # activation dtype, as the reference's), summed over the k choices in
     # float32 and rounded once
+    if split:
+        weights = to_split(weights)
     w = weights.to(x.dtype).reshape(G, gsz * K) * keep
     picked = ex_out[g_idx, slot.clamp(max=El * C - 1)].float() * \
         w.float()[..., None]
     out = picked.reshape(G, gsz, K, d).sum(dim=2).to(x.dtype) \
         .reshape(B, S, d)
-    out = constrain(out, ("batch", "seq", "embed"), partial=El < E)
+    out = constrain(out, ("batch", "seq", "embed"), partial=split)
     if params.shared is not None:
         out = out + params.shared(x, act)
 
@@ -132,5 +149,11 @@ def moe_mlp(params, cfg, x, act: str):
     # every choice counted, dropped or not
     frac_tokens = onehot.float().mean(dim=(0, 1))
     frac_prob = gates.mean(dim=(0, 1))
+    if shards > 1:
+        # every data rank's loss holds the product of the global means:
+        # the all-reduce's backward sums their gradients
+        frac_tokens, frac_prob = (all_reduce_over(
+            torch.stack([frac_tokens, frac_prob]), ctx.batch_axes,
+            grad="sum") / shards).unbind(0)
     aux = E * (frac_tokens * frac_prob).sum() * m.router_aux_weight
     return out, aux

@@ -30,6 +30,7 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, frozen, rmsnorm
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import MambaBlock
+from repro_torch.sharding import current_rank, fsdp_call, rank_context
 
 
 class Block(nn.Module):
@@ -159,10 +160,11 @@ def stack_forward(layers, cfg, x, positions, *, caches=None,
     """
     def run(lo, hi, x, aux=aux):
         for l in range(lo, hi):
-            x = layers[l](cfg, x, positions,
-                          cache=caches[l] if caches is not None else None,
-                          cache_index=cache_index, decode=decode,
-                          paged_view=paged_view, aux=aux)
+            # FSDP gathers the layer's leaves for its call
+            x = fsdp_call(layers[l], (cfg, x, positions), dict(
+                cache=caches[l] if caches is not None else None,
+                cache_index=cache_index, decode=decode,
+                paged_view=paged_view, aux=aux))
         return x
 
     n_pro, span = len(cfg.prologue), cfg.period_len
@@ -223,22 +225,27 @@ class _Block(torch.autograd.Function):
     that several blocks use (zamba2's shared block) gets each block's
     share, which autograd sums.  ``run`` returns the output, or on a MoE
     config (output, aux sum): the backward then differentiates both, a
-    missing aux gradient taken as zero."""
+    missing aux gradient taken as zero.  Under a rank context the forward
+    keeps it and the backward's recompute runs under it again, so the
+    recompute's collectives meet the rank's groups wherever autograd runs
+    the backward (a partitioned step runs each rank's on the rank's own
+    thread: ``train/loop.py``)."""
 
     @staticmethod
     def forward(ctx, run, store, b, x, *weights):
         ctx.run, ctx.store, ctx.b, ctx.weights = run, store, b, weights
+        ctx.rank = current_rank()
         store.put(b, x)
         return run(x)
 
     @staticmethod
     def backward(ctx, gy, gaux=None):
         need_x = ctx.needs_input_grad[3]
-        x = ctx.store.get(ctx.b).detach().requires_grad_(need_x)
-        with torch.enable_grad():
+        with rank_context(ctx.rank), torch.enable_grad():
+            x = ctx.store.get(ctx.b).detach().requires_grad_(need_x)
             out = ctx.run(x)
-        if isinstance(out, tuple):
-            gy = (gy, torch.zeros_like(out[1]) if gaux is None else gaux)
-        wrt = ((x,) if need_x else ()) + ctx.weights
-        grads = torch.autograd.grad(out, wrt, gy, allow_unused=True)
+            if isinstance(out, tuple):
+                gy = (gy, torch.zeros_like(out[1]) if gaux is None else gaux)
+            wrt = ((x,) if need_x else ()) + ctx.weights
+            grads = torch.autograd.grad(out, wrt, gy, allow_unused=True)
         return (None, None, None) + ((None,) if not need_x else ()) + grads

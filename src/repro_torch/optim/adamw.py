@@ -15,6 +15,13 @@ With ``init(..., offload=True)`` on a CUDA card the moments live in pinned
 host memory (``core.offload.opt_state_placement``) and ``update`` streams
 them through the device leaf by leaf on the card's side stream: leaf i + 1
 comes in while leaf i is updated, and leaf i goes back out after.
+
+Under a rank context (a partitioned step, ``train/loop.py``) the
+parameters, gradients and moments are the rank's blocks and the
+gradients are already reduced over the data axes: the clip's norm is the
+whole gradient's (each block's squared sum all-reduced over the axes it
+is split over, a replicated leaf counted once), and the compressor's
+scale the whole leaf's.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.offload import opt_state_placement, side_stream
+from repro_torch.sharding import all_reduce_over, split_axes
 
 
 @dataclass(frozen=True)
@@ -71,17 +79,37 @@ def init(params, cfg: OptConfig, *, offload: bool = False) -> dict:
     return state
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves: Iterable = tree.values() if isinstance(tree, Mapping) else tree
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+def global_norm(tree, axes=None) -> torch.Tensor:
+    """The L2 norm of every leaf together.  ``axes`` (a mapping like
+    ``tree``): the mesh axes each leaf is a rank's block over; the blocks'
+    squared sums are then all-reduced over their axes, one all-reduce per
+    set of axes, in a fixed order."""
+    if axes is None:
+        leaves: Iterable = tree.values() if isinstance(tree, Mapping) \
+            else tree
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves))
+    by_axes = {}
+    for name, x in tree.items():
+        by_axes.setdefault(axes[name], []).append(
+            torch.sum(torch.square(x.float())))
+    total = 0.0
+    for ax in sorted(by_axes):
+        part = sum(by_axes[ax])
+        total = total + (all_reduce_over(part, ax) if ax else part)
+    return torch.sqrt(total)
 
 
-def compress_decompress(g, ef):
+def compress_decompress(g, ef, axes=()):
     """int8 quantize + error feedback: g_q = q(g + ef); ef' = g + ef - g_q.
     Models the compressed cross-pod all-reduce payload (quantizing before
-    the reduce shrinks its bytes 4x)."""
+    the reduce shrinks its bytes 4x).  ``axes``: the mesh axes ``g`` is a
+    rank's block over, whose whole leaf sets the scale."""
     t = g.float() + ef
-    scale = torch.clamp(t.abs().max(), min=1e-8) / 127.0
+    amax = t.abs().max()
+    if axes:
+        amax = all_reduce_over(amax, axes, op="max")
+    scale = torch.clamp(amax, min=1e-8) / 127.0
     q = torch.round(t / scale).to(torch.int8)
     deq = q.float() * scale
     return deq, t - deq
@@ -94,7 +122,8 @@ def update(grads, state: dict, params, cfg: OptConfig):
     clip."""
     params, grads = _named(params), _named(grads)
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    axes = {n: split_axes(p) for n, p in params.items()}
+    gnorm = global_norm(grads, axes if any(axes.values()) else None)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-8),
                         max=1.0)
     lr = schedule(cfg, count)
@@ -106,7 +135,7 @@ def update(grads, state: dict, params, cfg: OptConfig):
         g = grads[name].float() * scale
         new = {}
         if cfg.compress_grads:
-            g, new["ef"] = compress_decompress(g, moments["ef"])
+            g, new["ef"] = compress_decompress(g, moments["ef"], axes[name])
         m = cfg.b1 * moments["m"] + (1 - cfg.b1) * g
         v = cfg.b2 * moments["v"] + (1 - cfg.b2) * torch.square(g)
         upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + \

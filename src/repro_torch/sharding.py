@@ -11,9 +11,10 @@ entry per leading dim: None (replicated), a mesh axis name, or a tuple of
 names (one dim over their product); trailing dims it does not name are
 replicated, as in a ``PartitionSpec``.
 
-Partitioned execution (tensor parallelism over the ``model`` axis) runs
-the same model code on every rank of a ``collectives.Group``, each rank on
-its own thread under a ``RankContext`` (``rank_context``):
+Partitioned execution runs the same model code on every rank, each rank
+on its own thread under a ``RankContext`` (``rank_context``), which holds
+the group of each set of mesh axes (``collectives.MeshGroup``; a
+``collectives.Group`` over ``model`` alone for the TP prefill):
 ``shard_params`` gives each rank its block of every parameter, cut by
 ``param_spec``, so the rules' divisibility drop decides what splits, as
 the reference's ``_divisible`` does.  ``constrain`` is the reference's
@@ -21,8 +22,13 @@ the reference's ``_divisible`` does.  ``constrain`` is the reference's
 under one it makes a tensor hold the layout its logical axes name -- a
 partial sum is all-reduced, a dim held split that the target keeps whole
 is all-gathered, a dim held whole that the target splits is cut to the
-rank's block.  Only the ``model`` axis moves data: the rank's other dims
-(the batch over ``data``) are already its own.
+rank's block.  Only the ``model`` axis moves activations: the rank's
+other dims (the batch over ``data``, or over ``data`` and ``model`` under
+``dp_only``) are already its own.  Under grad the collectives are the
+differentiable ones of ``collectives``; ``to_split`` is Megatron's ``f``
+at the input of a split product, ``fsdp_call`` gathers a layer's FSDP
+leaves over the data axes for its call, and ``gather_params`` puts the
+ranks' blocks back together.
 """
 from __future__ import annotations
 
@@ -32,6 +38,10 @@ import math
 import threading
 from dataclasses import dataclass
 from typing import Any, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch import collectives
 
 _state = threading.local()
 
@@ -280,18 +290,58 @@ def serve_rules(mesh: Mesh, seq_shard: bool = False) -> AxisRules:
 
 @dataclass
 class RankContext:
-    """One rank of a partitioned program: its ``group``
-    (``collectives.Group``, or ``ShapeGroup`` on meta) over the ``model``
-    axis, its ``rank`` in the group (``coords["model"]``), the ``rules``
-    and its ``coords`` on every mesh axis."""
+    """One rank of a partitioned program: its ``group`` over the ``model``
+    axis (``collectives.Group``, or ``ShapeGroup`` on meta), its ``rank``
+    in it (``coords["model"]``), the ``rules`` and its ``coords`` on every
+    mesh axis.  ``mesh`` (``collectives.MeshGroup`` or ``ShapeMesh``)
+    gives the group of any other set of mesh axes; ``batch_axes`` are the
+    mesh axes the rank's batch is one block of; ``specs`` maps ``id`` of
+    each of the rank's parameters to its ``param_spec`` spec."""
     group: Any
     rank: int
     rules: AxisRules
     coords: Mapping[str, int]
+    mesh: Any = None
+    batch_axes: tuple = ()
+    specs: Optional[Mapping[int, tuple]] = None
 
     @property
     def size(self) -> int:
         return self.rules.mesh.shape["model"]
+
+    def on(self, axes) -> Optional[tuple]:
+        """(group, rank in it) over the mesh axes ``axes``, or None where
+        their product is 1 (no collective)."""
+        mesh = self.rules.mesh
+        axes = tuple(a for a in mesh.axis_names if a in axes)
+        if math.prod(mesh.shape[a] for a in axes) == 1:
+            return None
+        if self.mesh is None:
+            if axes != ("model",):
+                raise NotImplementedError(
+                    f"a collective over {axes}: this rank context holds "
+                    f"the model group alone")
+            return self.group, self.rank
+        return self.mesh.group(axes, self.coords)
+
+    @property
+    def batch_shards(self) -> int:
+        mesh = self.rules.mesh
+        return math.prod(mesh.shape[a] for a in self.batch_axes)
+
+
+def mesh_rank(groups, rules: AxisRules, coords: Mapping[str, int], *,
+              batch_axes: Sequence[str] = (), params=None) -> RankContext:
+    """The rank context of mesh position ``coords`` over ``groups`` (a
+    ``collectives.MeshGroup`` or ``ShapeMesh``); ``params``: the rank's
+    module from ``shard_params``, whose blocks' specs it records."""
+    group, rank = groups.group(("model",), coords)
+    specs = None
+    if params is not None:
+        specs = {id(p): params.shard_specs[n]
+                 for n, p in params.named_parameters()}
+    return RankContext(group, rank, rules, dict(coords), groups,
+                       tuple(batch_axes), specs)
 
 
 @contextlib.contextmanager
@@ -310,12 +360,12 @@ def current_rank() -> Optional[RankContext]:
 
 
 def refuse_partitioned(what: str):
-    """Raise under a rank context: ``what`` has no tensor-parallel program
+    """Raise under a rank context: ``what`` has no partitioned program
     yet (the MLA, Mamba, xLSTM and LSTM layers, the page pools)."""
     if current_rank() is not None:
         raise NotImplementedError(
-            f"{what} under a rank context: its tensor-parallel program "
-            f"waits for ROADMAP item 11b, second half")
+            f"{what} under a rank context: its partitioned program waits "
+            f"for ROADMAP item 11b part 2")
 
 
 def _index(entry, coords: Mapping[str, int], mesh: Mesh) -> int:
@@ -327,15 +377,21 @@ def _index(entry, coords: Mapping[str, int], mesh: Mesh) -> int:
 
 
 def _on_group(spec: tuple) -> list:
-    """Per dim: whether ``spec`` splits it over the ``model`` axis."""
-    out = []
-    for e in spec:
-        axes = _axes_of(e) if e is not None else ()
-        if "model" in axes and len(axes) > 1:
-            raise NotImplementedError(
-                f"a dim split over {e}: a rank group spans model alone")
-        out.append("model" in axes)
-    return out
+    """Per dim: whether ``spec`` splits it over the ``model`` axis alone.
+    A dim split over ``model`` with another axis (the batch under
+    ``dp_only``) is the rank's own data and moves none."""
+    return [e is not None and _axes_of(e) == ("model",) for e in spec]
+
+
+def batch_split(rules: AxisRules, coords: Mapping[str, int],
+                batch: int) -> tuple:
+    """(the mesh axes a batch of ``batch`` rows splits over under
+    ``rules``, the block of them that mesh position ``coords`` holds): ((),
+    0) where the batch stays whole."""
+    entry = rules.spec(("batch",), (batch,))[0]
+    if entry is None:
+        return (), 0
+    return _axes_of(entry), _index(entry, coords, rules.mesh)
 
 
 def rank_block(logical: str) -> int:
@@ -373,7 +429,7 @@ def constrain(x, logical: Sequence[Optional[str]], *, partial: bool = False,
     if ctx is None:
         return x
     if partial:
-        x = ctx.group.all_reduce(ctx.rank, x)
+        x = collectives.all_reduce(x, ctx.group, ctx.rank)
     if held is None or tuple(held) == tuple(logical):
         return x
     n = ctx.size
@@ -383,34 +439,166 @@ def constrain(x, logical: Sequence[Optional[str]], *, partial: bool = False,
     tgt = _on_group(ctx.rules.spec(logical, full))
     for i, (c, t) in enumerate(zip(cur, tgt)):
         if c and not t:
-            x = ctx.group.all_gather(ctx.rank, x, i)
+            x = collectives.all_gather(x, ctx.group, ctx.rank, i)
         elif t and not c:
             x = x.narrow(i, ctx.rank * (full[i] // n), full[i] // n)
     return x
 
 
+def to_split(x):
+    """Megatron's ``f`` where a replicated tensor ``x`` enters the rank's
+    block of a product split over ``model`` (or a computation on the
+    rank's share of the heads, experts or vocab): ``x`` itself forward,
+    its gradient all-reduced over ``model`` backward, since each rank
+    holds only its share of it.  The identity with no rank context, with
+    no grad or on a model axis of 1."""
+    ctx = current_rank()
+    if ctx is None or not torch.is_grad_enabled():
+        return x
+    on = ctx.on(("model",))
+    return x if on is None else collectives.conjugate(x, *on)
+
+
+def all_reduce_over(x, axes, *, op: str = "sum", grad: str = "identity"):
+    """``x`` all-reduced over the mesh axes ``axes`` of the current rank
+    (``collectives.all_reduce``); ``x`` itself with no rank context or
+    where their product is 1."""
+    ctx = current_rank()
+    on = None if ctx is None else ctx.on(axes)
+    return x if on is None else \
+        collectives.all_reduce(x, *on, op=op, grad=grad)
+
+
+def _leaf_spec(ctx, w) -> Optional[tuple]:
+    return None if ctx is None or ctx.specs is None else \
+        ctx.specs.get(id(w))
+
+
+def _fsdp_dims(ctx, spec) -> list:
+    """(dim, its mesh axes) for each dim of a leaf laid out by ``spec``
+    that FSDP splits: over the data axes alone (``embed``/``fsdp`` under
+    ``tp_dp_rules(fsdp=True)``), of more than one position."""
+    mesh = ctx.rules.mesh
+    return [(i, _axes_of(e)) for i, e in enumerate(spec)
+            if e is not None and "model" not in _axes_of(e)
+            and math.prod(mesh.shape[a] for a in _axes_of(e)) > 1]
+
+
+def fsdp_call(module, args: tuple, kwargs: dict, *, recurse: bool = True):
+    """``module(*args, **kwargs)``, with FSDP: under a rank context each
+    of ``module``'s parameters (its own alone with ``recurse=False``)
+    that FSDP splits is all-gathered over the data axes for the call, its
+    block on every other axis kept, as FSDP gathers a layer's leaves at
+    its entry.  The gather's backward is the reduce-scatter that also
+    sums the leaf's gradient over the data group."""
+    ctx = current_rank()
+    whole = {}
+    if ctx is not None and ctx.specs is not None:
+        for name, w in module.named_parameters(recurse=recurse):
+            for i, axes in _fsdp_dims(ctx, ctx.specs.get(id(w), ())):
+                w = collectives.all_gather(w, *ctx.on(axes), i)
+                whole[name] = w
+    if not whole:
+        return module(*args, **kwargs)
+    return torch.func.functional_call(module, whole, args, kwargs)
+
+
+def split_axes(w) -> tuple:
+    """The mesh axes of more than one position that the current rank
+    holds a block of parameter ``w`` over (() with no rank context, or
+    where ``w`` is whole)."""
+    ctx = current_rank()
+    spec = _leaf_spec(ctx, w)
+    if spec is None:
+        return ()
+    axes = {a for e in spec if e is not None for a in _axes_of(e)}
+    mesh = ctx.rules.mesh
+    return tuple(a for a in mesh.axis_names
+                 if a in axes and mesh.shape[a] > 1)
+
+
+def fsdp_axes(w) -> tuple:
+    """The mesh axes ``fsdp_call`` gathers ``w`` over (() if none)."""
+    ctx = current_rank()
+    spec = _leaf_spec(ctx, w)
+    if spec is None:
+        return ()
+    return tuple(a for _, axes in _fsdp_dims(ctx, spec) for a in axes)
+
+
+def block_coords(spec: tuple, coords: Mapping[str, int], mesh: Mesh) -> tuple:
+    """Per dim, the block of a leaf laid out by ``spec`` that mesh
+    position ``coords`` holds (0 on a whole dim): positions with equal
+    block coordinates hold the same block, replicas of each other."""
+    return tuple(0 if e is None else _index(e, coords, mesh) for e in spec)
+
+
+def _block_of(t, spec: tuple, coords: Mapping[str, int], mesh: Mesh):
+    """The view of ``t`` that mesh position ``coords`` holds under
+    ``spec``."""
+    for i, e in enumerate(spec):
+        if e is None:
+            continue
+        n = t.shape[i] // math.prod(mesh.shape[a] for a in _axes_of(e))
+        t = t.narrow(i, _index(e, coords, mesh) * n, n)
+    return t
+
+
+def _specs(module, rules: AxisRules) -> dict:
+    from repro_torch.models.layers import param_axes
+    axes = param_axes(module)
+    return {name: param_spec(tuple(name.split(".")), axes[name],
+                             tuple(p.shape), rules).spec
+            for name, p in module.named_parameters()}
+
+
 def shard_params(module, rules: AxisRules, coords: Mapping[str, int],
-                 device=None):
+                 device=None, *, train: bool = False):
     """A copy of ``module`` whose every parameter is the block the mesh
     position ``coords`` holds under ``rules`` (``param_spec`` on the
     leaf's logical axes, so a dim the mesh-axis product does not divide
-    stays whole), on ``device`` (default: where it is).  The blocks are
-    views of the module's parameters where they stay on its device; the
-    module's structure, shared blocks included, is kept."""
-    from repro_torch.models.layers import frozen, param_axes
-    axes = param_axes(module)
+    stays whole), on ``device`` (default: where it is); the module's
+    structure, shared blocks included, is kept, and its ``shard_specs``
+    name each parameter's spec.  Serving (``train=False``): the blocks
+    are frozen views of the module's parameters where they stay on its
+    device.  Training: each block is a fresh leaf of its own that
+    requires grad."""
+    from repro_torch.models.layers import frozen
+    specs = _specs(module, rules)
     memo = {}
     for name, p in module.named_parameters():
-        spec = param_spec(tuple(name.split(".")), axes[name],
-                          tuple(p.shape), rules).spec
-        blk = p.detach()
-        for i, e in enumerate(spec):
-            if e is None:
-                continue
-            size = math.prod(rules.mesh.shape[a] for a in _axes_of(e))
-            n = blk.shape[i] // size
-            blk = blk.narrow(i, _index(e, coords, rules.mesh) * n, n)
+        blk = _block_of(p.detach(), specs[name], coords, rules.mesh)
+        if train:
+            blk = blk.to(device or blk.device, copy=True,
+                         memory_format=torch.contiguous_format)
+            memo[id(p)] = torch.nn.Parameter(blk, requires_grad=True)
+            continue
         if device is not None:
             blk = blk.to(device)
         memo[id(p)] = frozen(blk.contiguous())
-    return copy.deepcopy(module, memo)
+    out = copy.deepcopy(module, memo)
+    out.shard_specs = specs
+    return out
+
+
+def gather_params(blocks: Sequence, positions: Sequence[Mapping[str, int]],
+                  rules: AxisRules, like, device=None):
+    """One module of the whole parameters from the ranks' ``blocks``
+    (``shard_params``'s modules of the mesh positions ``positions``,
+    covering every block): a copy of ``like`` (a module of the whole
+    shapes, on any device, meta included) whose every parameter is the
+    blocks put in place, frozen, on ``device`` (default: the first
+    block's)."""
+    from repro_torch.models.layers import frozen
+    specs = _specs(like, rules)
+    named = [dict(b.named_parameters()) for b in blocks]
+    memo = {}
+    for name, p in like.named_parameters():
+        first = named[0][name]
+        out = torch.empty(p.shape, dtype=first.dtype,
+                          device=device or first.device)
+        for pos, nm in zip(positions, named):
+            _block_of(out, specs[name], pos, rules.mesh).copy_(
+                nm[name].detach())
+        memo[id(p)] = frozen(out)
+    return copy.deepcopy(like, memo)

@@ -196,3 +196,30 @@ def test_full_width_cells_beside_the_reference(arch, shape_name):
     if arch == "smollm-360m":
         assert abs(got["matmul_flops_per_chip"] - ref_cost["matmul_flops"]) \
             <= 0.01 * ref_cost["matmul_flops"]
+
+
+PARTITIONED = ("smollm-360m", "gemma2-2b", "gemma3-12b", "internlm2-1.8b",
+               "granite-moe-3b-a800m")
+
+
+@pytest.mark.parametrize("arch", PARTITIONED)
+def test_train_cells_carry_collectives_backward_included(arch):
+    """Each pure-attention arch's ``train_4k`` cell (reduced, the 16 x 16
+    mesh, offload at its default MI) carries ``collectives``: at 16 model
+    ranks the reduced heads are cut, so every layer gathers q, k and v in
+    its forward and again in its backward's recompute, and each gather's
+    backward is a reduce-scatter; ``--fsdp`` adds the parameters' gathers
+    and reduce-scatters over ``data``, and ``--dp-only`` leaves
+    all-reduces alone (the batch over data x model, the gradients and the
+    loss summed over it, the clip's norm local)."""
+    cfg = get_config(arch).reduced()
+    got = {}
+    for kw in ({}, {"fsdp": True}, {"dp_only": True}):
+        rec = dryrun.run_cell(arch, "train_4k", cfg=cfg, **kw)
+        assert rec["ok"] and "collectives_note" not in rec
+        got[tuple(kw)] = rec["collectives"]["counts"]
+    plain = got[()]
+    assert plain["reduce-scatter"] > 0
+    assert plain["all-gather"] == 2 * plain["reduce-scatter"]
+    assert got[("fsdp",)]["reduce-scatter"] > plain["reduce-scatter"]
+    assert {k for k, v in got[("dp_only",)].items() if v} == {"all-reduce"}

@@ -310,13 +310,13 @@ def test_tp_prefill_raises_when_a_rank_fails(monkeypatch):
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-7b",
                                   "xlstm-1.3b"])
 def test_unpartitioned_layers_refuse_a_rank_context(arch):
-    """MLA, Mamba and xLSTM layers raise under a rank context, naming the
-    second half of item 11b, rather than run unpartitioned."""
+    """MLA, Mamba and xLSTM layers raise under a rank context, naming
+    item 11b part 2, rather than run unpartitioned."""
     cfg = get_config(arch).reduced()
     rules = make_rules(shd.Mesh((1, 2), ("data", "model")), kind="prefill")
     fn, args, in_sh = specs.build_prefill_cell(
         cfg, ShapeConfig("tiny", 8, 1, "prefill"), rules)
-    with pytest.raises(NotImplementedError, match="item 11b, second half"):
+    with pytest.raises(NotImplementedError, match="item 11b part 2"):
         dryrun.rank_collectives(fn, args, in_sh, rules)
 
 
@@ -354,9 +354,9 @@ def test_full_width_prefill_cell_collectives(arch, m):
 
 def test_dryrun_record_carries_collectives_on_serve_cells(tmp_path):
     """The CLI on the production 16 x 16 mesh (reduced configs): a
-    partitioned serve cell's record carries ``collectives`` in the
-    reference's format; train cells, ``long_500k`` and a serve cell of an
-    MLA stack carry the note naming item 11b's second half instead."""
+    partitioned serve or train cell's record carries ``collectives`` in
+    the reference's format; ``long_500k`` and a serve cell of an MLA stack
+    carry the note naming item 11b part 2 instead."""
     got = {}
     for arch, shape in (("smollm-360m", "prefill_32k"),
                         ("granite-moe-3b-a800m", "decode_32k"),
@@ -367,13 +367,14 @@ def test_dryrun_record_carries_collectives_on_serve_cells(tmp_path):
         assert rec["ok"]
         got[(arch, shape)] = rec
     for key in (("smollm-360m", "prefill_32k"),
-                ("granite-moe-3b-a800m", "decode_32k")):
+                ("granite-moe-3b-a800m", "decode_32k"),
+                ("smollm-360m", "train_4k")):
         coll = got[key]["collectives"]
         assert set(coll) == {"bytes", "counts"}
         assert set(coll["bytes"]) == set(collectives.COLLECTIVES)
         assert coll["bytes"]["all-reduce"] > 0
         assert "collectives_note" not in got[key]
-    for key in (("smollm-360m", "train_4k"), ("zamba2-7b", "long_500k"),
+    for key in (("zamba2-7b", "long_500k"),
                 ("deepseek-v2-lite-16b", "decode_32k")):
         assert "collectives" not in got[key]
-        assert "item 11b, second half" in got[key]["collectives_note"]
+        assert "item 11b part 2" in got[key]["collectives_note"]
