@@ -23,8 +23,10 @@ Phases, each printing its own lines:
        pages on the card, cold pages in pinned host memory and unmapped
        (FREE) table entries;
      - K4 (Mamba2 SSD scan) over the reference's SSD sweep, a start state,
-       S < chunk, a bf16 P of 12 and the full-width zamba2-7b layer (S 4096,
-       H 112, P = N = 64), in f32 and bf16, each on the kernel the wrapper
+       S < chunk, a bf16 P of 12, the full-width zamba2-7b layer (S 4096,
+       H 112, P = N = 64) and one rank's heads of it under a rank context
+       (B 2, H 56 and 28: phase 13), in f32 and bf16, each on the kernel
+       the wrapper
        picks (bf16 with P, N multiples of 8: the tensor-core kernel; else
        the SIMT kernel), then the tensor-core kernel at given segment
        counts, with h0 and a ragged last chunk; then K4 through ops.ssd at
@@ -294,6 +296,28 @@ Phases, each printing its own lines:
          offload == full, the ledger == train_expected_ledger's closed
          form, each rank's carries == estimate_offload_traffic; step ms
          and peak memory printed.  K1-K4 launch 0 times.
+  13. MLA and Mamba under a rank context (ROADMAP item 11b part 2a),
+     last; K4 runs on each rank's block of the SSM heads:
+     13a. deepseek-v2-lite, zamba2-7b and granite-moe-3b with 6 experts
+         (ROADMAP F4) reduced in fp32, 12a's gates on (2, 2) of [cuda:0] *
+         4 in the four modes x FSDP off/on and in full on (1, 2) (granite:
+         (2, 4)); K4 == ranks x (Mamba layers + recomputes) a step;
+     13b. zamba2-7b on its prologue and one period (0.71 B parameters)
+         and deepseek-v2-lite on its dense layer and 2 MoE layers (1.67
+         B), full width, bf16, B 2 x S 1024, two steps in full and in
+         offload at MI 1 on (2, 2) with FSDP against the card's
+         one-device step: 12b's gates, the ledger == the dry run's ledger
+         of the same step, K4 == steps x ranks x (Mamba layers +
+         recomputes);
+     13c. both at 13b's depth, TP prefill on a disaggregated engine with
+         one decode shard and a prefill group of two aliased ranks
+         (prefill_devices=[cuda:0] * 2), phase 10b's 12 prompts on 8
+         slots of 1024: 11b's gates, but the TP logits' and caches'
+         distances from an fp32 prefill held as means over the admissions
+         (a Mamba stack's single prompt reads them noisily), the TP
+         ledger == the dry run's ledger of each admitted prompt summed, K1
+         (zamba2's shared block; deepseek 0) the same with and without
+         TP, K4 with TP twice without.
 
 Every kernel time is the median over launches that each follow an L2
 flush and a device-side spin, so the events time the card's work and not
@@ -684,11 +708,12 @@ def requests(vocab: int, seed: int = 0):
 
 def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device,
           schedule=(), paged=True, on_engine=None, disagg=False,
-          devices=None, tp_prefill=False):
+          devices=None, tp_prefill=False, prefill_devices=None):
     """Run one engine to completion (the pools layout where ``cfg`` has
     ``use_paged_decode`` and ``paged``; see serve/engine.py for the other
     layouts; with ``disagg`` a DisaggregatedEngine over ``devices``, its
-    own default when None, with ``tp_prefill`` passed on).  ``schedule`` lists ``(step, plan or
+    own default when None, with ``tp_prefill`` and ``prefill_devices``
+    passed on).  ``schedule`` lists ``(step, plan or
     PlanDelta)`` re-plans, each applied before the engine step of that
     index; ``on_engine(b)`` runs on the new engine before its first step.
     Returns a dict: sorted outputs ``out`` and the same in the order the
@@ -703,7 +728,8 @@ def serve(params, cfg, plan, reqs, *, max_seq, slots, decode, device,
     from repro_torch.serve.engine import ContinuousBatcher
     if disagg:
         b = DisaggregatedEngine(params, cfg, slots, max_seq, plan=plan,
-                                devices=devices, tp_prefill=tp_prefill)
+                                devices=devices, tp_prefill=tp_prefill,
+                                prefill_devices=prefill_devices)
     else:
         b = ContinuousBatcher(params, cfg, slots, max_seq, plan=plan,
                               paged=paged, device=device)
@@ -3367,33 +3393,48 @@ def train_expected_ledger(cfg, B: int, S: int, D: int, M: int, *,
             for k in ("bytes", "counts")}
 
 
-def tp_family(name, cfg, params, plan, reqs, card):
+def tp_family(name, cfg, params, plan, reqs, card, *, prefill_devices=None,
+              expected=None, phase="11b", per_admission=True):
     """Phase 11b, one model at full width: ``reqs`` on 8 slots of 1024,
     page 16, under ``plan`` (two decode shards), through the disaggregated
     engine on ``devices=[cuda:0] * 4`` (two decode shards, a prefill group
-    of two aliased ranks) without and with ``tp_prefill``.  Gates: both
+    of two aliased ranks) without and with ``tp_prefill``; with
+    ``prefill_devices`` (phase 13c) on one decode shard on the card and
+    that prefill group.  Gates: both
     edge ledgers == predict_pool_counters(dense_admit=True), and each
-    other; K1's launches the same; the TP ledger's bytes == the closed
-    form; each admission's last-row logits and its fresh KV (every layer's
-    k and v) no farther from an fp32 one-device prefill's than
-    TP_BF16_RATIO times the bf16 one-device prefill's.  Returns K1's
-    launches with TP."""
+    other; K1's launches the same (and above 0 where the decode reads
+    pools); K4's launches with TP twice those without (each of the two
+    ranks scans its heads; none without a Mamba layer); the TP ledger's
+    bytes == the closed form (``expected(cfg, admissions, ranks)``,
+    default ``_tp_expected_bytes``); each admission's last-row logits and
+    its fresh caches (every layer's leaves) no farther from an fp32
+    one-device prefill's than TP_BF16_RATIO times the bf16 one-device
+    prefill's; with ``per_admission`` False (phase 13c) the mean of those
+    distances over the admissions, since a Mamba stack's single prompt
+    reads them noisily (on the CPU, zamba2-7b's 6 layers in bf16 over 128
+    tokens: one device's max_abs from fp32 0.117-0.286 from prompt to
+    prompt, TP's 0.67-0.95 of it).  Returns (K1's, K4's) launches with
+    TP."""
     import torch
+    from repro_torch.kernels import decode_attention as k3
+    from repro_torch.kernels import flash_attention as k2
     from repro_torch.models import model
     from repro_torch.serve.engine import predict_pool_counters
     t0 = time.perf_counter()
     preq = [(tuple(int(x) for x in t), DECODE, None, k) for t, k in reqs]
     run = dict(max_seq=MAX_SEQ, slots=SLOTS, decode=DECODE, device="cuda")
+    card0 = torch.device("cuda", 0)
     got = {}
     for tp in (False, True):
         adm = []
         got[tp] = serve(params, cfg, plan, reqs, disagg=True,
-                        devices=[torch.device("cuda", 0)] * 4,
-                        tp_prefill=tp,
+                        devices=[card0] if prefill_devices else [card0] * 4,
+                        prefill_devices=prefill_devices, tp_prefill=tp,
                         on_engine=lambda e, adm=adm: _record_admissions(e,
                                                                         adm),
                         **run)
-        _other_kernels_idle(f"{name} TP={tp}")
+        if k2.flash_attention.launches or k3.decode_attention.launches:
+            raise AssertionError(f"{name} TP={tp}: K2 or K3 launched")
         got[tp]["adm"] = adm
     base, tpr = got[False], got[True]
     b0, b1 = base["b"], tpr["b"]
@@ -3407,20 +3448,26 @@ def tp_family(name, cfg, params, plan, reqs, card):
         if _ledger(b) != _pred_ledger(pred) or b.counters()["repacks"]:
             raise AssertionError(f"{name}: ledger {_ledger(b)} != predicted "
                                  f"{_pred_ledger(pred)}")
-    if tpr["k1"] != base["k1"] or not tpr["k1"]:
+    if tpr["k1"] != base["k1"] or bool(tpr["k1"]) != bool(_n_k1_layers(cfg)):
         raise AssertionError(f"{name}: {tpr['k1']} K1 launches with TP, "
                              f"{base['k1']} without")
+    if tpr["k4"] != 2 * base["k4"] or \
+            (base["k4"] == 0) != (_n_mamba(cfg) == 0):
+        raise AssertionError(f"{name}: {tpr['k4']} K4 launches with TP, "
+                             f"{base['k4']} without")
     S = sum(int(t.shape[1]) for t, *_ in tpr["adm"])
     led = b1.counters()["collectives"]
     nz = {k: v for k, v in led["bytes"].items() if v}
-    want = _tp_expected_bytes(cfg, S, len(b1.prefill_devices))
+    want = _tp_expected_bytes(cfg, S, len(b1.prefill_devices)) \
+        if expected is None else \
+        expected(cfg, tpr["adm"], len(b1.prefill_devices))
     if nz != want:
         raise AssertionError(f"{name}: collectives {nz} B != the closed "
                              f"form {want} B for {S} prompt tokens")
     # the fp32 one-device prefill of every admitted prompt
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = copy.deepcopy(params).float()
-    ratios, kv_ratios, lines = [], [], []
+    ratios, kv_ratios, lines, dists = [], [], [], []
 
     def kv_dist(fresh, fresh32):
         """max_abs over every layer's k and v (the engine's caches hold
@@ -3438,42 +3485,51 @@ def tp_family(name, cfg, params, plan, reqs, card):
         dk_bf, dk_tp = kv_dist(kv_bf, kv32), kv_dist(kv_tp, kv32)
         ratios.append(d_tp / d_bf)
         kv_ratios.append(dk_tp / dk_bf)
+        dists.append((d_bf, d_tp, dk_bf, dk_tp))
         lines.append(f"{toks.shape[1]} tokens: {ms0:.1f} ms one device, "
                      f"{ms1:.1f} ms TP; max_abs from fp32 logits bf16 "
                      f"{d_bf:.4f}, TP {d_tp:.4f}; KV bf16 {dk_bf:.4f}, TP "
                      f"{dk_tp:.4f}")
+        del kv32
+    del params32
+    checked = dists if per_admission else [tuple(np.mean(dists, axis=0))]
+    for d_bf, d_tp, dk_bf, dk_tp in checked:
         if not d_tp <= TP_BF16_RATIO * d_bf:
             raise AssertionError(f"{name}: TP logits {d_tp} from fp32, over "
                                  f"{TP_BF16_RATIO} x bf16's {d_bf}")
         if not dk_tp <= TP_BF16_RATIO * dk_bf:
             raise AssertionError(f"{name}: TP fresh KV {dk_tp} from fp32, "
                                  f"over {TP_BF16_RATIO} x bf16's {dk_bf}")
-        del kv32
-    del params32
+    mean = np.mean(dists, axis=0)
     same = sum(a == b for o, p in zip(tpr["seq"], base["seq"])
                for a, b in zip(o, p))
     total = sum(len(o) for o in base["seq"])
     print(f"{name} TP prefill admissions [{card}]: " + "; ".join(lines),
           flush=True)
     print(f"{name} TP prefill check ({cfg.num_layers} layers, 2 aliased "
-          f"ranks): ledgers == predict_pool_counters(dense_admit=True) with "
-          f"and without TP; K1 {tpr['k1']} == without TP; collectives "
+          f"ranks, {len(b1.decode_devices)} decode shard(s)): ledgers == "
+          f"predict_pool_counters(dense_admit=True) with "
+          f"and without TP; K1 {tpr['k1']} == without TP; K4 {tpr['k4']} "
+          f"(2 x {base['k4']} without TP); collectives "
           f"{nz} B == the closed form for {S} prompt tokens (counts "
           f"{ {k: v for k, v in led['counts'].items() if v} }); TP/bf16 "
           f"distance from fp32, logits {min(ratios):.3f}-{max(ratios):.3f}"
-          f", fresh KV {min(kv_ratios):.3f}-{max(kv_ratios):.3f} (limit "
-          f"{TP_BF16_RATIO}); {same} of {total} tokens agree with the run "
+          f", fresh KV {min(kv_ratios):.3f}-{max(kv_ratios):.3f}, of the "
+          f"means over the admissions {mean[1] / mean[0]:.3f} and "
+          f"{mean[3] / mean[2]:.3f} (limit {TP_BF16_RATIO}, "
+          f"{'each admission' if per_admission else 'the means'}); "
+          f"{same} of {total} tokens agree with the run "
           f"without TP (not gated: greedy bf16 tokens part at the first "
           f"near-tie and every later token follows); mean admission "
           f"{np.mean([a[2] for a in base['adm']]):.1f} ms one device, "
           f"{np.mean([a[2] for a in tpr['adm']]):.1f} ms TP (aliased ranks "
           f"share the card) [{card}]", flush=True)
-    launches = tpr["k1"]
+    launches = tpr["k1"], tpr["k4"]
     b1.close()
     del got, base, tpr, b0, b1
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"{name} phase 11b took {time.perf_counter() - t0:.1f} s",
+    print(f"{name} phase {phase} took {time.perf_counter() - t0:.1f} s",
           flush=True)
     return launches
 
@@ -3503,7 +3559,7 @@ def check_tp(card):
     plan = runtime.plan_serving(trace, H100_COST, 0.2 * trace.peak_kv_bytes(),
                                 objective="latency", decode_devices=2)
     k1["smollm-360m TP prefill, two aliased shards (phase 11b)"] = \
-        tp_family("smollm-360m", cfg, params, plan, reqs, card)
+        tp_family("smollm-360m", cfg, params, plan, reqs, card)[0]
     del params
     cfg = _half_depth(dataclasses.replace(get_config("internlm2-1.8b"),
                                           use_paged_decode=True))
@@ -3514,7 +3570,7 @@ def check_tp(card):
                          slot_hot_windows=[128 + 16 * s for s in range(SLOTS)],
                          slot_devices=[s % 2 for s in range(SLOTS)])
     k1["internlm2-1.8b TP prefill, two aliased shards (phase 11b)"] = \
-        tp_family("internlm2-1.8b", cfg, params, plan, reqs, card)
+        tp_family("internlm2-1.8b", cfg, params, plan, reqs, card)[0]
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3551,13 +3607,16 @@ TP_SMALL_OPT = dict(lr=1.0, warmup_steps=1, eps=1.0)
 
 
 def _tp_train_cfg(arch):
-    """The reduced config; granite's dispatch groups cut to 16 tokens, so
-    each lies within one data rank's rows."""
+    """The reduced config; a MoE's dispatch groups cut to 16 tokens, so
+    each lies within one data rank's rows; "+e6": 6 experts, which a
+    model axis of 4 does not divide (ROADMAP F4)."""
     from repro_torch.configs import get_config
+    arch, _, experts = arch.partition("+e")
     cfg = get_config(arch).reduced()
     if cfg.moe is not None:
-        cfg = dataclasses.replace(
-            cfg, moe=dataclasses.replace(cfg.moe, group_size=16))
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, group_size=16,
+            num_experts=int(experts or cfg.moe.num_experts)))
     return cfg
 
 
@@ -3583,22 +3642,28 @@ def _replicas_agree(step, states, what):
     return pairs
 
 
-def _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what):
+def _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what, *,
+                   cpu_tol=None):
     """One step of the partitioned train step on ``shape`` of [cuda:0]
     and of [cpu] at every position, and the card's one-device step, from
     ``params`` and ``batch``: their loss, gradient norm and every
-    reassembled parameter within SMALL_LOSS_TOL, the ledgers equal, every
-    replicated leaf equal across its ranks.  Returns (the worst
-    distance, the replica pairs compared)."""
+    reassembled parameter within SMALL_LOSS_TOL of one device's and within
+    ``cpu_tol`` (atol and rtol; default SMALL_LOSS_TOL) of the CPU's, the
+    ledgers equal, every replicated leaf equal across its
+    ranks.  Returns {"one", "cpu": the worst distance from each, "pairs":
+    the replica pairs compared, "k4": K4's launches in the card's
+    partitioned step, counted from 0 before it}."""
     import torch
     from repro_torch import sharding as shd
+    from repro_torch.kernels import ssd as k4
     from repro_torch.models.model import init_params
     from repro_torch.optim import adamw
     from repro_torch.train import loop
     ocfg = adamw.OptConfig(**TP_SMALL_OPT)
     n = shape[0] * shape[1]
-    worst, pairs, got = 0.0, 0, {}
+    worst, pairs, got = {"one": 0.0, "cpu": 0.0}, 0, {}
     for dev in (torch.device("cuda", 0), torch.device("cpu")):
+        reset_counts()
         mesh = shd.Mesh(shape, ("data", "model"), devices=[dev] * n)
         step = loop.make_train_step(cfg, scfg, ocfg,
                                     shd.tp_dp_rules(mesh, fsdp=fsdp))
@@ -3611,7 +3676,8 @@ def _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what):
             if len(ranks) != 1:
                 raise AssertionError(f"{what} on {dev}: the ranks disagree: "
                                      f"{ranks}")
-            got[dev.type] = (m, step.gather(states, "cpu"), step.ledger)
+            got[dev.type] = (m, step.gather(states, "cpu"), step.ledger,
+                             k4.ssd.launches)
         finally:
             step.close()
     one = init_params(cfg, device="cuda", requires_grad=True)
@@ -3621,26 +3687,28 @@ def _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what):
           "step": torch.zeros((), dtype=torch.int32, device="cuda")}
     st, m1 = loop.make_train_step(cfg, scfg, ocfg)(
         st, {k: v.cuda() for k, v in batch.items()})
-    (mg, pg, lg), (mc, pc, lc) = got["cuda"], got["cpu"]
+    (mg, pg, lg, launches), (mc, pc, lc, _) = got["cuda"], got["cpu"]
     if lg != lc:
         raise AssertionError(f"{what}: ledger {lg} != the CPU's {lc}")
-    for ref, rname in ((mc, "the CPU's"), (m1, "one device's")):
+    refs = (("cpu", "the CPU's", cpu_tol or SMALL_LOSS_TOL),
+            ("one", "one device's", SMALL_LOSS_TOL))
+    for (key, rname, tol), ref in zip(refs, (mc, m1)):
         for k in ("loss", "grad_norm"):
             err = abs(float(mg[k]) - float(ref[k]))
-            worst = max(worst, err)
-            if not err <= SMALL_LOSS_TOL["atol"]:
+            worst[key] = max(worst[key], err)
+            if not err <= tol["atol"] + tol["rtol"] * abs(float(ref[k])):
                 raise AssertionError(f"{what}: {k} {float(mg[k])} against "
                                      f"{rname} {float(ref[k])}")
     for (name, a), (_, b), (_, c) in zip(pg.named_parameters(),
                                          pc.named_parameters(),
                                          st["params"].named_parameters()):
-        for ref, rname in ((b, "the CPU's"),
-                           (c.detach().cpu(), "one device's")):
+        for (key, rname, tol), ref in zip(refs, (b, c.detach().cpu())):
             err = float((a - ref).abs().max())
-            worst = max(worst, err)
-            if not err <= SMALL_LOSS_TOL["atol"]:
+            worst[key] = max(worst[key], err)
+            if not bool(((a - ref).abs() <=
+                         tol["atol"] + tol["rtol"] * ref.abs()).all()):
                 raise AssertionError(f"{what}: {name} {err} from {rname}")
-    return worst, pairs
+    return dict(worst, pairs=pairs, k4=launches)
 
 
 def check_tp_train_small(note):
@@ -3665,9 +3733,10 @@ def check_tp_train_small(note):
         nonlocal worst, runs, pairs
         scfg = SentinelConfig(mode=mode, mi_periods=1,
                               offload_opt_state=mode == "offload")
-        w, p = _tp_small_case(cfg, params, batch, shape, scfg, fsdp,
-                              f"{what} {shape} {mode} fsdp={fsdp}")
-        worst, runs, pairs = max(worst, w), runs + 1, pairs + p
+        r = _tp_small_case(cfg, params, batch, shape, scfg, fsdp,
+                           f"{what} {shape} {mode} fsdp={fsdp}")
+        worst = max(worst, r["one"], r["cpu"])
+        runs, pairs = runs + 1, pairs + r["pairs"]
 
     def batch_of(cfg):
         rng = np.random.default_rng(12)
@@ -3953,6 +4022,386 @@ def check_tp_train(card, mi=None):
     return paths
 
 
+# ------------------------- MLA and Mamba under a rank context (phase 13) --
+
+TP_FAMILIES = ("zamba2-7b", "deepseek-v2-lite-16b")
+# 13a: the two reduced models and granite with 6 experts (ROADMAP F4: the
+# banks split on the expert hidden dim at a model axis of 4), each on
+# (2, 2) in the four modes x FSDP off/on, and (1, 2) in full where the
+# heads and w_in's columns split otherwise
+TP_FAMILIES_SMALL = TP_FAMILIES + ("granite-moe-3b-a800m+e6",)
+TP_FAMILIES_OTHER = {"deepseek-v2-lite-16b": (1, 2), "zamba2-7b": (1, 2),
+                     "granite-moe-3b-a800m+e6": (2, 4)}
+# 13b and 13c: full width at reduced depth, zamba2-7b on its Mamba
+# prologue and one period (5 Mamba layers and the shared block, 0.71 B
+# parameters) and deepseek-v2-lite on its dense first layer and 2 MoE
+# layers (1.67 B), for the script's time limit
+TP_FAMILIES_LAYERS = {"zamba2-7b": 6, "deepseek-v2-lite-16b": 3}
+TP_FAMILIES_TRAIN = (2, 1024)         # B x S of 13b
+
+
+def _tp_family_cfg(arch):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch),
+                               num_layers=TP_FAMILIES_LAYERS[arch])
+
+
+def check_tp_families_small():
+    """Phase 13a: each TP_FAMILIES_SMALL config reduced in fp32 (a MoE's
+    groups cut to 16 tokens), one step of the partitioned train step on a
+    (2, 2) mesh of [cuda:0] * 4 and of [cpu] * 4 and the card's one-device
+    step from the same parameters and batch (B 4 x S 16), in each mode at
+    MI 1 (offload with the moments in pinned host memory), FSDP off and
+    on, and in full on TP_FAMILIES_OTHER's mesh; the gates of 12a
+    (``_tp_small_case``), and K4's launches in each partitioned card step
+    == ranks x the Mamba layers' forwards and recomputes
+    (``_blocked_mambas``).  Returns K4's launches in those steps."""
+    import torch
+    from repro_torch.core.offload import SentinelConfig
+    from repro_torch.models.model import init_params
+    worst, runs, pairs, launches = {}, 0, 0, 0
+    for arch in TP_FAMILIES_SMALL:
+        cfg = _tp_train_cfg(arch)
+        params = init_params(cfg, seed=0, device="cpu")
+        rng = np.random.default_rng(13)
+        batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 16)))
+                 for k in ("tokens", "labels")}
+        cases = [(TP_TRAIN_MESH, mode, fsdp) for mode in MODES
+                 for fsdp in (False, True)]
+        cases.append((TP_FAMILIES_OTHER[arch], "full", False))
+        for shape, mode, fsdp in cases:
+            scfg = SentinelConfig(mode=mode, mi_periods=1,
+                                  offload_opt_state=mode == "offload")
+            what = f"{arch} reduced {shape} {mode} fsdp={fsdp}"
+            # K4 on the card against its plain version on the CPU: 5b's
+            # limits for the reduced zamba2's gradients
+            r = _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what,
+                               cpu_tol=SMALL_GRAD_TOL if _n_mamba(cfg)
+                               else SMALL_LOSS_TOL)
+            want = shape[0] * shape[1] * _blocked_mambas(cfg, scfg)
+            if r["k4"] != want:
+                raise AssertionError(f"{what}: {r['k4']} K4 launches, {want} "
+                                     f"expected")
+            for k in ("one", "cpu"):
+                worst[arch, k] = max(worst.get((arch, k), 0.0), r[k])
+            runs, pairs = runs + 1, pairs + r["pairs"]
+            launches += r["k4"]
+        del params
+        release_pinned()
+    print(f"phase 13a: {runs} partitioned steps ({', '.join(TP_FAMILIES_SMALL)}"
+          f" reduced, fp32, (2, 2) of [cuda:0] * 4 in 4 modes x FSDP off/on,"
+          f" and {TP_FAMILIES_OTHER} in full): loss, gradient norm and every "
+          f"reassembled parameter within atol {SMALL_LOSS_TOL['atol']:g} of "
+          f"the card's one-device step and of [cpu] * n's (zamba2: K4 on the"
+          f" card, its plain version on the CPU, so phase 5b's atol "
+          f"{SMALL_GRAD_TOL['atol']:g} + rtol {SMALL_GRAD_TOL['rtol']:g}); "
+          f"max_abs_err from one device / the CPU: " + ", ".join(
+              f"{a} {worst[a, 'one']:.3g} / {worst[a, 'cpu']:.3g}"
+              for a in TP_FAMILIES_SMALL) +
+          f"; ledgers == the CPU's; {pairs} replica pairs equal "
+          f"bit for bit; K4 {launches} launches on the ranks' heads == ranks"
+          f" x (Mamba layers + their recomputes) a step", flush=True)
+    return launches
+
+
+def _rel(g, ref) -> float:
+    """|g - ref| / |ref| in f32."""
+    import torch
+    ref = ref.float()
+    return float((g.float() - ref).norm() / torch.clamp(ref.norm(),
+                                                         min=1e-30))
+
+
+def _dryrun_train_ledger(cfg, rules, scfg, ocfg, B, S):
+    """The dry run's ledger (``launch/dryrun.rank_collectives``, mesh
+    position (0, 0) on the meta device) of one step of ``cfg``'s train
+    cell at B x S under ``rules``: what the partitioned step on the card
+    must move, type for type."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, specs
+    fn, args, in_sh = specs.build_train_cell(
+        cfg, ShapeConfig("13b", S, B, "train"), rules, scfg, ocfg)
+    led = dryrun.rank_collectives(fn, args, in_sh, rules)
+    return {k: {t: v for t, v in led[k].items() if v}
+            for k in ("bytes", "counts")}
+
+
+def train_tp_families_full(arch, card):
+    """Phase 13b, one model at full width on TP_FAMILIES_LAYERS, bf16 from
+    seed 0, TP_FAMILIES_TRAIN tokens from make_batch, TP_TRAIN_STEPS steps
+    in full and in offload at MI 1: the card's one-device step, then the
+    partitioned step on (2, 2) of [cuda:0] * 4 under tp_dp_rules(fsdp=
+    True).  Gates (12b's): each step's loss and gradient norm within
+    TP_TRAIN_LOSS_RTOL and TP_TRAIN_GNORM_RTOL of one device's; each
+    leaf's first-step gradient within TP_TRAIN_LEAF_RTOL of one device's,
+    or, for a leaf bf16 itself moves that far (a sum with cancellation,
+    as Mamba's D over B x S x P; a MoE router or bank, whose bf16
+    gradient follows near-tied top-k choices), no farther from the
+    one-device fp32 step's than TP_BF16_RATIO times the one-device bf16
+    step's (phase 11b's argument for logits);
+    offload within MODE_LOSS_RTOL and MODE_GNORM_RTOL of full (both
+    partitioned); every replicated leaf equal across its ranks; each
+    step's ledger == the dry run's ledger of the same step
+    (``_dryrun_train_ledger``); K4's launches in the partitioned steps ==
+    steps x ranks x (Mamba layers + recomputes).  Returns K4's launches
+    in the partitioned steps."""
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.collectives import new_ledger
+    from repro_torch.core import offload
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import ssd as k4
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    t0 = time.perf_counter()
+    cfg = _tp_family_cfg(arch)
+    B, S = TP_FAMILIES_TRAIN
+    D, M = TP_TRAIN_MESH
+    ocfg = adamw.OptConfig(total_steps=TP_TRAIN_STEPS, warmup_steps=1)
+    dcfg = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=S,
+                      global_batch=B)
+    batches = [make_batch(dcfg, s) for s in range(TP_TRAIN_STEPS)]
+    params = init_params(cfg, seed=0)
+    mesh = shd.Mesh(TP_TRAIN_MESH, ("data", "model"),
+                    devices=[torch.device("cuda", 0)] * (D * M))
+    rules = shd.tp_dp_rules(mesh, fsdp=True)
+    like = init_params(cfg, device="meta")
+    res = {}
+    # the one-device fp32 step's first-step gradients, the reference a
+    # leaf that bf16 moves past TP_TRAIN_LEAF_RTOL is held to
+    g32 = {}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = init_params(cfg32, requires_grad=True)
+    p32.load_state_dict({k: v.float() for k, v in params.state_dict()
+                         .items()})
+    st32 = {"params": p32, "opt": adamw.init(p32, ocfg),
+            "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    with _first_grads(g32):
+        loop.make_train_step(cfg32, offload.SentinelConfig(mode="full"),
+                             ocfg)(st32, batches[0])
+    g32 = g32[()]
+    del p32, st32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def run(mode, partitioned):
+        scfg = offload.SentinelConfig(mode=mode, mi_periods=1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if partitioned:
+            step = loop.make_train_step(cfg, scfg, ocfg, rules)
+            state = step.init_states(params)
+        else:
+            step = loop.make_train_step(cfg, scfg, ocfg)
+            p = init_params(cfg, requires_grad=True)
+            p.load_state_dict(params.state_dict())
+            state = {"params": p, "opt": adamw.init(p, ocfg),
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device="cuda")}
+        out = dict(losses=[], gnorms=[], times=[], ledgers=[], grads={},
+                   want=_dryrun_train_ledger(cfg, rules, scfg, ocfg, B, S)
+                   if partitioned else None)
+        reset_counts()
+        try:
+            for s in range(TP_TRAIN_STEPS):
+                before = copy.deepcopy(step.ledger) if partitioned else None
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                if s == 0:
+                    with _first_grads(out["grads"]):
+                        state, m = step(state, batches[s])
+                else:
+                    state, m = step(state, batches[s])
+                out["losses"].append(float(m["loss"]))
+                out["gnorms"].append(float(m["grad_norm"]))
+                torch.cuda.synchronize()
+                out["times"].append(time.perf_counter() - ts)
+                if partitioned:
+                    led = new_ledger()
+                    for part in ("bytes", "counts"):
+                        for k, v in step.ledger[part].items():
+                            led[part][k] = v - before[part][k]
+                    out["ledgers"].append(
+                        {k: {t: v for t, v in led[k].items() if v}
+                         for k in ("bytes", "counts")})
+                    ranks = {(float(r["loss"]), float(r["grad_norm"]))
+                             for r in m["ranks"]}
+                    if len(ranks) != 1:
+                        raise AssertionError(f"13b {arch} {mode}: the ranks "
+                                             f"disagree: {ranks}")
+            torch.cuda.synchronize()
+            out["k4"] = k4.ssd.launches
+            want = TP_TRAIN_STEPS * (D * M if partitioned else 1) * \
+                _blocked_mambas(cfg, scfg)
+            if out["k4"] != want:
+                raise AssertionError(f"13b {arch} {mode}: {out['k4']} K4 "
+                                     f"launches, {want} expected")
+            if partitioned:
+                out["pairs"] = _replicas_agree(step, state,
+                                               f"13b {arch} {mode}")
+                g1 = res[mode, False]["grads"][()]
+                whole = dict(shd.gather_params(
+                    [_Leaves(out["grads"][tuple(pos.values())])
+                     for pos in step.positions], step.positions, step.rules,
+                    like).named_parameters())
+                out["leaf"], out["leaf32"] = {}, {}
+                for name, g in whole.items():
+                    out["leaf"][name] = _rel(g, g1[name])
+                    if out["leaf"][name] > TP_TRAIN_LEAF_RTOL:
+                        out["leaf32"][name] = (_rel(g, g32[name]),
+                                               _rel(g1[name], g32[name]))
+                del whole
+        finally:
+            if partitioned:
+                step.close()
+        out["peak"] = torch.cuda.max_memory_allocated()
+        del state
+        release_pinned()
+        return out
+
+    for mode in ("full", "offload"):
+        res[mode, False] = run(mode, False)
+        res[mode, True] = run(mode, True)
+        for k in (False, True):
+            res[mode, k].pop("grads")
+    del params
+    lines = []
+    for mode in ("full", "offload"):
+        one, tp = res[mode, False], res[mode, True]
+        leaf, leaf32 = tp["leaf"], tp["leaf32"]
+        far = max(leaf, key=leaf.get)
+        for name, (d_tp, d_bf) in leaf32.items():
+            if not d_tp <= TP_BF16_RATIO * d_bf:
+                raise AssertionError(
+                    f"13b {arch} {mode}: {name}'s first-step gradient is "
+                    f"{leaf[name]} of one device's away from it (limit "
+                    f"{TP_TRAIN_LEAF_RTOL}), and {d_tp} of the fp32 step's "
+                    f"against one device's bf16 {d_bf} (limit "
+                    f"{TP_BF16_RATIO} times)")
+        past = "; ".join(f"{k} {leaf[k]:.4g} (from fp32 {a:.4g}, bf16 one "
+                         f"device {b:.4g})" for k, (a, b) in
+                         sorted(leaf32.items(), key=lambda kv: -leaf[kv[0]]))
+        for s in range(TP_TRAIN_STEPS):
+            a, b = tp["losses"][s], one["losses"][s]
+            g, h = tp["gnorms"][s], one["gnorms"][s]
+            if not (np.isfinite(a) and abs(a - b) <= TP_TRAIN_LOSS_RTOL * b
+                    and np.isfinite(g)
+                    and abs(g - h) <= TP_TRAIN_GNORM_RTOL * h):
+                raise AssertionError(f"13b {arch} {mode} step {s}: "
+                                     f"partitioned loss {a}, gradient norm "
+                                     f"{g}; one device's {b}, {h}")
+            if tp["ledgers"][s] != tp["want"]:
+                raise AssertionError(f"13b {arch} {mode} step {s}: ledger "
+                                     f"{tp['ledgers'][s]} != the dry run's "
+                                     f"{tp['want']}")
+        lines.append(
+            f"{mode}: losses one device "
+            f"{', '.join(f'{x:.6f}' for x in one['losses'])}, partitioned "
+            f"{', '.join(f'{x:.6f}' for x in tp['losses'])}; gradient norms "
+            f"{', '.join(f'{x:.6g}' for x in one['gnorms'])} / "
+            f"{', '.join(f'{x:.6g}' for x in tp['gnorms'])}; step ms one "
+            f"device {', '.join(f'{1e3 * t:.1f}' for t in one['times'])}, "
+            f"partitioned {', '.join(f'{1e3 * t:.1f}' for t in tp['times'])}"
+            f"; peak {one['peak'] / 1e9:.2f} GB one device, "
+            f"{tp['peak'] / 1e9:.2f} GB four ranks; ledger a step "
+            f"{tp['want']['bytes']} B, counts {tp['want']['counts']}; "
+            f"first-step gradients |g - g1| / |g1| by leaf: median "
+            f"{float(np.median(list(leaf.values()))):.4g}, worst "
+            f"{leaf[far]:.4g} ({far}) of {len(leaf)}; past "
+            f"{TP_TRAIN_LEAF_RTOL:g}: {past or 'none'}; {tp['pairs']} replica "
+            f"pairs equal bit for bit; K4 {tp['k4']} launches partitioned, "
+            f"{one['k4']} on one device")
+    full, off = res["full", True], res["offload", True]
+    same = full["losses"] == off["losses"] and full["gnorms"] == off["gnorms"]
+    for s in range(TP_TRAIN_STEPS):
+        a, b = off["losses"][s], full["losses"][s]
+        g, h = off["gnorms"][s], full["gnorms"][s]
+        if not (abs(a - b) <= MODE_LOSS_RTOL * b
+                and abs(g - h) <= MODE_GNORM_RTOL * h):
+            raise AssertionError(f"13b {arch} step {s}: partitioned offload "
+                                 f"{a}, {g}; partitioned full {b}, {h}")
+    print(f"phase 13b, {arch} at full width on {cfg.num_layers} layers "
+          f"(bf16, B {B} x S {S}) on {TP_TRAIN_MESH} (data, model) of "
+          f"[cuda:0] * 4 with FSDP, MI 1, against one device [{card}]: " +
+          "; ".join(lines) + f"; losses within {TP_TRAIN_LOSS_RTOL:g} and "
+          f"gradient norms within {TP_TRAIN_GNORM_RTOL:g} of one device's, "
+          f"each leaf's first-step gradient within {TP_TRAIN_LEAF_RTOL:g} "
+          f"of one device's or within {TP_BF16_RATIO:g} times one device's "
+          f"bf16 distance from the fp32 step's, "
+          f"offload == full (partitioned; bit for bit: {same}), ledgers == "
+          f"the dry run's; 13b {arch} took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return full["k4"] + off["k4"]
+
+
+def _tp_dryrun_bytes(cfg, adm, n):
+    """The dry run's ledger bytes (``rank_collectives`` of the prefill
+    cell on meta, a ("data", "model") mesh of (1, n)) of each admitted
+    prompt, summed: what a TP prefill over n ranks must move."""
+    from repro_torch import sharding as shd
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_rules
+    rules = make_rules(shd.Mesh((1, n), ("data", "model")), kind="prefill")
+    total = {}
+    for toks, *_ in adm:
+        fn, args, in_sh = specs.build_prefill_cell(
+            cfg, ShapeConfig("adm", int(toks.shape[1]), 1, "prefill"), rules)
+        for k, v in dryrun.rank_collectives(fn, args, in_sh,
+                                            rules)["bytes"].items():
+            total[k] = total.get(k, 0.0) + v
+    return {k: v for k, v in total.items() if v}
+
+
+def check_tp_families(card):
+    """Phase 13: 13a, 13b on both models, then 13c: each model's TP
+    prefill at 13b's depth on a disaggregated engine with one decode
+    shard on the card and a prefill group of two aliased ranks
+    (``prefill_devices=[cuda:0] * 2``), 12 prompts of 300-512 tokens on 8
+    slots of 1024 (``tp_family``, its ledger held to ``_tp_dryrun_bytes``).
+    Returns (each kernel's launches by path, K4's launches by path)."""
+    import torch
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.plan import PlacementPlan
+    t0 = time.perf_counter()
+    release_pinned()
+    torch.cuda.empty_cache()
+    paths = {}
+
+    def tally(k1=0, k4=0):
+        return {"paged_decode": k1, "flash_attention": 0,
+                "decode_attention": 0, "ssd": k4}
+
+    paths["deepseek-v2-lite, zamba2-7b and granite (6 experts) reduced "
+          "partitioned training (phase 13a)"] = \
+        tally(k4=check_tp_families_small())
+    for arch in TP_FAMILIES:
+        paths[f"{arch} partitioned training, full and offload (phase "
+              f"13b)"] = tally(k4=train_tp_families_full(arch, card))
+    lengths = np.random.default_rng(26).integers(300, 513, 12)
+    plan = PlacementPlan(hot_window=192, page_tokens=PAGE,
+                         slot_hot_windows=[128 + 16 * s for s in range(SLOTS)])
+    for arch in TP_FAMILIES:
+        cfg = dataclasses.replace(_tp_family_cfg(arch), use_paged_decode=True)
+        params = init_params(cfg, seed=0)
+        reqs = family_requests(cfg.vocab_size, lengths, seed=27)
+        k1, k4 = tp_family(arch, cfg, params, plan, reqs, card,
+                           prefill_devices=[torch.device("cuda", 0)] * 2,
+                           expected=_tp_dryrun_bytes, phase="13c",
+                           per_admission=False)
+        paths[f"{arch} TP prefill, one decode shard (phase 13c)"] = \
+            tally(k1=k1, k4=k4)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s; launches on its "
+          f"paths: {paths}", flush=True)
+    return paths
+
+
 # ---------------------------------------------------------------- timing ----
 
 def time_ms(fn, reps=20, flush_bytes=64 << 20):
@@ -4212,6 +4661,9 @@ def k1_record(full, err, launches, zamba, gemma3, card):
 K4_SWEEP = [(2, 64, 4, 16, 16, 16), (1, 128, 8, 32, 64, 32),
             (2, 96, 2, 8, 32, 32)]
 K4_FULL = (1, 4096, 112, 64, 64, 256)
+# K4 on one rank's block of zamba2-7b's SSM heads under a rank context
+# (phase 13): B 2 x S 4096, 112 heads over a model axis of 2 and of 4
+K4_RANK = ((2, 4096, 56, 64, 64, 256), (2, 4096, 28, 64, 64, 256))
 ZAMBA_B, ZAMBA_S, ZAMBA_RUNS = 2, 4096, 3
 
 
@@ -4293,6 +4745,8 @@ def check_k4():
                {"block_heads": 2, "with_h0": True}),
               ((2, 64, 4, 12, 16, 16), bf16, {})]      # P 12: SIMT
     cases += [(K4_FULL, dt, {"model_layout": True}) for dt in (f32, bf16)]
+    cases += [(shape, dt, {"model_layout": True}) for shape in K4_RANK
+              for dt in (f32, bf16)]
     cases += [(K4_FULL, bf16, {"model_layout": True, "kernel": "simt",
                                "block_heads": bh}) for bh in (1, 2)]
     cases += [((2, 192, 4, 64, 64, 64), bf16,
@@ -4317,7 +4771,8 @@ def check_k4():
         what = f"{shape} {dt} {opt} on {kernel}"
         ey = _k4_close(y, y_ref, what + " y")
         eh = _k4_close(h, h_ref, what + " h")
-        key = (kernel, "full" if shape == K4_FULL else "sweep")
+        key = (kernel, "full" if shape == K4_FULL else
+               "rank" if shape in K4_RANK else "sweep")
         wy, wh = worst.get(key, (0.0, 0.0))
         worst[key] = (max(wy, ey), max(wh, eh))
         if shape == K4_FULL and dt == bf16 and opt == {"model_layout": True}:
@@ -4329,7 +4784,8 @@ def check_k4():
     errs = "; ".join(f"{k} {w}: y {worst[(k, w)][0]:.3e} h "
                      f"{worst[(k, w)][1]:.3e}" for k, w in sorted(worst))
     print(f"k4 check: {len(cases)} cases match the plain version "
-          f"(ssd_chunked_ref), {ran['mma']} on the tensor-core kernel (bf16, "
+          f"(ssd_chunked_ref), the rank shapes {K4_RANK} among them, "
+          f"{ran['mma']} on the tensor-core kernel (bf16, "
           f"segments 1-5 given and planned), {ran['simt']} on the SIMT "
           f"kernel (bf16 at two heads a CTA, and one at full width, "
           f"included); max_abs_err {errs} (f32 y and every h within atol "
@@ -6028,6 +6484,9 @@ def main() -> int:
                        "decode_attention": 0, "ssd": 0}
     # phase 12's partitioned training runs none of the four kernels
     paths.update(check_tp_train(card, mi=smollm_mi))
+    # phase 13's runs K4 on each rank's SSM heads, and K1 on zamba2's
+    # shared-block decode
+    paths.update(check_tp_families(card))
     for what, tally in paths.items():
         for rec, name in ((k1, "paged_decode"), (k2, "flash_attention"),
                           (k3, "decode_attention"), (k4, "ssd")):

@@ -14,13 +14,108 @@ of the Mamba2 SSD oracles ``ssd_ref`` (sequential), ``ssd_chunked_ref``
 decode step, which has no kernel in either package); and of the xLSTM
 oracles ``mlstm_ref`` (sequential), ``mlstm_chunked_ref`` and ``slstm_ref``,
 which are the op itself on every device, in both packages.
+
+``step_loop`` runs the token-by-token loops (the sequential mLSTM and the
+sLSTM here, the LSTM in ``models/xlstm.py``): every trip, except under
+``launch/costing.step_cost``'s op counter, which has it count one trip as
+many, as the reference's costing multiplies a scan body by its length.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
 
 NEG_INF = -2.0 ** 20
+
+# launch/costing.py's op counter while one is active on this thread
+# (``counting``); None otherwise
+_COUNTER = threading.local()
+
+
+def counting(counter):
+    """Register ``counter`` (an object with a ``scale`` attribute that
+    multiplies what it counts), or None, as this thread's op counter."""
+    _COUNTER.active = counter
+
+
+def step_loop(step, carry: tuple, xs: tuple, n: int, consts: tuple = ()):
+    """``carry, out = step(t, carry, x_t, consts)`` for t < n, x_t the
+    tuple of each ``xs`` tensor's row t (dim 0, time first); returns (the
+    last carry, the n outputs).  ``consts``: the tensors ``step`` reads
+    that may take a gradient (``step`` may read others from its closure).
+
+    Under an op counter (``counting``) trip 0 runs, then trip 1 once under
+    the counter's scale n - 1, its backward too (``_ScaledTrip``), and
+    trip 1's carry and output stand for the rest: the counts are a whole
+    loop's, the values are not."""
+    counter = getattr(_COUNTER, "active", None)
+    outs = []
+    for t in range(n if counter is None else min(n, 1)):
+        carry, out = step(t, carry, tuple(x[t] for x in xs), consts)
+        outs.append(out)
+    if counter is None or n < 2:
+        return carry, outs
+    flat = _ScaledTrip.apply(step, counter, n - 1, len(carry), len(xs),
+                             *carry, *(x[1] for x in xs), *consts)
+    carry, out = tuple(flat[:len(carry)]), flat[-1]
+    return carry, outs + [out] * (n - 1)
+
+
+class _ScaledTrip(torch.autograd.Function):
+    """Trip 1 of a ``step_loop`` counted ``times`` times: its forward under
+    the counter's scale ``times``; its backward recomputes the trip
+    uncounted (scale 0) and runs the trip's backward under the scale
+    ``times`` again."""
+
+    @staticmethod
+    def forward(ctx, step, counter, times, n_carry, n_x, *tensors):
+        ctx.set_materialize_grads(False)
+        ctx.step, ctx.counter, ctx.times = step, counter, times
+        ctx.split = (n_carry, n_x)
+        ctx.save_for_backward(*tensors)
+        with _scaled(counter, times):
+            return _trip(step, tensors, n_carry, n_x)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n_carry, n_x = ctx.split
+        need = ctx.needs_input_grad[5:]
+        ins = [t.detach().requires_grad_(r)
+               for t, r in zip(ctx.saved_tensors, need)]
+        with _scaled(ctx.counter, 0), torch.enable_grad():
+            outs = _trip(ctx.step, ins, n_carry, n_x)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        wrt = [t for t in ins if t.requires_grad]
+        got = iter(())
+        if pairs and wrt:
+            with _scaled(ctx.counter, ctx.times):
+                got = iter(torch.autograd.grad(
+                    [o for o, _ in pairs], wrt, [g for _, g in pairs],
+                    allow_unused=True))
+        return (None,) * 5 + tuple(next(got, None) if t.requires_grad
+                                   else None for t in ins)
+
+
+def _trip(step, tensors, n_carry: int, n_x: int) -> tuple:
+    carry = tuple(tensors[:n_carry])
+    x = tuple(tensors[n_carry:n_carry + n_x])
+    carry, out = step(1, carry, x, tuple(tensors[n_carry + n_x:]))
+    return (*carry, out)
+
+
+@contextlib.contextmanager
+def _scaled(counter, times):
+    """The counter's scale multiplied by ``times`` for the body."""
+    prev = counter.scale
+    counter.scale = prev * times
+    try:
+        yield
+    finally:
+        counter.scale = prev
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -464,22 +559,29 @@ def mlstm_ref(q, k, v, log_i, log_f, *, state=None):
     B, S, H, Dk = q.shape
     Dv = v.shape[-1]
     scale = Dk ** -0.5
-    C, n, m = _mlstm_state(B, H, Dk, Dv, q.device, state)
-    hs = []
-    for t in range(S):
-        qt, kt, vt = q[:, t].float(), k[:, t].float() * scale, v[:, t].float()
-        li, lf = log_i[:, t].float(), log_f[:, t].float()
+
+    def step(t, carry, x, consts):
+        C, n, m = carry
+        qt, kt, vt = x[0].float(), x[1].float() * scale, x[2].float()
+        li, lf = x[3].float(), x[4].float()
         m_new = torch.maximum(lf + m, li)
         i_p = torch.exp(li - m_new)
         f_p = torch.where(torch.isfinite(m), torch.exp(lf + m - m_new), 0.0)
+        # the outer product as a batched product of inner dim 1, the
+        # reference's dot_general (an einsum without a contracted dim is a
+        # broadcast multiply here, which the costing counts as elementwise)
+        kv = torch.bmm(kt.reshape(B * H, Dk, 1), vt.reshape(B * H, 1, Dv))
         C = C * f_p[..., None, None] + i_p[..., None, None] * \
-            torch.einsum("bhk,bhv->bhkv", kt, vt)
+            kv.view(B, H, Dk, Dv)
         n = n * f_p[..., None] + i_p[..., None] * kt
         num = torch.einsum("bhkv,bhk->bhv", C, qt)
         den = torch.maximum(torch.einsum("bhk,bhk->bh", n, qt).abs(),
                             torch.exp(-m_new))
-        hs.append(num / den[..., None])
-        m = m_new
+        return (C, n, m_new), num / den[..., None]
+
+    (C, n, m), hs = step_loop(
+        step, _mlstm_state(B, H, Dk, Dv, q.device, state),
+        tuple(t.transpose(0, 1) for t in (q, k, v, log_i, log_f)), S)
     return torch.stack(hs, dim=1).to(v.dtype), (C, n, m)
 
 
@@ -572,11 +674,12 @@ def slstm_ref(x_ifzo, *, state=None, r_ifzo=None):
     r = None if r_ifzo is None else \
         r_ifzo.float().permute(0, 2, 1, 3).reshape(H, D, 4 * D)
     one = torch.ones((), dtype=torch.float32, device=dev)
-    hs = []
-    for t in range(S):
-        pre = xs[t]
-        if r is not None:
-            pre = pre + torch.bmm(h, r).view(H, B, 4, D)
+
+    def step(t, carry, x, consts):
+        c, n, m, h = carry
+        pre = x[0]
+        if consts:
+            pre = pre + torch.bmm(h, consts[0]).view(H, B, 4, D)
         i_p, f_p, z_p, o_p = pre.unbind(dim=2)
         lfm = F.logsigmoid(f_p) + m
         m_new = torch.maximum(lfm, i_p)
@@ -587,8 +690,10 @@ def slstm_ref(x_ifzo, *, state=None, r_ifzo=None):
         c = f_g * c + i_g * torch.tanh(z_p)
         n = f_g * n + i_g
         h = torch.sigmoid(o_p) * c / torch.maximum(n, one)
-        m = m_new
-        hs.append(h)
+        return (c, n, m_new, h), h
+
+    (c, n, m, h), hs = step_loop(step, (c, n, m, h), (xs,), S,
+                                 () if r is None else (r,))
     out = torch.stack(hs, dim=0).permute(2, 0, 1, 3)     # (B, S, H, D)
     return out.to(x_ifzo.dtype), tuple(s.transpose(0, 1)
                                        for s in (c, n, m, h))

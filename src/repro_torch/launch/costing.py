@@ -2,9 +2,13 @@
 
 The reference walks the step's jaxpr, multiplying scan bodies by their
 trip counts.  Here the step runs eagerly, on meta tensors as a rule, under
-a ``TorchDispatchMode`` that counts every aten op it dispatches: the loops
-run every trip, and the backward and each Sentinel block's recompute are
-counted because they run.
+a ``TorchDispatchMode`` that counts every aten op it dispatches: the layer
+loops run every trip, and the backward and each Sentinel block's
+recompute are counted because they run.  The token-by-token loops of the
+recurrent layers (``kernels/ref.step_loop``: the sequential mLSTM, the
+sLSTM and the LSTM) run trip 0, then trip 1 counted for the other S - 1,
+its backward too, as the reference counts a scan body once times its
+length: their results under the counter are not the loop's.
 
   - FLOPs: 2 x output elements x K for the products (``mm``, ``bmm``,
     ``addmm``, ``baddbmm``, ``mv``, ``dot``: K the operands' shared dim),
@@ -25,6 +29,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.core.profiler import _FUSIBLE, _PRIM
+from repro_torch.kernels import ref
 
 _PRODUCTS = ("mm", "bmm", "addmm", "baddbmm", "mv", "dot")
 
@@ -45,6 +50,8 @@ class _Counter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.total = {"flops": 0.0, "bytes": 0.0, "matmul_flops": 0.0}
+        # what an op counts for (``step_loop`` scales a trip)
+        self.scale = 1.0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -53,16 +60,17 @@ class _Counter(TorchDispatchMode):
             return out
         name = func.overloadpacket.__name__
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        k = self.scale
         if name in _PRODUCTS:
             f = _product_flops(args, outs[0])
-            self.total["matmul_flops"] += f
+            self.total["matmul_flops"] += k * f
         else:
             f = float(sum(t.numel() for t in outs))
-        self.total["flops"] += f
+        self.total["flops"] += k * f
         if _PRIM.get(name, name) not in _FUSIBLE:
             ins = [t for t in tree_leaves((args, kwargs))
                    if isinstance(t, torch.Tensor)]
-            self.total["bytes"] += _bytes(ins) + _bytes(outs)
+            self.total["bytes"] += k * (_bytes(ins) + _bytes(outs))
         return out
 
 
@@ -71,6 +79,10 @@ def step_cost(fn: Callable, *args, **kwargs) -> Dict[str, float]:
     counted over the aten ops it runs (its backward included where it
     takes gradients)."""
     counter = _Counter()
-    with counter:
-        fn(*args, **kwargs)
+    ref.counting(counter)
+    try:
+        with counter:
+            fn(*args, **kwargs)
+    finally:
+        ref.counting(None)
     return counter.total

@@ -9,8 +9,9 @@ ops the step runs, its backward and recomputes included) and
 ``memory.argument_bytes``, each device's bytes of the step's arguments
 (parameters, optimizer state, batch, cache) by ``sharding.shard_shape``
 under the cell's rules.  The prefill, decode and train cells (not
-``long_500k``) of a pure-attention stack (smollm-360m, gemma2-2b,
-gemma3-12b, internlm2-1.8b, granite-moe-3b) also carry ``collectives`` in
+``long_500k``, not under ``--seq-parallel``) of a stack of attention, MLA
+and Mamba layers (smollm-360m, gemma2-2b, gemma3-12b, internlm2-1.8b,
+granite-moe-3b, deepseek-v2-lite, zamba2-7b) also carry ``collectives`` in
 the reference's format (``{"bytes": {type: B}, "counts": {type: n}}``):
 the partitioned step of mesh position (0, ..., 0) runs on meta tensors
 under a ``collectives.ShapeMesh`` (a ``ShapeGroup`` for each set of mesh
@@ -18,10 +19,10 @@ axes a collective spans: ``model``, and ``data`` for a train step's
 data-parallel reductions and FSDP's gathers), whose ledger counts each
 collective's per-device result bytes, a train step's backward
 collectives included, and its executions in ``counts`` (the reference
-counts HLO sites).  ``long_500k`` and the other archs' cells carry
-``collectives_note`` instead: their partitioned programs wait for
-ROADMAP item 11b part 2.  There is no ``temp_bytes`` or ``cost``: those
-are XLA's.
+counts HLO sites).  The other cells carry ``collectives_note`` instead
+(``unpartitioned``): xlstm-1.3b's, musicgen-medium's and paligemma-3b's
+wait for ROADMAP item 11b part 2a, ``long_500k`` and Megatron-SP for part
+2b.  There is no ``temp_bytes`` or ``cost``: those are XLA's.
 
 Exit code 0 when every cell passes.
 """
@@ -33,30 +34,38 @@ import json
 import math
 import time
 import traceback
+from typing import Optional
 
 import torch
 
 from repro_torch import sharding as shd
 from repro_torch.collectives import ShapeGroup, ShapeMesh
-from repro_torch.configs.base import SHAPES, cells, get_config
+from repro_torch.configs.base import (LSTM, MLSTM, SHAPES, SLSTM, cells,
+                                      get_config)
 from repro_torch.core.offload import SentinelConfig
 from repro_torch.launch import specs
 from repro_torch.launch.costing import step_cost
 from repro_torch.launch.mesh import make_production_mesh, make_rules
-from repro_torch.models.kvcache import ATTN_KINDS
 
-SECOND_HALF = ("the partitioned program of this cell waits for ROADMAP "
-               "item 11b part 2")
+PART_2A = ("the partitioned program of this cell waits for ROADMAP item "
+           "11b part 2a (the mLSTM, sLSTM and LSTM layers, then the "
+           "modality stubs)")
+PART_2B = ("the partitioned program of this cell waits for ROADMAP item "
+           "11b part 2b (long_500k's decode and Megatron-SP)")
 
 
-def partitioned(cfg, shape_name: str) -> bool:
-    """Whether the port runs this cell's partitioned program: a prefill,
-    decode or train cell (not ``long_500k``) of a pure-attention stack
-    without a modality stub."""
-    return shape_name != "long_500k" and \
-        all(cfg.layer_kind(l) in ATTN_KINDS
-            for l in range(cfg.num_layers)) and \
-        not cfg.num_codebooks and not cfg.num_prefix_tokens
+def unpartitioned(cfg, shape_name: str, rules) -> Optional[str]:
+    """None where the port runs this cell's partitioned program (a
+    prefill, decode or train cell of a stack of attention, MLA and Mamba
+    layers without a modality stub, under rules without Megatron-SP),
+    else the note that says which item it waits for."""
+    if shape_name == "long_500k" or shd.is_seq_parallel(rules):
+        return PART_2B
+    if any(cfg.layer_kind(l) in (MLSTM, SLSTM, LSTM)
+           for l in range(cfg.num_layers)) \
+            or cfg.num_codebooks or cfg.num_prefix_tokens:
+        return PART_2A
+    return None
 
 
 def _blocks(tree, shardings):
@@ -81,8 +90,8 @@ def rank_collectives(fn, args, in_sh, rules) -> dict:
     if isinstance(args[0], dict) and "params" in args[0]:
         state, batch = args
         params = shd.shard_params(state["params"], rules, coords, train=True)
-        # the moments follow the rank's blocks (``param_spec``'s, as the
-        # partitioned step's do)
+        # the moments follow the rank's blocks (``sharding_for``'s spec,
+        # as the partitioned step's do)
         opt = {k: {n: torch.empty_like(p)
                    for n, p in params.named_parameters()}
                for k in state["opt"] if k != "count"}
@@ -147,10 +156,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "matmul_flops_per_chip": cost["matmul_flops"] / rec["chips"],
         "bytes_per_chip": cost["bytes"] / rec["chips"],
     }
-    if partitioned(cfg, shape_name):
+    note = unpartitioned(cfg, shape_name, rules)
+    if note is None:
         rec["collectives"] = rank_collectives(fn, args, in_sh, rules)
     else:
-        rec["collectives_note"] = SECOND_HALF
+        rec["collectives_note"] = note
     rec["run_s"] = round(time.time() - t0, 1)
     rec["ok"] = True
     return rec

@@ -25,8 +25,9 @@ reference's program.  The output of wo is a partial sum, all-reduced.
 Under grad, whatever is replicated and enters the rank's share of the
 heads passes ``sharding.to_split`` (its gradient all-reduced over
 ``model``): the input of a split projection, k and v where wk and wv stay
-whole, and the QK-norm weights of a split q or k.  The pool layouts and
-MLA under a rank context wait for ROADMAP item 11b part 2.
+whole, and the QK-norm weights of a split q or k.  MLA's rank program is
+its class's (``MLA``); the pool layouts under a rank context wait for
+ROADMAP item 11b part 2a.
 """
 from __future__ import annotations
 
@@ -431,7 +432,23 @@ class MLA(nn.Module):
     """DeepSeek-V2 multi-head latent attention.  The cache holds the
     compressed latent {"ckv": (B, S, kv_lora_rank), "krope": (B, S,
     qk_rope_dim)} (one rope key shared by the heads); K and V are expanded
-    from the latent at use time, as the reference's ``mla_attention``."""
+    from the latent at use time, as the reference's ``mla_attention``.
+
+    Under a rank context the head-carrying leaves (``wq``, ``w_uk``,
+    ``w_uv`` and ``wo``'s rows, each laid out head by head) are the rank's
+    blocks, and ``w_dkv`` and ``w_krope`` are whole, so every rank
+    computes the latent and the rope key whole.  Where the split falls on
+    whole heads the rank runs its own heads; where it
+    cuts one, the split products are gathered, every head runs, and the
+    rank takes its block of the output back for its rows of ``wo``.  The
+    output of ``wo`` is a partial sum, all-reduced.  The cache's latent is
+    the rank's block of its columns (``kv_latent`` on ``model``): the rank
+    writes its block of the new rows, then gathers the latent whole before
+    the up-projections, as XLA gathers it for the reference's
+    ``("batch", "kv_seq", None)`` constraint; the rope key is whole.  Under
+    grad the replicated tensors entering the rank's share of the heads
+    pass ``sharding.to_split``: ``x`` before ``wq``, the latent before
+    ``w_uk`` and ``w_uv``, and the rope key (``_rank_latent``)."""
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
@@ -452,11 +469,13 @@ class MLA(nn.Module):
         cache whose new rows are written in place at ``cache_index`` (a
         scalar offset, 0 when None, or a (B,) tensor of per-slot offsets)
         and which every query then reads whole under the causal mask."""
-        refuse_partitioned("MLA")
         B, Sq, _ = x.shape
-        H, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
-                         cfg.v_head_dim)
-        q = (x @ self.wq).reshape(B, Sq, H, dn + dr)
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        tp = _rank_latent(cfg, self)
+        q = (x if tp is None else to_split(x)) @ self.wq
+        if tp == "gather":
+            q = _heads_whole(q)
+        q = q.reshape(B, Sq, -1, dn + dr)
         q_nope = q[..., :dn]
         q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
         ckv = x @ self.w_dkv                                   # (B, Sq, dc)
@@ -464,15 +483,30 @@ class MLA(nn.Module):
                            cfg.rope_theta)[:, :, 0, :]         # (B, Sq, dr)
         if cache is not None:
             ckv_all, kr_all = cache["ckv"], cache["krope"]
-            write_rows(ckv_all, ckv, cache_index)
+            blocked = ckv_all.shape[-1] < ckv.shape[-1]
+            # the rank's block of the latent's columns, as its cache holds
+            # them
+            write_rows(ckv_all, constrain(
+                ckv, ("batch", "kv_seq", "kv_latent"),
+                held=("batch", "kv_seq", None)) if blocked else ckv,
+                cache_index)
             write_rows(kr_all, krope, cache_index)
+            if blocked:
+                ckv_all, kr_all = _whole_latent(ckv_all, kr_all, ckv,
+                                                cache_index)
             kv_pos = torch.arange(ckv_all.shape[1], device=x.device)
         else:
             ckv_all, kr_all = ckv, krope
             kv_pos = positions[0] if positions.dim() > 1 else positions
         Skv = ckv_all.shape[1]
-        k_nope = (ckv_all @ self.w_uk).reshape(B, Skv, H, dn)
-        v = (ckv_all @ self.w_uv).reshape(B, Skv, H, dv)
+        if tp is not None:
+            # replicated, entering the rank's share of the heads
+            ckv_all, kr_all = to_split(ckv_all), to_split(kr_all)
+        k_nope, v = ckv_all @ self.w_uk, ckv_all @ self.w_uv
+        if tp == "gather":
+            k_nope, v = _heads_whole(k_nope), _heads_whole(v)
+        k_nope = k_nope.reshape(B, Skv, -1, dn)
+        v = v.reshape(B, Skv, -1, dv)
         scale = (dn + dr) ** -0.5
         scores = (torch.einsum("bqhd,bshd->bhqs", q_nope.float(),
                                k_nope.float())
@@ -482,4 +516,62 @@ class MLA(nn.Module):
         scores = scores + (bias[None] if bias.dim() == 2 else bias[:, None])
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
-        return out.reshape(B, Sq, H * dv) @ self.wo
+        out = out.reshape(B, Sq, -1)
+        if tp == "gather":
+            # every head ran: the rank's block for its rows of wo
+            out = constrain(out, ("batch", "seq", "heads"),
+                            held=("batch", "seq", None))
+        return constrain(out @ self.wo, ("batch", "seq", "embed"),
+                         partial=tp is not None)
+
+
+def _rank_latent(cfg, mla):
+    """How an MLA layer runs under the current rank context: None where
+    there is none or the rules split none of its head-carrying leaves;
+    "heads" where they split into the same whole heads (the rank runs its
+    own); "gather" where the split cuts a head (the model axis does not
+    divide the heads), so q, k and v are gathered and every head runs."""
+    if current_rank() is None:
+        return None
+    H, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    cols = (mla.wq.shape[1], mla.w_uk.shape[1], mla.w_uv.shape[1],
+            mla.wo.shape[0])
+    split = [c < f for c, f in zip(cols, (H * (dn + dr), H * dn, H * dv,
+                                          H * dv))]
+    if not any(split):
+        return None
+    if not all(split):
+        raise NotImplementedError(
+            f"an MLA layer whose head-carrying leaves the model axis splits "
+            f"only in part ({cols} columns)")
+    Hl = cols[0] // (dn + dr)
+    whole = cols == (Hl * (dn + dr), Hl * dn, Hl * dv, Hl * dv)
+    return "heads" if whole else "gather"
+
+
+def _heads_whole(t):
+    """The rank's block of a split head-carrying product, gathered whole
+    over ``model``."""
+    return constrain(t, ("batch", "seq", None),
+                     held=("batch", "seq", "heads"))
+
+
+def _whole_latent(ckv_cache, kr_cache, ckv, cache_index):
+    """The latent and rope key to attend over, from a cache whose latent
+    is the rank's block of the columns (the new rows already written):
+    after a per-slot write the whole cache, its latent gathered; at a
+    scalar offset the rows up to the new ones' end, the earlier rows'
+    latent gathered and the new rows' whole latent after them (rows past
+    them are masked, so a prefill gathers nothing)."""
+    def gathered(t):
+        return constrain(t, ("batch", "kv_seq", None),
+                         held=("batch", "kv_seq", "kv_latent"))
+
+    if torch.is_tensor(cache_index) and cache_index.dim() >= 1:
+        return gathered(ckv_cache), kr_cache
+    off = 0 if cache_index is None else int(cache_index)
+    end = off + ckv.shape[1]
+    if off:
+        ckv = torch.cat([gathered(ckv_cache[:, :off]), ckv], dim=1)
+    return ckv, kr_cache[:, :end]

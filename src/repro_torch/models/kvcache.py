@@ -57,8 +57,10 @@ def init_layer_cache(cfg, kind: str, batch: int, max_seq: int, dtype,
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if kind == MLA:
-        return {"ckv": torch.zeros(batch, max_seq, cfg.kv_lora_rank,
-                                   dtype=dtype, device=device),
+        # under a rank context the rank's block of the latent's columns
+        ckv = local_shape((batch, max_seq, cfg.kv_lora_rank),
+                          _layer_cache_axes(kind)["ckv"])
+        return {"ckv": torch.zeros(ckv, dtype=dtype, device=device),
                 "krope": torch.zeros(batch, max_seq, cfg.qk_rope_dim,
                                      dtype=dtype, device=device)}
     if kind == MAMBA:
@@ -238,7 +240,10 @@ class PageTable:
     ``dst`` onto ``src``'s physical pages, bumping refcounts.  A shared page
     is read-only; the first divergent write goes through ``cow``.  Demoting
     a shared page gives the demoting slot a cold *twin*, memoized per hot
-    page, so N sharers demoting one logical page move its bytes once.
+    page, so N sharers demoting one logical page move its bytes once.  A
+    write in place to either page of a memoized pair (``cow`` on an
+    exclusive page) drops the memo, where the reference's keeps it
+    (ROADMAP R11): a later sharer's demotion then copies its own page.
 
     ``version`` increments on every mutation; callers caching ``as_arrays``
     output re-upload only when it changes.
@@ -314,16 +319,21 @@ class PageTable:
             raise AssertionError(f"tier {tier} page {phys}: negative refcount")
         if refs[phys] == 0:
             self._free(tier).append(phys)
-            if tier == 0:
-                # hot page gone: its cold twin (if any) lives on through its
-                # own refs, but can no longer be reached for dedup
-                twin = self.cold_twin.pop(phys, None)
-                if twin is not None:
-                    self._twin_of.pop(twin, None)
-            else:
-                src = self._twin_of.pop(phys, None)
-                if src is not None:
-                    self.cold_twin.pop(src, None)
+            # a hot page gone: its cold twin (if any) lives on through its
+            # own refs, but can no longer be reached for dedup
+            self._forget_twin(tier, phys)
+
+    def _forget_twin(self, tier: int, phys: int) -> None:
+        """Drop the twin memo that holds page ``phys`` of ``tier`` (as the
+        hot source or as the cold twin), if any."""
+        if tier == 0:
+            twin = self.cold_twin.pop(phys, None)
+            if twin is not None:
+                self._twin_of.pop(twin, None)
+        else:
+            src = self._twin_of.pop(phys, None)
+            if src is not None:
+                self.cold_twin.pop(src, None)
 
     def alloc(self, slot: int, tier: int) -> int:
         """Append one logical page to ``slot`` in the given tier; returns the
@@ -367,10 +377,14 @@ class PageTable:
         caller copies the page's data from src to new in that tier's pool."""
         if page_idx >= self.n_pages[slot]:
             raise ValueError(f"slot {slot}: page {page_idx} not allocated")
-        if not self.is_shared(slot, page_idx):
-            return None
         tier = self.tier[slot][page_idx]
         src = self.table[slot][page_idx]
+        if not self.is_shared(slot, page_idx):
+            # the caller writes this page in place: a twin memo through it
+            # would hand a later sharer's demotion the new data (ROADMAP
+            # R11), so the pair is forgotten
+            self._forget_twin(tier, src)
+            return None
         new = self._acquire(tier)
         self._refs(tier)[src] -= 1
         self.table[slot][page_idx] = new

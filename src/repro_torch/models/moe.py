@@ -13,11 +13,13 @@ as one dense MLP on every token.
 Under a rank context (``sharding.rank_context``) a rank holding a block of
 the experts routes every token as one device does (the router is whole),
 fills and runs its own experts' buffers only, and its combine is a partial
-sum, all-reduced.  Where the experts do not divide over the ranks
-``param_spec`` keeps every expert whole (the hidden dim does not take the
-axis either), and each rank runs them all.  Under grad the dispatched
+sum, all-reduced.  Where the experts do not divide over the ranks the
+expert hidden dim takes the axis (``sharding_for``, as the reference's
+train cell lays the banks out): each rank fills every expert's buffer,
+runs its block of the hidden dim, and the combine of its ``wo`` rows is
+again a partial sum.  Under grad the dispatched
 tokens and the combine weights pass ``sharding.to_split``, since each
-rank holds only its experts' share of their gradient, so the replicated
+rank holds only its share of their gradient, so the replicated
 router's gradient comes out whole and the same on every model rank.  A
 rank whose batch is one block over the data axes averages the aux's
 ``frac_tokens`` and ``frac_prob`` over them before their product, as the
@@ -95,10 +97,10 @@ def moe_mlp(params, cfg, x, act: str):
     E, K = m.num_experts, m.experts_per_token
 
     # the experts this rank holds: [e0, e0 + El) (all of them on one
-    # device)
+    # device, or where the rank holds a block of every expert's hidden dim)
     El = params.wi.shape[0]
-    split = El < E
-    e0 = rank_block("experts") * El if split else 0
+    e0 = rank_block("experts") * El if El < E else 0
+    split = El < E or params.wi.shape[2] < m.d_ff
 
     xt = x.reshape(G, gsz, d)
     # the router's logits in the activation dtype, then float32

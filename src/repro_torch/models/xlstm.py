@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.ref import step_loop
 from repro_torch.models.layers import frozen, rmsnorm
 from repro_torch.models.ssm import _causal_conv
 from repro_torch.sharding import refuse_partitioned
@@ -140,14 +141,19 @@ class LSTMBlock(nn.Module):
         else:
             h = x.new_zeros(B, d)
             c = torch.zeros(B, d, dtype=torch.float32, device=x.device)
-        hs = []
-        for t in range(S):
-            gates = torch.cat([x[:, t], h], dim=-1) @ self.w + self.b
+
+        def step(t, carry, xt, consts):
+            h, c = carry
+            w, b = consts
+            gates = torch.cat([xt[0], h], dim=-1) @ w + b
             i, f, g, o = gates.chunk(4, dim=-1)
             c = torch.sigmoid(f).float() * c + \
                 (torch.sigmoid(i) * torch.tanh(g)).float()
             h = torch.sigmoid(o) * torch.tanh(c).to(x.dtype)
-            hs.append(h)
+            return (h, c), h
+
+        (h, c), hs = step_loop(step, (h, c), (x.transpose(0, 1),), S,
+                               (self.w, self.b))
         return torch.stack(hs, dim=1), {"h": h, "c": c}
 
 

@@ -66,6 +66,7 @@ import torch
 
 from repro_torch import collectives
 from repro_torch import sharding as shd
+from repro_torch.device import resolve
 from repro_torch.launch.mesh import disagg_groups
 from repro_torch.models import kvcache, model
 from repro_torch.runtime.plan import validate_slot_devices
@@ -142,9 +143,12 @@ class TensorParallelPrefill:
             full = kvcache.init_layer_cache(
                 cfg, cfg.layer_kind(l), 1, 1, model.param_dtype(cfg),
                 torch.device("meta"))
+            # the whole leaf's dims: the batch and a sequence leaf's rows
+            # are the rank's own, the rest from the unpartitioned cache
             fresh.append({
                 k: join([o[1][l][k] for o in outs],
-                        (v.shape[0], v.shape[1], *full[k].shape[2:]))
+                        (v.shape[0], v.shape[1] if k in kvcache.SEQ_KEYS
+                         else full[k].shape[1], *full[k].shape[2:]))
                 for k, v in entry.items()})
         return last, fresh
 
@@ -158,11 +162,19 @@ class DisaggregatedEngine(ContinuousBatcher):
 
     def __init__(self, params, cfg, batch_slots: int, max_seq: int,
                  scfg=None, plan=None, slot_tenants=None, devices=None,
-                 tp_prefill: bool = False):
+                 tp_prefill: bool = False, prefill_devices=None):
+        """``prefill_devices``: the prefill group, given beside ``devices``,
+        which is then the decode group as it stands (default: the split of
+        ``devices`` by ``launch.mesh.disagg_groups``), so a prefill group of
+        two tensor-parallel ranks can feed one decode shard."""
         if plan is None:
             raise ValueError("DisaggregatedEngine requires a plan (the "
                              "pools layout is planned)")
-        prefill_devs, decode_devs = disagg_groups(devices)
+        if prefill_devices is None:
+            prefill_devs, decode_devs = disagg_groups(devices)
+        else:
+            prefill_devs = [resolve(d) for d in prefill_devices]
+            decode_devs = [resolve(d) for d in devices or [None]]
         self.prefill_devices = list(prefill_devs)
         self.prefill_device = prefill_devs[0]
         self.decode_devices = list(decode_devs)

@@ -16,8 +16,11 @@ on its own thread under a ``RankContext`` (``rank_context``), which holds
 the group of each set of mesh axes (``collectives.MeshGroup``; a
 ``collectives.Group`` over ``model`` alone for the TP prefill):
 ``shard_params`` gives each rank its block of every parameter, cut by
-``param_spec``, so the rules' divisibility drop decides what splits, as
-the reference's ``_divisible`` does.  ``constrain`` is the reference's
+``sharding_for``'s spec, as the reference's train cell lays out its
+``in_shardings``: a mesh axis that does not divide a dim is skipped before
+it is marked used, so it stays free for a later dim (granite's 40
+experts at 16 ranks leave ``model`` to the expert hidden dim).
+``constrain`` is the reference's
 ``with_sharding_constraint``: the identity with no rank context, and
 under one it makes a tensor hold the layout its logical axes name -- a
 partial sum is all-reduced, a dim held split that the target keeps whole
@@ -172,33 +175,12 @@ def current_rules() -> Optional[AxisRules]:
     return getattr(_state, "rules", None)
 
 
-def _divisible(shape: Tuple[int, ...], spec: tuple, mesh: Mesh) -> tuple:
-    """Drop spec entries whose mesh-axis product doesn't divide the dim."""
-    out = []
-    for dim, entry in zip(shape,
-                          tuple(spec) + (None,) * (len(shape) - len(spec))):
-        if entry is None:
-            out.append(None)
-            continue
-        size = 1
-        for a in _axes_of(entry):
-            size *= mesh.shape[a]
-        out.append(entry if dim % size == 0 else None)
-    return tuple(out)
-
-
 def sharding_for(shape: Tuple[int, ...], logical: Sequence[Optional[str]],
                  rules: AxisRules) -> Sharding:
     """The sharding for a concrete shape: logical axes mapped through the
     rules, dropping any entry whose mesh-axis product doesn't divide the
     dim (e.g. 40 experts on a 16-way model axis, kv_heads=5)."""
     return Sharding(rules.mesh, rules.spec(logical, shape))
-
-
-def param_spec(path: Tuple[str, ...], leaf_logical: Sequence[Optional[str]],
-               shape: Tuple[int, ...], rules: AxisRules) -> Sharding:
-    spec = _divisible(shape, rules.spec(leaf_logical), rules.mesh)
-    return Sharding(rules.mesh, spec)
 
 
 def shard_shape(shape: Sequence[int], spec: tuple, mesh: Mesh) -> tuple:
@@ -296,7 +278,7 @@ class RankContext:
     mesh axis.  ``mesh`` (``collectives.MeshGroup`` or ``ShapeMesh``)
     gives the group of any other set of mesh axes; ``batch_axes`` are the
     mesh axes the rank's batch is one block of; ``specs`` maps ``id`` of
-    each of the rank's parameters to its ``param_spec`` spec."""
+    each of the rank's parameters to its spec (``shard_params``)."""
     group: Any
     rank: int
     rules: AxisRules
@@ -304,6 +286,9 @@ class RankContext:
     mesh: Any = None
     batch_axes: tuple = ()
     specs: Optional[Mapping[int, tuple]] = None
+
+    def __post_init__(self):
+        refuse_seq_parallel(self.rules)
 
     @property
     def size(self) -> int:
@@ -361,11 +346,29 @@ def current_rank() -> Optional[RankContext]:
 
 def refuse_partitioned(what: str):
     """Raise under a rank context: ``what`` has no partitioned program
-    yet (the MLA, Mamba, xLSTM and LSTM layers, the page pools)."""
+    yet (the mLSTM, sLSTM and LSTM layers, the page pools)."""
     if current_rank() is not None:
         raise NotImplementedError(
             f"{what} under a rank context: its partitioned program waits "
-            f"for ROADMAP item 11b part 2")
+            f"for ROADMAP item 11b part 2a")
+
+
+def is_seq_parallel(rules: AxisRules) -> bool:
+    """Whether ``rules`` put the residual stream's sequence (``seq_res``)
+    on the ``model`` axis: Megatron-SP."""
+    rule = rules.rules.get("seq_res")
+    return any(c is not None and "model" in _axes_of(c)
+               for c in (rule if isinstance(rule, list) else [rule]))
+
+
+def refuse_seq_parallel(rules: AxisRules):
+    """Raise for rules that put ``seq_res`` on ``model``: the port's
+    models hold no Megatron-SP sites yet, so a rank program under them
+    would run plain tensor parallelism under Megatron-SP's name."""
+    if is_seq_parallel(rules):
+        raise NotImplementedError(
+            "seq_res on the model axis (Megatron-SP) under a rank "
+            "context: its sites wait for ROADMAP item 11b part 2b")
 
 
 def _index(entry, coords: Mapping[str, int], mesh: Mesh) -> int:
@@ -547,17 +550,16 @@ def _block_of(t, spec: tuple, coords: Mapping[str, int], mesh: Mesh):
 def _specs(module, rules: AxisRules) -> dict:
     from repro_torch.models.layers import param_axes
     axes = param_axes(module)
-    return {name: param_spec(tuple(name.split(".")), axes[name],
-                             tuple(p.shape), rules).spec
+    return {name: sharding_for(tuple(p.shape), axes[name], rules).spec
             for name, p in module.named_parameters()}
 
 
 def shard_params(module, rules: AxisRules, coords: Mapping[str, int],
                  device=None, *, train: bool = False):
     """A copy of ``module`` whose every parameter is the block the mesh
-    position ``coords`` holds under ``rules`` (``param_spec`` on the
-    leaf's logical axes, so a dim the mesh-axis product does not divide
-    stays whole), on ``device`` (default: where it is); the module's
+    position ``coords`` holds under ``rules`` (``sharding_for`` on the
+    leaf's shape and logical axes, so a dim the mesh-axis product does not
+    divide stays whole and leaves the axis to a later dim), on ``device`` (default: where it is); the module's
     structure, shared blocks included, is kept, and its ``shard_specs``
     name each parameter's spec.  Serving (``train=False``): the blocks
     are frozen views of the module's parameters where they stay on its

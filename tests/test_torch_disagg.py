@@ -202,12 +202,32 @@ def mesh_ops(draw, max_ops=40):
     return ops
 
 
+def _forget_written_twin(mesh, gslot: int, page_idx: int):
+    """ROADMAP R11 applied to the reference's table before a write: where
+    the page written is exclusive (written in place), the twin memo that
+    holds it is dropped, as the port's ``cow`` drops it."""
+    t, _, s = mesh._at(gslot)
+    if t.is_shared(s, page_idx):
+        return
+    phys = t.table[s][page_idx]
+    if t.tier[s][page_idx] == 0:
+        twin = t.cold_twin.pop(phys, None)
+        if twin is not None:
+            t._twin_of.pop(twin, None)
+    else:
+        src = t._twin_of.pop(phys, None)
+        if src is not None:
+            t.cold_twin.pop(src, None)
+
+
 @given(mesh_ops())
 @settings(max_examples=40, deadline=None)
 def test_mesh_page_table_programs_equal_the_reference(ops):
     """The reference property suite's legal op programs on both tables in
     lockstep: every result and the whole state equal after every op, the
-    ledgers balanced and equal to the program's own account."""
+    ledgers balanced and equal to the program's own account.  A write
+    drops the memo of a twin it writes in place on the reference's table
+    too (ROADMAP R11: the port drops it, the reference keeps it)."""
     m = Lockstep()
     p = m.port
     my_edges, my_host = {}, 0.0
@@ -225,6 +245,7 @@ def test_mesh_page_table_programs_equal_the_reference(ops):
                 m("share", a, b, min(i + 1, p.n_pages(b)))
         elif op == "write":
             if i < p.n_pages(a):
+                _forget_written_twin(m.m[0], a, i)
                 m("cow", a, i)
         elif op == "demote":
             t, _, s = p._at(a)

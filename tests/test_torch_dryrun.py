@@ -223,3 +223,130 @@ def test_train_cells_carry_collectives_backward_included(arch):
     assert plain["all-gather"] == 2 * plain["reduce-scatter"]
     assert got[("fsdp",)]["reduce-scatter"] > plain["reduce-scatter"]
     assert {k for k, v in got[("dp_only",)].items() if v} == {"all-reduce"}
+
+
+# ------------------------------------------ recurrent loops (ROADMAP F2) --
+
+def test_step_loop_counts_a_trip_as_many():
+    """``kernels/ref.step_loop`` under the counter runs trip 0 and trip 1
+    and counts trip 1 for the rest, its backward too: a 16-trip recurrence
+    x_t = tanh(x_{t-1} @ w + u_t) counts the FLOPs of the same loop run
+    trip by trip, and differentiated in w and u its matmul FLOPs (the
+    trip-by-trip loop's backward also writes a whole-size gradient of u
+    at every trip, which the reference's scan does not); outside the
+    counter it is the loop itself."""
+    from repro_torch.kernels import ref
+    n = 16
+
+    def step(t, carry, x, consts):
+        h = torch.tanh(carry[0] @ consts[0] + x[0])
+        return (h,), h
+
+    def scaled(w, u):
+        _, hs = ref.step_loop(step, (u[0],), (u,), n, (w,))
+        return torch.stack(hs).sum()
+
+    def plain(w, u):
+        h, hs = u[0], []
+        for t in range(n):
+            (h,), o = step(t, (h,), (u[t],), (w,))
+            hs.append(o)
+        return torch.stack(hs).sum()
+
+    def grads(f):
+        return lambda w, u: torch.autograd.grad(f(w, u), (w, u))
+
+    w = torch.ones(32, 32, device="meta", requires_grad=True)
+    u = torch.ones(n, 8, 32, device="meta", requires_grad=True)
+    got, want = (step_cost(grads(f), w, u) for f in (scaled, plain))
+    assert got["matmul_flops"] == want["matmul_flops"] == \
+        n * 3 * 2 * 8 * 32 * 32
+    with torch.no_grad():
+        fwd = [step_cost(f, w, u) for f in (scaled, plain)]
+    assert fwd[0] == fwd[1] and fwd[0]["matmul_flops"] == \
+        n * 2 * 8 * 32 * 32
+    g = torch.Generator().manual_seed(0)
+    w = (torch.randn(32, 32, generator=g) * 0.1).requires_grad_(True)
+    u = torch.randn(n, 8, 32, generator=g).requires_grad_(True)
+    for a, b in zip(grads(scaled)(w, u), grads(plain)(w, u)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "prefill_32k",
+                                        "decode_32k"])
+def test_xlstm_cells_beside_the_reference(shape_name):
+    """Reduced xlstm-1.3b's dry-run cells at their full shapes on the
+    16 x 16 mesh (a 32,768-token sLSTM and sequential mLSTM: each step
+    loop counted as trip 0 and trip 1 times S - 1): per chip, the matmul
+    FLOPs within 1% of the reference's ``jaxpr_cost`` and all FLOPs within
+    5%, as the tiny train cells are held; the bytes, a proxy each package
+    models its own way (the port counts a 3-D product's reshape of its
+    result and the reference its backward's transposes; measured 0.90,
+    1.32 and 1.23 of the reference's), within 35%."""
+    from repro.launch.mesh import make_rules as ref_make_rules
+    arch = "xlstm-1.3b"
+    shape = REF_SHAPES[shape_name]
+    rules = ref_make_rules(AbstractMesh((16, 16), ("data", "model")),
+                           kind=shape.kind)
+    cfg = ref_config(arch).reduced()
+    if shape.kind == "train":
+        fn, args, _ = ref_specs.build_train_cell(
+            cfg, shape, rules,
+            RefSentinelConfig("offload", ref_specs.default_mi(cfg)))
+    elif shape.kind == "prefill":
+        fn, args, _ = ref_specs.build_prefill_cell(cfg, shape, rules)
+    else:
+        fn, args, _ = ref_specs.build_decode_cell(cfg, shape, rules)
+    want = {k: v / 256 for k, v in jaxpr_cost(jax.make_jaxpr(fn)(*args))
+            .items()}
+    rec = dryrun.run_cell(arch, shape_name,
+                          cfg=get_config(arch).reduced())
+    got = rec["cost_analytic"]
+    print(f"{arch} x {shape_name}: per chip FLOPs "
+          f"{got['flops_per_chip']:.6g} ({want['flops']:.6g}), matmul "
+          f"{got['matmul_flops_per_chip']:.6g} "
+          f"({want['matmul_flops']:.6g}), bytes "
+          f"{got['bytes_per_chip']:.6g} ({want['bytes']:.6g}); "
+          f"{rec['run_s']} s")
+    assert abs(got["matmul_flops_per_chip"] - want["matmul_flops"]) <= \
+        0.01 * want["matmul_flops"]
+    assert abs(got["flops_per_chip"] - want["flops"]) <= \
+        0.05 * want["flops"]
+    assert abs(got["bytes_per_chip"] - want["bytes"]) <= \
+        0.35 * want["bytes"]
+    assert "item 11b part 2a" in rec["collectives_note"]
+
+
+def test_seq_parallel_cells_carry_the_note():
+    """A train cell under ``--seq-parallel`` (Megatron-SP rules; the serve
+    cells' rules ignore the flag, in both packages) has no rank program
+    (ROADMAP F3): the record keeps ``"seq_parallel": true`` and carries
+    the note naming item 11b part 2b, not plain TP's collectives."""
+    rec = dryrun.run_cell("smollm-360m", "train_4k",
+                          cfg=get_config("smollm-360m").reduced(),
+                          seq_parallel=True)
+    assert rec["ok"] and rec["seq_parallel"] is True
+    assert "collectives" not in rec
+    assert "item 11b part 2b" in rec["collectives_note"]
+
+
+def test_mla_and_mamba_train_cells_carry_collectives():
+    """deepseek-v2-lite's ``train_4k`` cell (reduced, 16 x 16, offload at
+    its default MI) and zamba2-7b's train step at B 16 x S 64 on the same
+    mesh carry ``collectives``: at 16 model ranks deepseek's 4 reduced
+    heads are cut, so q, the up-projected keys and values are gathered
+    (each gather's backward a reduce-scatter); zamba2's Mamba layers
+    gather the rank's block of ``x @ w_in`` and the conv's weights."""
+    rec = dryrun.run_cell("deepseek-v2-lite-16b", "train_4k",
+                          cfg=get_config("deepseek-v2-lite-16b").reduced())
+    counts = rec["collectives"]["counts"]
+    assert counts["all-reduce"] > 0 and counts["reduce-scatter"] > 0
+    assert counts["all-gather"] > counts["reduce-scatter"]
+    cfg = get_config("zamba2-7b").reduced()
+    rules = make_rules(make_production_mesh())
+    fn, args, in_sh = specs.build_train_cell(
+        cfg, ShapeConfig("w", 64, 16, "train"), rules,
+        SentinelConfig("offload", specs.default_mi(cfg)))
+    led = dryrun.rank_collectives(fn, args, in_sh, rules)
+    assert all(led["counts"][k] > 0 for k in ("all-gather", "all-reduce",
+                                              "reduce-scatter"))

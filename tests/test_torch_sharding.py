@@ -2,7 +2,7 @@
 logical axes of every parameter (``model.param_axes``) and cache leaf
 (``kvcache.cache_logical_axes``) against the reference's ``split_params``
 and ``cache_logical_axes`` leaf by leaf, without the stacked ``layers``
-axis; ``AxisRules.spec``, ``param_spec`` and ``sharding_for`` against the
+axis; ``AxisRules.spec`` and ``sharding_for`` against the
 reference's for every rule set on three meshes; the batch specs; and
 each device's bytes of a cell's arguments (``specs.argument_bytes``, by
 ``shard_shape``) against the sum of the reference's
@@ -125,9 +125,9 @@ def test_param_axes_match_reference(arch, reduced):
 @pytest.mark.parametrize("rules_name", list(RULES))
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_param_specs_match_reference(mesh_name, rules_name):
-    """``AxisRules.spec`` (with and without a shape), ``param_spec`` and
-    ``sharding_for`` equal the reference's on every parameter of every
-    arch at full width."""
+    """``AxisRules.spec`` (with and without a shape) and ``sharding_for``
+    (which the rank program cuts parameters by) equal the reference's on
+    every parameter of every arch at full width."""
     rules, ref_rules = _both_rules(mesh_name, rules_name)
     for arch in ref_list_archs():
         cfg_t = get_config(arch)
@@ -140,10 +140,6 @@ def test_param_specs_match_reference(mesh_name, rules_name):
             want = tuple(ref_rules.spec(ax, shape))
             assert rules.spec(ax, shape) == want, what
             assert shd.sharding_for(shape, ax, rules).spec == want, what
-            assert shd.param_spec(tuple(name.split(".")), ax, shape,
-                                  rules).spec == \
-                tuple(ref_shd._divisible(shape, ref_rules.spec(ax),
-                                         ref_rules.mesh)), what
 
 
 def _ref_cache_axes(cfg, tree, layer):

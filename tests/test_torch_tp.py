@@ -2,7 +2,8 @@
 collectives (``collectives.Group``, ``ShapeGroup``), the rank context and
 ``constrain``, ``shard_params``, the partitioned prefill of the five
 pure-attention families on ``[cpu] * 2`` and ``* 4`` against the
-one-device prefill, and the dry run's ``collectives``.  The comparisons
+one-device prefill, and the dry run's ``collectives`` (MLA and Mamba
+under a rank context: ``tests/test_torch_tp_families.py``).  The comparisons
 with the reference's own partitioned programs (its TP prefill and its
 compiled cells' ``collective_bytes``) need forced JAX devices and live in
 ``tests/test_torch_disagg_multidev.py``'s scenario."""
@@ -177,7 +178,7 @@ def test_constrain_gathers_cuts_and_reduces_under_the_rules():
 @pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_shard_params_blocks_equal_shard_shape(arch, n):
-    """Every leaf's block is ``param_spec``'s ``shard_shape`` of it, at full
+    """Every leaf's block is ``sharding_for``'s ``shard_shape`` of it, at full
     width (meta) and reduced, and the reduced blocks are the full
     parameter's slices: concatenated in rank order on their split dim they
     give it back."""
@@ -190,8 +191,7 @@ def test_shard_params_blocks_equal_shard_shape(arch, n):
                  for r in range(n)]
         split = 0
         for name, p in full.named_parameters():
-            sh = shd.param_spec(tuple(name.split(".")), axes[name],
-                                tuple(p.shape), rules)
+            sh = shd.sharding_for(tuple(p.shape), axes[name], rules)
             blocks = [dict(rk.named_parameters())[name] for rk in ranks]
             assert all(tuple(b.shape) == sh.shard_shape(p.shape)
                        for b in blocks), name
@@ -207,12 +207,13 @@ def test_shard_params_blocks_equal_shard_shape(arch, n):
 
 def test_shard_params_follows_the_divisibility_drop():
     """granite-moe-3b's 40 experts split over 4 ranks and stay whole over
-    16 (``param_spec`` maps them to ``model`` before it drops the entry,
-    so the expert hidden dim does not take the axis either), as the
-    reference's ``_divisible``; its padded vocab splits at both."""
+    16, where the expert hidden dim takes the axis instead (``sharding_for``
+    skips the experts before it marks ``model`` used, as the reference's
+    train cell lays the banks out: ROADMAP F4); its padded vocab splits at
+    both."""
     cfg = get_config("granite-moe-3b-a800m")
     full = model.init_params(cfg, device="meta")
-    for n, want in ((4, (10, 1536, 512)), (16, (40, 1536, 512))):
+    for n, want in ((4, (10, 1536, 512)), (16, (40, 1536, 32))):
         rules = shd.serve_rules(shd.Mesh((n,), ("model",)))
         rank = shd.shard_params(full, rules, {"model": n - 1})
         assert tuple(rank.layers[0].moe.wi.shape) == want
@@ -310,13 +311,22 @@ def test_tp_prefill_raises_when_a_rank_fails(monkeypatch):
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-7b",
                                   "xlstm-1.3b"])
 def test_unpartitioned_layers_refuse_a_rank_context(arch):
-    """MLA, Mamba and xLSTM layers raise under a rank context, naming
-    item 11b part 2, rather than run unpartitioned."""
+    """Layers without a partitioned program raise under a rank context
+    rather than run unpartitioned: xLSTM's, naming item 11b part 2a; and
+    under Megatron-SP rules (``seq_res`` on ``model``) every family,
+    MLA's and Mamba's among them, naming item 11b part 2b (ROADMAP F3).
+    MLA and Mamba themselves run partitioned since item 11b part 2a
+    (``tests/test_torch_tp_families.py``)."""
     cfg = get_config(arch).reduced()
-    rules = make_rules(shd.Mesh((1, 2), ("data", "model")), kind="prefill")
+    mesh = shd.Mesh((1, 2), ("data", "model"))
+    if arch == "xlstm-1.3b":
+        rules, part = make_rules(mesh, kind="prefill"), "item 11b part 2a"
+    else:
+        rules = shd.tp_dp_rules(mesh, seq_parallel=True)
+        part = "item 11b part 2b"
     fn, args, in_sh = specs.build_prefill_cell(
         cfg, ShapeConfig("tiny", 8, 1, "prefill"), rules)
-    with pytest.raises(NotImplementedError, match="item 11b part 2"):
+    with pytest.raises(NotImplementedError, match=part):
         dryrun.rank_collectives(fn, args, in_sh, rules)
 
 
@@ -355,26 +365,29 @@ def test_full_width_prefill_cell_collectives(arch, m):
 def test_dryrun_record_carries_collectives_on_serve_cells(tmp_path):
     """The CLI on the production 16 x 16 mesh (reduced configs): a
     partitioned serve or train cell's record carries ``collectives`` in
-    the reference's format; ``long_500k`` and a serve cell of an MLA stack
-    carry the note naming item 11b part 2 instead."""
+    the reference's format, a serve cell of an MLA stack among them since
+    item 11b part 2a; ``long_500k`` carries the note naming item 11b part
+    2b, and a serve cell of an xLSTM stack the note naming part 2a."""
     got = {}
     for arch, shape in (("smollm-360m", "prefill_32k"),
                         ("granite-moe-3b-a800m", "decode_32k"),
                         ("smollm-360m", "train_4k"),
                         ("zamba2-7b", "long_500k"),
-                        ("deepseek-v2-lite-16b", "decode_32k")):
+                        ("deepseek-v2-lite-16b", "decode_32k"),
+                        ("xlstm-1.3b", "decode_32k")):
         rec = dryrun.run_cell(arch, shape, cfg=get_config(arch).reduced())
         assert rec["ok"]
         got[(arch, shape)] = rec
     for key in (("smollm-360m", "prefill_32k"),
                 ("granite-moe-3b-a800m", "decode_32k"),
-                ("smollm-360m", "train_4k")):
+                ("smollm-360m", "train_4k"),
+                ("deepseek-v2-lite-16b", "decode_32k")):
         coll = got[key]["collectives"]
         assert set(coll) == {"bytes", "counts"}
         assert set(coll["bytes"]) == set(collectives.COLLECTIVES)
         assert coll["bytes"]["all-reduce"] > 0
         assert "collectives_note" not in got[key]
-    for key in (("zamba2-7b", "long_500k"),
-                ("deepseek-v2-lite-16b", "decode_32k")):
+    for key, part in ((("zamba2-7b", "long_500k"), "item 11b part 2b"),
+                      (("xlstm-1.3b", "decode_32k"), "item 11b part 2a")):
         assert "collectives" not in got[key]
-        assert "item 11b part 2" in got[key]["collectives_note"]
+        assert part in got[key]["collectives_note"]

@@ -56,14 +56,18 @@ def _config(name: str):
     """The reduced config; granite's dispatch groups cut to 16 tokens so
     that a group lies within one data rank's rows (the step refuses a
     group spanning two); "smollm-360m+wide": full-width smollm-360m at 2
-    layers in fp32, whose 15/5 heads of 64 a 2-way model split cuts."""
+    layers in fp32, whose 15/5 heads of 64 a 2-way model split cuts;
+    "granite-moe-3b-a800m+e6": reduced granite with 6 experts, which a
+    model axis of 4 does not divide (ROADMAP F4)."""
     if name == "smollm-360m+wide":
         return dataclasses.replace(get_config("smollm-360m"), num_layers=2,
                                    dtype="float32")
-    cfg = get_config(name).reduced()
+    arch, _, experts = name.partition("+e")
+    cfg = get_config(arch).reduced()
     if cfg.moe is not None:
-        cfg = dataclasses.replace(
-            cfg, moe=dataclasses.replace(cfg.moe, group_size=16))
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, group_size=16,
+            num_experts=int(experts or cfg.moe.num_experts)))
     return cfg
 
 
@@ -159,6 +163,24 @@ def test_partitioned_step_with_fsdp_dp_only_and_offloaded_moments(
     _check_equal(_config(arch), (2, 2),
                  SentinelConfig(mode=mode, mi_periods=1,
                                 offload_opt_state=moments_off), **rule_kw)
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 4)])
+@pytest.mark.parametrize("mode", ["full", "offload"])
+def test_expert_banks_the_model_axis_does_not_divide(mode, shape):
+    """Reduced granite with 6 experts on a model axis of 4 (ROADMAP F4):
+    the banks split on the expert hidden dim (each rank holds every
+    expert's 16 of 64 hidden columns, ``sharding_for``'s spec), the
+    combine of ``wo``'s rows a partial sum; loss, grad_norm and every
+    parameter within 1e-5 of one device, FSDP on at (2, 4)."""
+    cfg = _config("granite-moe-3b-a800m+e6")
+    step, states = _check_equal(cfg, shape,
+                                SentinelConfig(mode=mode, mi_periods=1),
+                                fsdp=shape[0] > 1)
+    for st in states:
+        wi = st["params"].layers[0].moe.wi
+        assert tuple(wi.shape[::2]) == (6, 16)
+    assert step.ledger["counts"]["all-reduce"] > 0
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "gemma3-12b",
@@ -311,7 +333,10 @@ def test_a_failed_rank_raises(monkeypatch):
 def test_refusals():
     """A MoE dispatch group spanning two data ranks' rows, and FSDP on a
     batch the data axis does not split, raise rather than compute a
-    different step; MLA, Mamba and xLSTM layers name item 11b part 2."""
+    different step; xLSTM layers name item 11b part 2a, and Megatron-SP
+    rules (``seq_parallel=True``, ROADMAP F3) item 11b part 2b.  MLA and
+    Mamba run partitioned since part 2a
+    (``tests/test_torch_tp_families.py``)."""
     cfg = get_config("granite-moe-3b-a800m").reduced()     # groups of 512
     params = model.init_params(cfg, seed=0, device="cpu")
     with pytest.raises(ValueError, match="dispatch groups"):
@@ -322,12 +347,21 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="batch splits over no"):
         _partitioned(cfg, params, _batch(cfg, b=1), (2, 2),
                      SentinelConfig(mode="full"), fsdp=True)
-    for arch in ("deepseek-v2-lite-16b", "zamba2-7b", "xlstm-1.3b"):
-        cfg = get_config(arch).reduced()
-        params = model.init_params(cfg, seed=0, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 11b part 2"):
-            _partitioned(cfg, params, _batch(cfg), (1, 2),
-                         SentinelConfig(mode="full"))
+    cfg = get_config("xlstm-1.3b").reduced()
+    params = model.init_params(cfg, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11b part 2a"):
+        _partitioned(cfg, params, _batch(cfg), (1, 2),
+                     SentinelConfig(mode="full"))
+    cfg = _config("smollm-360m")
+    params = model.init_params(cfg, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11b part 2b"):
+        _partitioned(cfg, params, _batch(cfg), (2, 2),
+                     SentinelConfig(mode="full"), seq_parallel=True)
+    rules = shd.tp_dp_rules(shd.Mesh((2, 2), ("data", "model")),
+                            seq_parallel=True)
+    with pytest.raises(NotImplementedError, match="item 11b part 2b"):
+        shd.mesh_rank(collectives.ShapeMesh(rules.mesh), rules,
+                      {"data": 0, "model": 0})
 
 
 def test_offload_carries_per_rank_equal_the_estimate():
@@ -473,12 +507,14 @@ def test_ledger_equals_the_closed_form(arch):
 # tp_dp_rules keywords).  Plain tp_dp_rules at (2, 4) and (2, 2) is
 # test_small_mesh_dryrun_subprocess's cell; FSDP, dp_only and granite
 # (the MoE aux averaged over data, the vocab-parallel loss with MoE) run
-# at (2, 2).
+# at (2, 2); granite with 6 experts at (2, 4), whose banks split on the
+# expert hidden dim (ROADMAP F4).
 REF_CASES = [("2x4", "smollm-360m", (2, 4), {}),
              ("2x2", "smollm-360m", (2, 2), {}),
              ("2x2-fsdp", "smollm-360m", (2, 2), {"fsdp": True}),
              ("2x2-dp_only", "smollm-360m", (2, 2), {"dp_only": True}),
-             ("2x2-granite", "granite-moe-3b-a800m", (2, 2), {})]
+             ("2x2-granite", "granite-moe-3b-a800m", (2, 2), {}),
+             ("2x4-granite-e6", "granite-moe-3b-a800m+e6", (2, 4), {})]
 
 # The reference's compiled train cells' collective_bytes on this JAX
 # (0.9.0, forced CPU devices), and the port's ledger of the same step,
@@ -493,6 +529,8 @@ XLA_BYTES = {
                  "all-to-all": 131072.0, "collective-permute": 1024.0},
     "2x2-dp_only": {"all-reduce": 558852.0},
     "2x2-granite": {"all-gather": 32768.0, "all-reduce": 1563524.0},
+    "2x4-granite-e6": {"all-gather": 180224.0, "all-reduce": 5226420.0,
+                       "all-to-all": 98304.0, "collective-permute": 49152.0},
 }
 PORT_BYTES = {
     "2x4": {"all-gather": 262144.0, "all-reduce": 1028360.0,
@@ -502,6 +540,8 @@ PORT_BYTES = {
                  "reduce-scatter": 107136.0},
     "2x2-dp_only": {"all-reduce": 427268.0},
     "2x2-granite": {"all-reduce": 1239496.0},
+    "2x4-granite-e6": {"all-gather": 262144.0, "all-reduce": 1134120.0,
+                       "reduce-scatter": 32768.0},
 }
 
 REFERENCE = textwrap.dedent("""
@@ -526,10 +566,12 @@ REFERENCE = textwrap.dedent("""
     scfg = SentinelConfig(mode="offload", mi_periods=1)
     rec = {}
     for name, arch, dims, kw in cases:
+        arch, _, experts = arch.partition("+e")
         cfg = get_config(arch).reduced()
         if cfg.moe is not None:
-            cfg = dataclasses.replace(
-                cfg, moe=dataclasses.replace(cfg.moe, group_size=16))
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, group_size=16,
+                num_experts=int(experts or cfg.moe.num_experts)))
         rng = np.random.default_rng(0)
         batch_np = {k: rng.integers(0, cfg.vocab_size, (8, 64))
                     .astype(np.int32) for k in ("tokens", "labels")}
@@ -601,10 +643,10 @@ def test_partitioned_step_equals_the_reference(reference, name, arch, dims,
 
     rec, out = reference
     cfg = _config(arch)
-    ref_cfg = ref_config(arch).reduced()
+    ref_cfg = ref_config(arch.partition("+e")[0]).reduced()
     if ref_cfg.moe is not None:
-        ref_cfg = dataclasses.replace(
-            ref_cfg, moe=dataclasses.replace(ref_cfg.moe, group_size=16))
+        ref_cfg = dataclasses.replace(ref_cfg, moe=dataclasses.replace(
+            ref_cfg.moe, group_size=16, num_experts=cfg.moe.num_experts))
     tree, _ = split_params(ref_model.init_params(jax.random.PRNGKey(0),
                                                  ref_cfg))
     leaves = jax.tree_util.tree_leaves_with_path(tree)
