@@ -124,9 +124,9 @@ Phases, each printing its own lines:
          moved off the card; step time, tokens/s, peak memory and
          device-busy share of each mode, offload's time and memory over
          full's;
-     5d. zamba2-7b at full width on 41 of its 81 layers (its Mamba
-         prologue and 8 of 16 periods; cut for the script's time limit
-         since phases 9 and 10 came), bf16, B 1 x S 4096, offload at the
+     5d. zamba2-7b at full width on 21 of its 81 layers (its Mamba
+         prologue and ZAMBA_TRAIN_PERIODS, 4 of 16 periods; cut for the
+         script's time limit), bf16, B 1 x S 4096, offload at the
          planned MI with the AdamW moments in pinned host memory, 2 steps
          on a repeated batch: the loss finite and falling, K4 once a
          Mamba layer a forward and once a period's Mamba layer a
@@ -171,7 +171,7 @@ Phases, each printing its own lines:
          each Sentinel mode's loss and gradient norm against full's at MI
          1 and 2; the chunked mLSTM against the sequential scan at
          xlstm-1.3b's head shape, each timed;
-     7b. xlstm-1.3b at full width on 24 of its 48 layers (bf16, seed 0,
+     7b. xlstm-1.3b at full width on 16 of its 48 layers (bf16, seed 0,
          chunks of 64; the depth cut for the script's time limit): 8 slots
          of 2048 tokens, 12 prompts of 128-1024 tokens, all-HBM then the
          pools (identical tokens); then B 1 x S 1024 training, offload at
@@ -203,7 +203,8 @@ Phases, each printing its own lines:
          paged-merged with use_paged_decode set: identical tokens, no
          pools and no K1 launch (K1 has no prefix mask); prefill ms,
          decode step, peak memory and a profile of decode steps;
-     8c. one B 1 training step a mode at full width: musicgen at 1024
+     8c. one B 1 training step a mode at full width and half depth (24
+         of 48 and 9 of 18 layers, for the script's clock): musicgen at 1024
          frames of 4 codes, paligemma at 256 patches + 768 text tokens,
          full against offload at the MI planned on H100_COST from the
          step's meta-device profile, the moments in pinned host memory:
@@ -215,10 +216,10 @@ Phases, each printing its own lines:
          against the CPU: the loss (with every MoE layer's aux) and every
          gradient in the four modes at MI 1 and 2, each mode == full,
          offload's bytes == estimate_offload_traffic;
-     9b. granite-moe-3b at full width and depth (32 layers, 3.30 B
-         parameters), bf16 from seed 0, B 1 x S 1024, two steps in each
-         of the four modes at the MI planned on H100_COST, the moments
-         (26.4 GB) in pinned host memory: losses finite and falling,
+     9b. granite-moe-3b at full width on GRANITE_TRAIN_LAYERS, 16 of its
+         32 layers (for the script's clock), bf16 from seed 0, B 1 x S
+         1024, two steps in each of the four modes at the MI planned on
+         H100_COST, the moments in pinned host memory: losses finite and falling,
          every mode == full, offload's carries == the estimate;
      9c. deepseek-v2-lite at full width on its dense first layer and 8 of
          its 26 MoE layers (5.18 B parameters: all 27 layers' moments,
@@ -296,8 +297,8 @@ Phases, each printing its own lines:
          offload == full, the ledger == train_expected_ledger's closed
          form, each rank's carries == estimate_offload_traffic; step ms
          and peak memory printed.  K1-K4 launch 0 times.
-  13. MLA and Mamba under a rank context (ROADMAP item 11b part 2a),
-     last; K4 runs on each rank's block of the SSM heads:
+  13. MLA and Mamba under a rank context (ROADMAP item 11b part 2a,
+     items 1-2); K4 runs on each rank's block of the SSM heads:
      13a. deepseek-v2-lite, zamba2-7b and granite-moe-3b with 6 experts
          (ROADMAP F4) reduced in fp32, 12a's gates on (2, 2) of [cuda:0] *
          4 in the four modes x FSDP off/on and in full on (1, 2) (granite:
@@ -318,6 +319,30 @@ Phases, each printing its own lines:
          ledger == the dry run's ledger of each admitted prompt summed, K1
          (zamba2's shared block; deepseek 0) the same with and without
          TP, K4 with TP twice without.
+  14. the recurrences and the modality stubs under a rank context
+     (ROADMAP item 11b part 2a, items 3-4), last; no kernel launches:
+     14a. xlstm-1.3b (one period), lstm-ptb, musicgen-medium and
+         paligemma-3b reduced in fp32, 12a's gates on (2, 2) of [cuda:0]
+         * 4 in the four modes, FSDP off in two and on in two, and in
+         full on (1, 4) where
+         the cut differs (xlstm, lstm-ptb), and xlstm's 2-head variant on
+         (1, 4), whose heads stay whole; the xLSTM held to XLSTM_REL of
+         the largest |value| (its fp32 conditioning);
+     14b. each at full width and reduced depth (xlstm-1.3b on one period,
+         fp32, B 2 x S 64, its mLSTM chunkwise; lstm-ptb whole, B 20 x
+         35; musicgen-medium on 4 layers, B 2 x 256 frames; paligemma-3b
+         on 3 layers, B 2 x (256 patches + 64 tokens); bf16), two steps
+         in full and in offload at MI 1 on (2, 2) with FSDP: 13b's gates;
+         then xlstm-1.3b's first step in bf16 on (2, 2), its loss,
+         gradient norm and every leaf's gradient no farther from the fp32
+         step's than 1.5 times the farthest of four one-device bf16 steps
+         (three from starts moved one ulp);
+     14c. xlstm-1.3b at 14b's depth, TP prefill on a disaggregated engine
+         with one decode shard (13c's gates, 8 prompts of whole 64-token
+         chunks); musicgen-medium and paligemma-3b, which the engine does
+         not take, through TensorParallelPrefill on [cuda:0] * 2 against
+         one device's prefill (the ledger == the dry run's, the TP logits'
+         and caches' distance from fp32 within 1.5 times bf16's).
 
 Every kernel time is the median over launches that each follow an L2
 flush and a device-side spin, so the events time the card's work and not
@@ -393,6 +418,18 @@ def reset_counts():
     k4.ssd.launches = 0
     k3.decode_attention.launches = 0
     k2.flash_attention.launches = 0
+
+
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launches since the last ``reset_counts``."""
+    from repro_torch.kernels import decode_attention as k3
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ssd as k4
+    return {"paged_decode": pd.paged_decode_attention.launches,
+            "flash_attention": k2.flash_attention.launches,
+            "decode_attention": k3.decode_attention.launches,
+            "ssd": k4.ssd.launches}
 
 
 def card_line() -> str:
@@ -1847,11 +1884,12 @@ XLSTM_MAX_SEQ, LSTM_MAX_SEQ = 2048, 512
 # 33.6-44.3 s on H100 hosts with a slower CPU (the sLSTM's steps and their
 # backward are eager launches), leaving the script 107 s inside its limit
 XLSTM_TRAIN = (1, 1024)
-# phase 7b serves and trains xlstm-1.3b on 24 of its 48 layers (3 of 6
-# periods) at full width, cut for the script's time limit when phase 8
-# came (at full depth it took 120.4 s of an 813 s run on one H100 80GB
-# HBM3 at 700 W); its CLIs run the full depth
-XLSTM_LAYERS = 24
+# phase 7b serves and trains xlstm-1.3b on 16 of its 48 layers (2 of 6
+# periods) at full width, cut for the script's time limit (at full depth
+# it took 120.4 s of an 813 s run, at 24 layers 68.3-75.5 s of runs of
+# 1047.1-1188.8 s, on H100 80GB HBM3 hosts at 700 W); its CLIs run the
+# full depth
+XLSTM_LAYERS = 16
 XLSTM_PROFILE_S = 128                 # the sequence its plan profiles
 LSTM_TRAIN = (20, 35)                 # B x BPTT, Zaremba et al.'s medium
 LSTM_TRAIN_STEPS = 6
@@ -1871,14 +1909,7 @@ def _close_rel(got, want, tol, rel, what):
 def _recurrent_launches(what):
     """Every kernel's launches since the last reset_counts, which must be
     0 on these paths."""
-    from repro_torch.kernels import decode_attention as k3
-    from repro_torch.kernels import flash_attention as k2
-    from repro_torch.kernels import paged_decode as pd
-    from repro_torch.kernels import ssd as k4
-    got = {"paged_decode": pd.paged_decode_attention.launches,
-           "flash_attention": k2.flash_attention.launches,
-           "decode_attention": k3.decode_attention.launches,
-           "ssd": k4.ssd.launches}
+    got = _launch_counts()
     _assert_no_launch(what)
     return got
 
@@ -2782,7 +2813,8 @@ def run_paligemma_full(card, note, dev="cuda"):
 
 
 def train_modality(card, note):
-    """Phase 8c: one training step a mode at full width and depth, B 1,
+    """Phase 8c: one training step a mode at full width and half depth
+    (``_half_depth``, for the script's clock; phase 8b's depth), B 1,
     bf16 from seed 0, the AdamW moments in pinned host memory: musicgen
     at S 1024 frames of 4 codes, paligemma at 256 patches + S 768 text
     tokens (the loss over the text).  Full against offload at the MI
@@ -2793,7 +2825,7 @@ def train_modality(card, note):
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
     for arch in MODALITY:
-        cfg = get_config(arch)
+        cfg = _half_depth(get_config(arch))
         S = MODALITY_TRAIN_S[arch]
         prof, _, scfg = plan_step(cfg, 1, S, card, offload_opt_state=True)
         res = train_recurrent(cfg, card, note, B=1, S=S, steps=1, scfg=scfg,
@@ -2838,6 +2870,10 @@ MOE_TRAIN_STEPS = 2
 # layers (5.18 B parameters, 41.4 GB of f32 moments): all 27 layers'
 # moments, about 126 GB, pass the machine's 96 GiB of host memory
 DEEPSEEK_TRAIN_LAYERS = 1 + 8
+# 9b's cut, for the script's clock: granite-moe-3b on 16 of its 32 layers
+# (whole, it took 36.7 s of a 1188.8 s run on an H100 80GB HBM3 at
+# 700 W)
+GRANITE_TRAIN_LAYERS = 16
 
 
 def check_moe_train_small(note):
@@ -2912,8 +2948,8 @@ def check_moe_train_small(note):
 
 
 def train_moe_full(card, note):
-    """Phases 9b and 9c: granite-moe-3b at full width and depth (32 layers,
-    3.30 B parameters) and deepseek-v2-lite at full width on
+    """Phases 9b and 9c: granite-moe-3b at full width on
+    GRANITE_TRAIN_LAYERS layers and deepseek-v2-lite at full width on
     DEEPSEEK_TRAIN_LAYERS layers, bf16 from seed 0, B 1 x S 1024 from
     make_batch, MOE_TRAIN_STEPS steps in each of the four modes from one
     state at the MI runtime.plan picks on H100_COST, the AdamW moments in
@@ -2922,7 +2958,7 @@ def train_moe_full(card, note):
     carries == estimate_offload_traffic (train_recurrent's gates)."""
     from repro_torch.configs import get_config
     B, S = MOE_TRAIN
-    for arch, layers in (("granite-moe-3b-a800m", None),
+    for arch, layers in (("granite-moe-3b-a800m", GRANITE_TRAIN_LAYERS),
                          ("deepseek-v2-lite-16b", DEEPSEEK_TRAIN_LAYERS)):
         t0 = time.perf_counter()
         cfg = get_config(arch)
@@ -3643,19 +3679,21 @@ def _replicas_agree(step, states, what):
 
 
 def _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what, *,
-                   cpu_tol=None):
+                   cpu_tol=None, rel=0.0):
     """One step of the partitioned train step on ``shape`` of [cuda:0]
     and of [cpu] at every position, and the card's one-device step, from
     ``params`` and ``batch``: their loss, gradient norm and every
     reassembled parameter within SMALL_LOSS_TOL of one device's and within
-    ``cpu_tol`` (atol and rtol; default SMALL_LOSS_TOL) of the CPU's, the
+    ``cpu_tol`` (atol and rtol; default SMALL_LOSS_TOL) of the CPU's, each
+    absolute part widened to ``rel`` x the largest |value| compared where
+    that is larger (XLSTM_REL for the ill-conditioned reduced xLSTM), the
     ledgers equal, every replicated leaf equal across its
     ranks.  Returns {"one", "cpu": the worst distance from each, "pairs":
     the replica pairs compared, "k4": K4's launches in the card's
-    partitioned step, counted from 0 before it}."""
+    partitioned step, counted from 0 before it, "launches": every
+    kernel's}."""
     import torch
     from repro_torch import sharding as shd
-    from repro_torch.kernels import ssd as k4
     from repro_torch.models.model import init_params
     from repro_torch.optim import adamw
     from repro_torch.train import loop
@@ -3677,7 +3715,7 @@ def _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what, *,
                 raise AssertionError(f"{what} on {dev}: the ranks disagree: "
                                      f"{ranks}")
             got[dev.type] = (m, step.gather(states, "cpu"), step.ledger,
-                             k4.ssd.launches)
+                             _launch_counts())
         finally:
             step.close()
     one = init_params(cfg, device="cuda", requires_grad=True)
@@ -3696,7 +3734,8 @@ def _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what, *,
         for k in ("loss", "grad_norm"):
             err = abs(float(mg[k]) - float(ref[k]))
             worst[key] = max(worst[key], err)
-            if not err <= tol["atol"] + tol["rtol"] * abs(float(ref[k])):
+            atol = max(tol["atol"], rel * abs(float(ref[k])))
+            if not err <= atol + tol["rtol"] * abs(float(ref[k])):
                 raise AssertionError(f"{what}: {k} {float(mg[k])} against "
                                      f"{rname} {float(ref[k])}")
     for (name, a), (_, b), (_, c) in zip(pg.named_parameters(),
@@ -3705,10 +3744,11 @@ def _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what, *,
         for (key, rname, tol), ref in zip(refs, (b, c.detach().cpu())):
             err = float((a - ref).abs().max())
             worst[key] = max(worst[key], err)
+            atol = max(tol["atol"], rel * float(ref.abs().max()))
             if not bool(((a - ref).abs() <=
-                         tol["atol"] + tol["rtol"] * ref.abs()).all()):
+                         atol + tol["rtol"] * ref.abs()).all()):
                 raise AssertionError(f"{what}: {name} {err} from {rname}")
-    return dict(worst, pairs=pairs, k4=launches)
+    return dict(worst, pairs=pairs, k4=launches["ssd"], launches=launches)
 
 
 def check_tp_train_small(note):
@@ -4128,11 +4168,25 @@ def _dryrun_train_ledger(cfg, rules, scfg, ocfg, B, S):
 
 def train_tp_families_full(arch, card):
     """Phase 13b, one model at full width on TP_FAMILIES_LAYERS, bf16 from
-    seed 0, TP_FAMILIES_TRAIN tokens from make_batch, TP_TRAIN_STEPS steps
-    in full and in offload at MI 1: the card's one-device step, then the
-    partitioned step on (2, 2) of [cuda:0] * 4 under tp_dp_rules(fsdp=
-    True).  Gates (12b's): each step's loss and gradient norm within
-    TP_TRAIN_LOSS_RTOL and TP_TRAIN_GNORM_RTOL of one device's; each
+    seed 0, TP_FAMILIES_TRAIN tokens from make_batch (``_train_tp_full``).
+    Returns K4's launches in the partitioned steps."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    cfg = _tp_family_cfg(arch)
+    B, S = TP_FAMILIES_TRAIN
+    dcfg = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=S,
+                      global_batch=B)
+    return _train_tp_full(arch, cfg, [make_batch(dcfg, s) for s in
+                                      range(TP_TRAIN_STEPS)], card,
+                          "13b")["ssd"]
+
+
+def _train_tp_full(arch, cfg, batches, card, phase):
+    """One model at full width, bf16 from seed 0, one of ``batches`` a
+    step (TP_TRAIN_STEPS of them), in full and in offload at MI 1: the
+    card's one-device step, then the partitioned step on (2, 2) of
+    [cuda:0] * 4 under tp_dp_rules(fsdp=True).  Gates (12b's): each
+    step's loss and gradient norm within TP_TRAIN_LOSS_RTOL and
+    TP_TRAIN_GNORM_RTOL of one device's; each
     leaf's first-step gradient within TP_TRAIN_LEAF_RTOL of one device's,
     or, for a leaf bf16 itself moves that far (a sum with cancellation,
     as Mamba's D over B x S x P; a MoE router or bank, whose bf16
@@ -4143,25 +4197,20 @@ def train_tp_families_full(arch, card):
     partitioned); every replicated leaf equal across its ranks; each
     step's ledger == the dry run's ledger of the same step
     (``_dryrun_train_ledger``); K4's launches in the partitioned steps ==
-    steps x ranks x (Mamba layers + recomputes).  Returns K4's launches
-    in the partitioned steps."""
+    steps x ranks x (Mamba layers + recomputes).  Returns every kernel's
+    launches in the partitioned steps."""
     import torch
     from repro_torch import sharding as shd
     from repro_torch.collectives import new_ledger
     from repro_torch.core import offload
-    from repro_torch.data.pipeline import DataConfig, make_batch
-    from repro_torch.kernels import ssd as k4
     from repro_torch.models.model import init_params
     from repro_torch.optim import adamw
     from repro_torch.train import loop
     t0 = time.perf_counter()
-    cfg = _tp_family_cfg(arch)
-    B, S = TP_FAMILIES_TRAIN
+    B, S = batches[0]["tokens"].shape[:2]
     D, M = TP_TRAIN_MESH
     ocfg = adamw.OptConfig(total_steps=TP_TRAIN_STEPS, warmup_steps=1)
-    dcfg = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=S,
-                      global_batch=B)
-    batches = [make_batch(dcfg, s) for s in range(TP_TRAIN_STEPS)]
+    batches = [{k: v.to("cuda") for k, v in b.items()} for b in batches]
     params = init_params(cfg, seed=0)
     mesh = shd.Mesh(TP_TRAIN_MESH, ("data", "model"),
                     devices=[torch.device("cuda", 0)] * (D * M))
@@ -4230,18 +4279,20 @@ def train_tp_families_full(arch, card):
                     ranks = {(float(r["loss"]), float(r["grad_norm"]))
                              for r in m["ranks"]}
                     if len(ranks) != 1:
-                        raise AssertionError(f"13b {arch} {mode}: the ranks "
+                        raise AssertionError(f"{phase} {arch} {mode}: the "
+                                             f"ranks "
                                              f"disagree: {ranks}")
             torch.cuda.synchronize()
-            out["k4"] = k4.ssd.launches
+            out["launches"] = _launch_counts()
+            out["k4"] = out["launches"]["ssd"]
             want = TP_TRAIN_STEPS * (D * M if partitioned else 1) * \
                 _blocked_mambas(cfg, scfg)
             if out["k4"] != want:
-                raise AssertionError(f"13b {arch} {mode}: {out['k4']} K4 "
+                raise AssertionError(f"{phase} {arch} {mode}: {out['k4']} K4 "
                                      f"launches, {want} expected")
             if partitioned:
                 out["pairs"] = _replicas_agree(step, state,
-                                               f"13b {arch} {mode}")
+                                               f"{phase} {arch} {mode}")
                 g1 = res[mode, False]["grads"][()]
                 whole = dict(shd.gather_params(
                     [_Leaves(out["grads"][tuple(pos.values())])
@@ -4276,7 +4327,7 @@ def train_tp_families_full(arch, card):
         for name, (d_tp, d_bf) in leaf32.items():
             if not d_tp <= TP_BF16_RATIO * d_bf:
                 raise AssertionError(
-                    f"13b {arch} {mode}: {name}'s first-step gradient is "
+                    f"{phase} {arch} {mode}: {name}'s first-step gradient is "
                     f"{leaf[name]} of one device's away from it (limit "
                     f"{TP_TRAIN_LEAF_RTOL}), and {d_tp} of the fp32 step's "
                     f"against one device's bf16 {d_bf} (limit "
@@ -4290,11 +4341,11 @@ def train_tp_families_full(arch, card):
             if not (np.isfinite(a) and abs(a - b) <= TP_TRAIN_LOSS_RTOL * b
                     and np.isfinite(g)
                     and abs(g - h) <= TP_TRAIN_GNORM_RTOL * h):
-                raise AssertionError(f"13b {arch} {mode} step {s}: "
+                raise AssertionError(f"{phase} {arch} {mode} step {s}: "
                                      f"partitioned loss {a}, gradient norm "
                                      f"{g}; one device's {b}, {h}")
             if tp["ledgers"][s] != tp["want"]:
-                raise AssertionError(f"13b {arch} {mode} step {s}: ledger "
+                raise AssertionError(f"{phase} {arch} {mode} step {s}: ledger "
                                      f"{tp['ledgers'][s]} != the dry run's "
                                      f"{tp['want']}")
         lines.append(
@@ -4321,10 +4372,12 @@ def train_tp_families_full(arch, card):
         g, h = off["gnorms"][s], full["gnorms"][s]
         if not (abs(a - b) <= MODE_LOSS_RTOL * b
                 and abs(g - h) <= MODE_GNORM_RTOL * h):
-            raise AssertionError(f"13b {arch} step {s}: partitioned offload "
+            raise AssertionError(f"{phase} {arch} step {s}: partitioned "
+                                 f"offload "
                                  f"{a}, {g}; partitioned full {b}, {h}")
-    print(f"phase 13b, {arch} at full width on {cfg.num_layers} layers "
-          f"(bf16, B {B} x S {S}) on {TP_TRAIN_MESH} (data, model) of "
+    dtype = "bf16" if cfg.dtype == "bfloat16" else "fp32"
+    print(f"phase {phase}, {arch} at full width on {cfg.num_layers} layers "
+          f"({dtype}, B {B} x S {S}) on {TP_TRAIN_MESH} (data, model) of "
           f"[cuda:0] * 4 with FSDP, MI 1, against one device [{card}]: " +
           "; ".join(lines) + f"; losses within {TP_TRAIN_LOSS_RTOL:g} and "
           f"gradient norms within {TP_TRAIN_GNORM_RTOL:g} of one device's, "
@@ -4332,9 +4385,11 @@ def train_tp_families_full(arch, card):
           f"of one device's or within {TP_BF16_RATIO:g} times one device's "
           f"bf16 distance from the fp32 step's, "
           f"offload == full (partitioned; bit for bit: {same}), ledgers == "
-          f"the dry run's; 13b {arch} took {time.perf_counter() - t0:.1f} s",
+          f"the dry run's; {phase} {arch} took "
+          f"{time.perf_counter() - t0:.1f} s",
           flush=True)
-    return full["k4"] + off["k4"]
+    return {k: full["launches"][k] + off["launches"][k]
+            for k in full["launches"]}
 
 
 def _tp_dryrun_bytes(cfg, adm, n):
@@ -4398,6 +4453,451 @@ def check_tp_families(card):
         gc.collect()
         torch.cuda.empty_cache()
     print(f"phase 13 took {time.perf_counter() - t0:.1f} s; launches on its "
+          f"paths: {paths}", flush=True)
+    return paths
+
+
+TP_RECURRENT = ("xlstm-1.3b", "lstm-ptb", "musicgen-medium",
+                "paligemma-3b")
+# 14a: each reduced config on (2, 2) in the four modes x FSDP off/on, and
+# in full on (1, 4) where the cut differs from the model axis of 2: one of
+# xlstm's 4 heads a rank, its 2-head variant whole on every rank, one of
+# lstm-ptb's gates a rank (musicgen's and paligemma's heads split whole at
+# 2 and at 4)
+TP_RECURRENT_OTHER = {"xlstm-1.3b": (1, 4), "xlstm-1.3b+h2": (1, 4),
+                      "lstm-ptb": (1, 4)}
+# 14a runs the reduced xlstm on one period (8 of its 16 layers) and 8
+# tokens a row, its 4-head mLSTM chunkwise with chunks of 4 (its 2-head
+# variant sequential): at 16 layers, 16 tokens and the sequential mLSTM
+# its nine cases took 145.1 s of 14a's 176.9 s, and at 8 layers with
+# chunks of 8 38.6 s of 64.2 s (H100 80GB HBM3, 700 W)
+TP_RECURRENT_SMALL = {"xlstm-1.3b": (8, 8, 4), "xlstm-1.3b+h2": (8, 8, 0)}
+# 14a's (mode, FSDP) cases on (2, 2): each mode once, FSDP off and on
+# twice each, for the script's clock (phase 14 took 125.1-133.4 s with all
+# eight on H100 80GB HBM3 hosts at 700 W); the CPU tests run all eight at
+# (1, 2) and (2, 2)
+TP_RECURRENT_SMALL_CASES = (("full", False), ("remat", True),
+                            ("save_hbm", False), ("offload", True))
+# 14b and 14c: full width at reduced depth, B x S (musicgen's S frames of
+# 4 codes, paligemma's S text tokens after its 256 patches); xlstm-1.3b
+# on one period (7 mLSTM and 1 sLSTM, 0.54 B parameters with the
+# embedding), its mLSTM chunkwise (XLSTM_CHUNK) and S 64, since each of
+# the sLSTM's tokens is an eager step of every rank under one GIL (at S
+# 128 its 14b took 20.5-38.1 s on H100 80GB HBM3 hosts at 700 W)
+TP_RECURRENT_FULL = {"xlstm-1.3b": (8, (2, 64)), "lstm-ptb": (2, (20, 35)),
+                     "musicgen-medium": (4, (2, 256)),
+                     "paligemma-3b": (3, (2, 64))}
+# 14b trains xlstm-1.3b in fp32: its bf16 training step is chaotic (on an
+# H100 80GB HBM3 at 700 W one device's bf16 gradient norm sits 2.7-2.9%
+# from the fp32 step's, from the seed-0 start and from starts moved one
+# ulp alike, and a partitioned bf16 norm sat 2.35% from one device's),
+# so 12b's bf16 limits cannot tell a wrong program from rounding there;
+# in fp32 they can
+TP_RECURRENT_TRAIN_DTYPE = {"xlstm-1.3b": "float32"}
+# ... and trains it once more in bf16, its configured dtype, held to
+# rounding's own spread on the card: the partitioned bf16 step's first-step
+# loss, gradient norm and every leaf's gradient no farther from the
+# one-device fp32 step's than TP_BF16_RATIO times the farthest of the
+# one-device bf16 steps from the seed-0 start and from TP_BF16_ULP_STARTS
+# starts, each moved one ulp in a TP_BF16_ULP_SHARE of every leaf
+TP_BF16_ULP_STARTS = 3
+TP_BF16_ULP_SHARE = 0.1
+
+
+def _tp_recurrent_cfg(name, full=False, train=False):
+    """The reduced config ("<arch>" or "<arch>+h<heads>"), or with
+    ``full`` the full-width one at TP_RECURRENT_FULL's depth (in
+    TP_RECURRENT_TRAIN_DTYPE's dtype with ``train``)."""
+    from repro_torch.configs import get_config
+    arch, _, heads = name.partition("+h")
+    if full:
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=TP_RECURRENT_FULL[arch][0])
+        if train and arch in TP_RECURRENT_TRAIN_DTYPE:
+            cfg = dataclasses.replace(cfg,
+                                      dtype=TP_RECURRENT_TRAIN_DTYPE[arch])
+        return cfg
+    cfg = get_config(arch).reduced()
+    return dataclasses.replace(cfg, num_heads=int(heads)) if heads else cfg
+
+
+def _modality_batch(cfg, B, S, seed, device="cpu"):
+    """Tokens and labels from ``seed``: (B, S, K) codes for K codebooks;
+    with a prefix, ``prefix_embed`` (B, P, d) and labels (B, P + S)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    tok = (B, S, cfg.num_codebooks) if cfg.num_codebooks else (B, S)
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, tok))}
+    lab = tok
+    if cfg.num_prefix_tokens:
+        P = cfg.num_prefix_tokens
+        out["prefix_embed"] = torch.as_tensor(
+            rng.standard_normal((B, P, cfg.d_model)).astype(np.float32))
+        lab = (B, P + S)
+    out["labels"] = torch.as_tensor(rng.integers(0, cfg.vocab_size, lab))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def check_tp_recurrent_small():
+    """Phase 14a: each TP_RECURRENT config reduced in fp32 (and xlstm's
+    2-head variant; the xLSTM at TP_RECURRENT_SMALL's layers, tokens and
+    mLSTM chunks), one step of the partitioned train step on (2, 2) of
+    [cuda:0] * 4 and of [cpu] * 4 and the card's one-device step from the
+    same parameters and batch (B 4 x S 16; the xLSTM's S
+    TP_RECURRENT_SMALL's), in TP_RECURRENT_SMALL_CASES'
+    modes at MI 1 (offload with the moments in pinned host memory) and
+    FSDP settings, and in full on TP_RECURRENT_OTHER's mesh: 12a's gates (``_tp_small_case``), the
+    xLSTM's widened to XLSTM_REL of the largest |value| compared (its
+    fp32 conditioning).  Returns the kernels' launches in the card's
+    partitioned steps (all 0)."""
+    from repro_torch.core.offload import SentinelConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    worst, runs, pairs, secs = {}, 0, 0, {}
+    launches = dict.fromkeys(KERNELS, 0)
+    for name in TP_RECURRENT[:1] + ("xlstm-1.3b+h2",) + TP_RECURRENT[1:]:
+        cfg = _tp_recurrent_cfg(name)
+        layers, S, chunk = TP_RECURRENT_SMALL.get(
+            name, (cfg.num_layers, 16, 0))
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        ops.mlstm_chunk_mode(chunk)
+        params = init_params(cfg, seed=0, device="cpu")
+        batch = _modality_batch(cfg, 4, S, 14)
+        cases = [] if name.endswith("+h2") else \
+            [(TP_TRAIN_MESH, mode, fsdp)
+             for mode, fsdp in TP_RECURRENT_SMALL_CASES]
+        if name in TP_RECURRENT_OTHER:
+            cases.append((TP_RECURRENT_OTHER[name], "full", False))
+        rel = XLSTM_REL if name.startswith("xlstm") else 0.0
+        ts = time.perf_counter()
+        for shape, mode, fsdp in cases:
+            scfg = SentinelConfig(mode=mode, mi_periods=1,
+                                  offload_opt_state=mode == "offload")
+            what = f"{name} reduced {shape} {mode} fsdp={fsdp}"
+            r = _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what,
+                               rel=rel)
+            for k in ("one", "cpu"):
+                worst[name, k] = max(worst.get((name, k), 0.0), r[k])
+            runs, pairs = runs + 1, pairs + r["pairs"]
+            for k, v in r["launches"].items():
+                launches[k] += v
+        ops.mlstm_chunk_mode(0)
+        secs[name] = time.perf_counter() - ts
+        del params
+        release_pinned()
+    if any(launches.values()):
+        raise AssertionError(f"phase 14a launched a kernel: {launches}")
+    names = [n for n, _ in worst if _ == "one"]
+    print(f"phase 14a: {runs} partitioned steps ({', '.join(names)} reduced,"
+          f" the xLSTM's (layers, S, mLSTM chunk) {TP_RECURRENT_SMALL}, "
+          f"fp32, (2, 2) of [cuda:0] * 4 in (mode, FSDP) "
+          f"{TP_RECURRENT_SMALL_CASES}, and "
+          f"{TP_RECURRENT_OTHER} in full): loss, gradient norm and every "
+          f"reassembled parameter within atol {SMALL_LOSS_TOL['atol']:g} of "
+          f"the card's one-device step and of [cpu] * n's (xlstm: widened "
+          f"to {XLSTM_REL:g} of the largest |value|); max_abs_err from one "
+          f"device / the CPU: " + ", ".join(
+              f"{n} {worst[n, 'one']:.3g} / {worst[n, 'cpu']:.3g}"
+              for n in names) +
+          f"; ledgers == the CPU's; {pairs} replica pairs equal bit for "
+          f"bit; launches {launches}; seconds " + ", ".join(
+              f"{n} {t:.1f}" for n, t in secs.items()) +
+          f"; 14a took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def train_tp_recurrent_full(name, card):
+    """Phase 14b, one model at TP_RECURRENT_FULL's depth and B x S, full
+    width, bf16 (xlstm-1.3b fp32, TP_RECURRENT_TRAIN_DTYPE) from seed 0:
+    ``_train_tp_full``'s gates (12b's, the ledger == the dry run's) in
+    full and offload on (2, 2) with FSDP; for xlstm-1.3b then its bf16
+    step against rounding's spread (``_train_tp_bf16_spread``).  Returns
+    the kernels' launches in its runs (all 0)."""
+    from repro_torch.kernels import ops
+    cfg = _tp_recurrent_cfg(name, full=True, train=True)
+    B, S = TP_RECURRENT_FULL[name][1]
+    batches = [_modality_batch(cfg, B, S, 140 + s, "cuda")
+               for s in range(TP_TRAIN_STEPS)]
+    if name == "xlstm-1.3b":
+        ops.mlstm_chunk_mode(XLSTM_CHUNK)
+    try:
+        launches = _train_tp_full(name, cfg, batches, card, "14b")
+        if name in TP_RECURRENT_TRAIN_DTYPE:
+            more = _train_tp_bf16_spread(
+                name, _tp_recurrent_cfg(name, full=True), batches[0], card)
+            launches = {k: v + more[k] for k, v in launches.items()}
+    finally:
+        ops.mlstm_chunk_mode(0)
+    if any(launches.values()):
+        raise AssertionError(f"phase 14b {name} launched a kernel: "
+                             f"{launches}")
+    return launches
+
+
+def _ulp_moved(params, share, seed):
+    """A copy of the bf16 ``params`` with a ``share`` of each leaf's
+    elements, drawn from ``seed``, moved one ulp away from zero."""
+    import torch
+    params = copy.deepcopy(params)
+    gen = torch.Generator(device=next(params.parameters()).device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for w in params.parameters():
+            w.view(torch.int16).add_(
+                (torch.rand(w.shape, generator=gen, device=w.device)
+                 < share).to(torch.int16))
+    return params
+
+
+def _train_tp_bf16_spread(name, cfg, batch, card):
+    """Phase 14b's bf16 step of ``name`` (``cfg`` bf16, at full width and
+    reduced depth, from seed 0), whose bf16 training step is chaotic: the
+    first step in full mode at MI 1 on one device in fp32 from the bf16
+    start (the reference), on one device in bf16 from that start and from
+    TP_BF16_ULP_STARTS ``_ulp_moved`` starts (rounding's spread), and the
+    partitioned bf16 step on (2, 2) of [cuda:0] * 4 with FSDP.  Gates: the
+    partitioned loss, gradient norm and each leaf's first-step gradient
+    no farther from fp32's than TP_BF16_RATIO times the farthest of the
+    one-device bf16 steps' (that leaf's farthest for a leaf); the
+    ranks agree; the ledger == the dry run's.  Returns the kernels'
+    launches in the partitioned step (all 0)."""
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.collectives import new_ledger
+    from repro_torch.core import offload
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    t0 = time.perf_counter()
+    B, S = batch["tokens"].shape[:2]
+    D, M = TP_TRAIN_MESH
+    ocfg = adamw.OptConfig(total_steps=TP_TRAIN_STEPS, warmup_steps=1)
+    scfg = offload.SentinelConfig(mode="full", mi_periods=1)
+    dev = batch["tokens"].device
+    params = init_params(cfg, seed=0, device=dev)
+
+    def one(start, cfg_):
+        p = init_params(cfg_, device=dev, requires_grad=True)
+        p.load_state_dict(start.state_dict())       # cast to cfg_'s dtype
+        st = {"params": p, "opt": adamw.init(p, ocfg),
+              "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        grads = {}
+        with _first_grads(grads):
+            _, m = loop.make_train_step(cfg_, scfg, ocfg)(st, batch)
+        return float(m["loss"]), float(m["grad_norm"]), grads[()]
+
+    loss32, gn32, g32 = one(params, dataclasses.replace(cfg,
+                                                        dtype="float32"))
+    # rounding's spread: each one-device bf16 step's distance from fp32
+    spread = []
+    for i in range(1 + TP_BF16_ULP_STARTS):
+        start = params if i == 0 else \
+            _ulp_moved(params, TP_BF16_ULP_SHARE, 140 + i)
+        loss, gn, g = one(start, cfg)
+        spread.append((abs(loss - loss32), abs(gn - gn32),
+                       {k: _rel(v, g32[k]) for k, v in g.items()}))
+        del start, g
+        gc.collect()
+    torch.cuda.empty_cache()
+    mesh = shd.Mesh(TP_TRAIN_MESH, ("data", "model"), devices=[dev] * (D * M))
+    rules = shd.tp_dp_rules(mesh, fsdp=True)
+    want = _dryrun_train_ledger(cfg, rules, scfg, ocfg, B, S)
+    step = loop.make_train_step(cfg, scfg, ocfg, rules)
+    reset_counts()
+    try:
+        states = step.init_states(params)
+        before = copy.deepcopy(step.ledger)
+        grads = {}
+        ts = time.perf_counter()
+        with _first_grads(grads):
+            states, m = step(states, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        ms = 1e3 * (time.perf_counter() - ts)
+        led = new_ledger()
+        for part in ("bytes", "counts"):
+            for k, v in step.ledger[part].items():
+                led[part][k] = v - before[part][k]
+        led = {k: {t: v for t, v in led[k].items() if v}
+               for k in ("bytes", "counts")}
+        ranks = {(float(r["loss"]), float(r["grad_norm"]))
+                 for r in m["ranks"]}
+        whole = dict(shd.gather_params(
+            [_Leaves(grads[tuple(pos.values())]) for pos in step.positions],
+            step.positions, step.rules,
+            init_params(cfg, device="meta")).named_parameters())
+    finally:
+        step.close()
+    launches = _recurrent_launches(f"phase 14b {name} bf16")
+    del states, params
+    release_pinned()
+    if len(ranks) != 1:
+        raise AssertionError(f"14b {name} bf16: the ranks disagree: {ranks}")
+    if led != want:
+        raise AssertionError(f"14b {name} bf16: ledger {led} != the dry "
+                             f"run's {want}")
+    far_loss = max(d[0] for d in spread)
+    far_gn = max(d[1] for d in spread)
+    leaf = {k: _rel(g, g32[k]) / max(max(d[2][k] for d in spread), 1e-30)
+            for k, g in whole.items()}
+    mid = float(np.median(list(leaf.values())))
+    worst = max(leaf, key=leaf.get)
+    if not (np.isfinite(loss) and np.isfinite(gn)
+            and abs(loss - loss32) <= TP_BF16_RATIO * far_loss
+            and abs(gn - gn32) <= TP_BF16_RATIO * far_gn
+            and leaf[worst] <= TP_BF16_RATIO):
+        raise AssertionError(
+            f"14b {name} bf16: partitioned loss {loss}, gradient norm {gn}, "
+            f"{worst}'s gradient {leaf[worst]} times one device's farthest; "
+            f"fp32 {loss32}, {gn32}; one device's "
+            f"bf16 steps at most {far_loss}, {far_gn} from fp32 (limit "
+            f"{TP_BF16_RATIO} times)")
+    print(f"phase 14b, {name} in bf16 at full width on {cfg.num_layers} "
+          f"layers (B {B} x S {S}), first step in full on {TP_TRAIN_MESH} "
+          f"(data, model) of [cuda:0] * 4 with FSDP [{card}]: loss fp32 "
+          f"{loss32:.6f}, one device bf16 (start, then "
+          f"{TP_BF16_ULP_STARTS} starts moved one ulp in "
+          f"{TP_BF16_ULP_SHARE:g} of each leaf) from it "
+          f"{', '.join(f'{d[0]:.4g}' for d in spread)}, partitioned "
+          f"{abs(loss - loss32):.4g}; gradient norm fp32 {gn32:.6g}, one "
+          f"device bf16 from it {', '.join(f'{d[1]:.4g}' for d in spread)}, "
+          f"partitioned {gn:.6g} ({abs(gn - gn32):.4g}); each leaf's "
+          f"gradient distance from fp32 over one device's farthest: median "
+          f"{mid:.4g}, worst {leaf[worst]:.4g} ({worst}) of {len(leaf)} "
+          f"(limit {TP_BF16_RATIO} on the loss, the norm and each leaf); "
+          f"ledger {led['bytes']} B == the dry run's; partitioned step "
+          f"{ms:.1f} ms; {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def tp_prefill_direct(name, cfg, params, prompts, card):
+    """Phase 14c for a model the disaggregated engine does not take
+    (paligemma's prefix needs the dense layouts, R9; musicgen's codebooks
+    the batcher refuses, R10): each of ``prompts`` (batch-1 dicts) through
+    ``TensorParallelPrefill`` on [cuda:0] * 2 and through one device's
+    ``model.prefill``, and an fp32 one-device prefill.  Gates: the TP
+    ledger == the dry run's prefill cell of each prompt summed
+    (``_tp_dryrun_bytes``); the means over the prompts of the TP logits'
+    and caches' max_abs from fp32 no farther than TP_BF16_RATIO times
+    bf16's (13c's).  Returns the kernels' launches (all 0)."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.serve.disagg import TensorParallelPrefill
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = copy.deepcopy(params).float()
+    reset_counts()
+    tp = TensorParallelPrefill(params, cfg, [torch.device("cuda", 0)] * 2)
+    dists, ms = [], []
+    try:
+        for batch in prompts:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            l1, c1 = model.prefill(params, cfg, batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lt, ct = tp(batch)
+            torch.cuda.synchronize()
+            ms.append((1e3 * (t1 - t), 1e3 * (time.perf_counter() - t1)))
+            l32, c32 = model.prefill(params32, cfg32, batch)
+
+            def kv(c):
+                return max(float((a[k].float() - b[k]).abs().max())
+                           for a, b in zip(c, c32) for k in a)
+            dists.append((float((l1.float() - l32).abs().max()),
+                          float((lt.float() - l32).abs().max()),
+                          kv(c1), kv(ct)))
+            del c1, ct, c32
+        led = tp.ledger
+    finally:
+        tp.close()
+    launches = _recurrent_launches(f"phase 14c {name}")
+    del params32
+    adm = [(b["tokens"],) for b in prompts]
+    want = _tp_dryrun_bytes(cfg, adm, 2)
+    nz = {k: v for k, v in led["bytes"].items() if v}
+    if nz != want:
+        raise AssertionError(f"14c {name}: collectives {nz} B != the dry "
+                             f"run's {want} B")
+    mean = np.mean(dists, axis=0)
+    if not (mean[1] <= TP_BF16_RATIO * mean[0]
+            and mean[3] <= TP_BF16_RATIO * mean[2]):
+        raise AssertionError(f"14c {name}: TP from fp32 {mean[1]}, "
+                             f"{mean[3]} against bf16's {mean[0]}, "
+                             f"{mean[2]} (limit {TP_BF16_RATIO} times)")
+    after = f" after {cfg.num_prefix_tokens} patches" \
+        if cfg.num_prefix_tokens else ""
+    print(f"phase 14c, {name} TP prefill through TensorParallelPrefill on "
+          f"[cuda:0] * 2 ({cfg.num_layers} layers, {len(prompts)} prompts "
+          f"of {tuple(prompts[0]['tokens'].shape[1:])} tokens{after}) "
+          f"[{card}]: collectives {nz} B == the dry run's; TP/bf16 "
+          f"distance from fp32, means over the prompts: logits "
+          f"{mean[1] / mean[0]:.3f}, caches {mean[3] / mean[2]:.3f} (limit "
+          f"{TP_BF16_RATIO}); bf16 max_abs from fp32 logits "
+          f"{mean[0]:.4f}, TP {mean[1]:.4f}; prefill ms one device / TP "
+          f"(aliased ranks) " + ", ".join(f"{a:.1f} / {b:.1f}"
+                                          for a, b in ms) +
+          f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def check_tp_recurrent(card):
+    """Phase 14: 14a, 14b on the four models, then 14c: xlstm-1.3b at
+    14b's depth on a disaggregated engine with one decode shard and a
+    prefill group of two aliased ranks (``tp_family``, 8 prompts of whole
+    64-token chunks from 320 to 512 tokens, the mLSTM chunkwise), and
+    musicgen-medium and paligemma-3b through ``tp_prefill_direct``.
+    Returns each kernel's launches by path (all 0)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.plan import PlacementPlan
+    t0 = time.perf_counter()
+    release_pinned()
+    torch.cuda.empty_cache()
+    paths = {}
+    paths["xlstm-1.3b, lstm-ptb, musicgen-medium and paligemma-3b reduced "
+          "partitioned training (phase 14a)"] = check_tp_recurrent_small()
+    for name in TP_RECURRENT:
+        paths[f"{name} partitioned training, full and offload (phase "
+              f"14b)"] = train_tp_recurrent_full(name, card)
+    lengths = 64 * np.random.default_rng(28).integers(5, 9, 8)
+    plan = PlacementPlan(hot_window=192, page_tokens=PAGE,
+                         slot_hot_windows=[128 + 16 * s for s in range(SLOTS)])
+    cfg = dataclasses.replace(_tp_recurrent_cfg("xlstm-1.3b", full=True),
+                              use_paged_decode=True)
+    params = init_params(cfg, seed=0)
+    reqs = family_requests(cfg.vocab_size, lengths, seed=29)
+    ops.mlstm_chunk_mode(XLSTM_CHUNK)
+    try:
+        # tp_family raises where K2 or K3 launch, or K1 or K4 where the
+        # model has no attention or Mamba layer
+        k1, k4 = tp_family("xlstm-1.3b", cfg, params, plan, reqs, card,
+                           prefill_devices=[torch.device("cuda", 0)] * 2,
+                           expected=_tp_dryrun_bytes, phase="14c",
+                           per_admission=False)
+    finally:
+        ops.mlstm_chunk_mode(0)
+    paths["xlstm-1.3b TP prefill, one decode shard (phase 14c)"] = {
+        "paged_decode": k1, "flash_attention": 0, "decode_attention": 0,
+        "ssd": k4}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in TP_RECURRENT[2:]:
+        cfg = _tp_recurrent_cfg(name, full=True)
+        params = init_params(cfg, seed=0)
+        S = TP_RECURRENT_FULL[name][1][1]
+        prompts = [_modality_batch(cfg, 1, S, 150 + i, "cuda")
+                   for i in range(4)]
+        for p in prompts:
+            p.pop("labels")
+        paths[f"{name} TP prefill, TensorParallelPrefill (phase 14c)"] = \
+            tp_prefill_direct(name, cfg, params, prompts, card)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s; launches on its "
           f"paths: {paths}", flush=True)
     return paths
 
@@ -5844,6 +6344,10 @@ def k3_record(serving, long_run):
 
 SMOLLM_TRAIN = (8, 1024)             # B x S of phase 5c
 ZAMBA_TRAIN = (1, 4096)              # B x S of phase 5d
+# phase 5d's periods of zamba2-7b's 16 (with its prologue, 21 layers), for
+# the script's clock: on 8 (41 layers) it took 82.3-94.0 s of runs of
+# 1047.1-1188.8 s (H100 80GB HBM3 hosts at 700 W)
+ZAMBA_TRAIN_PERIODS = 4
 TRAIN_STEPS = 6                      # steps a mode in phase 5c
 MODES = ("full", "remat", "save_hbm", "offload")
 # phase 5b: float32 on the card (no TF32) against the CPU, as phase 4's
@@ -6296,9 +6800,9 @@ def train_smollm(card):
 
 
 def train_zamba(card):
-    """Phase 5d: zamba2-7b at full width on half its depth (its Mamba
-    prologue layer and 8 of its 16 periods, 41 layers, for the script's
-    clock since phases 9 and 10 came), bf16, B 1 x S 4096, mode offload
+    """Phase 5d: zamba2-7b at full width on its Mamba prologue layer and
+    ZAMBA_TRAIN_PERIODS of its 16 periods (21 layers, for the script's
+    clock), bf16, B 1 x S 4096, mode offload
     at the planned MI with the AdamW moments in pinned host memory, 2
     steps on one repeated batch.  Fails unless the loss is finite and
     falls, and K4 ran once a Mamba layer in each forward and once a
@@ -6313,7 +6817,9 @@ def train_zamba(card):
     from repro_torch.optim import adamw
     from repro_torch.train import loop
     t0 = time.perf_counter()
-    cfg = _half_depth(get_config("zamba2-7b"))
+    cfg = get_config("zamba2-7b")
+    cfg = dataclasses.replace(cfg, num_layers=len(cfg.prologue)
+                              + ZAMBA_TRAIN_PERIODS * cfg.period_len)
     B, S = ZAMBA_TRAIN
     prof, _, scfg = plan_step(cfg, B, S, card, offload_opt_state=True)
     ocfg = adamw.OptConfig(total_steps=2, warmup_steps=1)
@@ -6487,6 +6993,9 @@ def main() -> int:
     # phase 13's runs K4 on each rank's SSM heads, and K1 on zamba2's
     # shared-block decode
     paths.update(check_tp_families(card))
+    # phase 14's (the recurrences and the modality stubs partitioned) run
+    # none of the four kernels
+    paths.update(check_tp_recurrent(card))
     for what, tally in paths.items():
         for rec, name in ((k1, "paged_decode"), (k2, "flash_attention"),
                           (k3, "decode_attention"), (k4, "ssd")):

@@ -33,7 +33,12 @@ has its own barrier and slots; a failed rank breaks every one of them.
 
 ``ShapeGroup`` is the same interface for one rank on the meta device (the
 dry run): it returns each result's shape and records the bytes;
-``ShapeMesh`` gives one per set of mesh axes.
+``ShapeMesh`` gives one per set of mesh axes.  Their ``trips`` (a
+``Trips``, shared by a mesh's groups) multiply what they record: the dry
+run registers it as ``kernels/ref.step_loop``'s counter, so a token loop
+runs trip 0 and one trip standing for the other S - 1, and the
+collectives of that trip (its backward's too) count S - 1 times, as
+``launch/costing.step_cost`` counts its ops.
 
 The functions ``all_reduce``, ``conjugate``, ``all_gather`` and
 ``reduce_scatter`` take a ``(group, rank)`` and are differentiable
@@ -43,8 +48,10 @@ gradient is replicated there), and an all-reduce as its backward where
 every rank's copy of its result feeds a loss that the ranks average (the
 data group); ``conjugate`` (Megatron's ``f``) is the identity forward and
 an all-reduce backward; an all-gather's backward is a reduce-scatter (the
-gradient reaching it is a partial sum on each rank), and a
-reduce-scatter's an all-gather.  Their backwards run the collectives of
+gradient reaching it is a partial sum on each rank), or with
+``grad="split"`` the rank's block of it (Megatron's gather into a
+replicated region: every rank's gradient there is already the whole
+sum), and a reduce-scatter's an all-gather.  Their backwards run the collectives of
 the group the forward ran on, so each rank's backward runs on its own
 thread (``torch.autograd.set_multithreading_enabled(False)``).
 
@@ -106,14 +113,30 @@ class _Base:
         self.ledger["counts"][kind] += 1
 
 
+class Trips:
+    """The number of executions a ``ShapeGroup`` records a collective as
+    (``scale``): 1, or S - 1 inside the trip of a token loop that stands
+    for the rest (``kernels/ref.step_loop`` multiplies it while that trip
+    runs), 0 in its uncounted recompute."""
+
+    def __init__(self):
+        self.scale = 1.0
+
+
 class ShapeGroup(_Base):
     """The collectives of one rank of a ``size``-rank group on meta
     tensors: each returns a tensor of its result's shape and records the
-    bytes, and no other rank exists."""
+    bytes, ``trips.scale`` times, and no other rank exists."""
 
-    def __init__(self, size: int):
+    def __init__(self, size: int, trips: Trips = None):
         super().__init__()
         self.size = int(size)
+        self.trips = trips or Trips()
+
+    def _record(self, kind: str, shape, dtype):
+        times = self.trips.scale
+        self.ledger["bytes"][kind] += times * _nbytes(shape, dtype)
+        self.ledger["counts"][kind] += round(times)
 
     def all_reduce(self, rank: int, x, op: str = "sum"):
         self._record("all-reduce", x.shape, x.dtype)
@@ -139,13 +162,14 @@ class ShapeMesh:
 
     def __init__(self, mesh):
         self.mesh = mesh
+        self.trips = Trips()
         self._groups = {}
 
     def group(self, axes, coords) -> tuple:
         axes = tuple(a for a in self.mesh.axis_names if a in axes)
         if axes not in self._groups:
             self._groups[axes] = ShapeGroup(
-                math.prod(self.mesh.shape[a] for a in axes))
+                math.prod(self.mesh.shape[a] for a in axes), self.trips)
         return self._groups[axes], 0
 
     @property
@@ -394,14 +418,18 @@ class _Conjugate(torch.autograd.Function):
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, rank, dim):
-        ctx.group, ctx.rank, ctx.dim = group, rank, dim
+    def forward(ctx, x, group, rank, dim, split):
+        ctx.group, ctx.rank, ctx.dim, ctx.split = group, rank, dim, split
         return group.all_gather(rank, x.contiguous(), dim)
 
     @staticmethod
     def backward(ctx, g):
-        return (ctx.group.reduce_scatter(ctx.rank, g.contiguous(), ctx.dim),
-                None, None, None)
+        if ctx.split:
+            n = g.shape[ctx.dim] // ctx.group.size
+            g = g.narrow(ctx.dim, ctx.rank * n, n)
+        else:
+            g = ctx.group.reduce_scatter(ctx.rank, g.contiguous(), ctx.dim)
+        return g, None, None, None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -445,13 +473,19 @@ def conjugate(x, group, rank: int):
     return _Conjugate.apply(x, group, rank) if _graph(x) else x
 
 
-def all_gather(x, group, rank: int, dim: int):
+def all_gather(x, group, rank: int, dim: int, *, grad: str = "sum"):
     """Every rank's ``x`` concatenated on ``dim``; backward, the rank's
-    block of the gradient summed over the ranks (a reduce-scatter: the
-    gradient reaching a gather is a partial sum on each rank)."""
+    block of the gradient summed over the ranks (``grad="sum"``, a
+    reduce-scatter: the gradient reaching a gather is a partial sum on
+    each rank), or the rank's block of its own gradient (``grad="split"``:
+    what the gather feeds is computed whole on every rank, so each rank's
+    gradient of it is already the whole one, and summing would count it
+    once a rank)."""
+    if grad not in ("sum", "split"):
+        raise ValueError(f"grad {grad!r}")
     if not _graph(x):
         return group.all_gather(rank, x, dim)
-    return _AllGather.apply(x, group, rank, dim)
+    return _AllGather.apply(x, group, rank, dim, grad == "split")
 
 
 def reduce_scatter(x, group, rank: int, dim: int):

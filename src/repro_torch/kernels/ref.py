@@ -17,8 +17,10 @@ which are the op itself on every device, in both packages.
 
 ``step_loop`` runs the token-by-token loops (the sequential mLSTM and the
 sLSTM here, the LSTM in ``models/xlstm.py``): every trip, except under
-``launch/costing.step_cost``'s op counter, which has it count one trip as
-many, as the reference's costing multiplies a scan body by its length.
+``launch/costing.step_cost``'s op counter or the dry run's collective
+``Trips`` (``launch/dryrun.rank_collectives``), which have it count one
+trip as many, as the reference's costing multiplies a scan body by its
+length.
 """
 from __future__ import annotations
 
@@ -61,7 +63,11 @@ def step_loop(step, carry: tuple, xs: tuple, n: int, consts: tuple = ()):
     flat = _ScaledTrip.apply(step, counter, n - 1, len(carry), len(xs),
                              *carry, *(x[1] for x in xs), *consts)
     carry, out = tuple(flat[:len(carry)]), flat[-1]
-    return carry, outs + [out] * (n - 1)
+    # the n - 1 outputs as views of one expanded tensor: a backward through
+    # them sums their gradients in one op, where n - 1 references to
+    # ``out`` itself would accumulate them in n - 2 adds
+    rest = out.unsqueeze(0).expand(n - 1, *out.shape).unbind(0)
+    return carry, outs + list(rest)
 
 
 class _ScaledTrip(torch.autograd.Function):

@@ -9,26 +9,28 @@ ops the step runs, its backward and recomputes included) and
 ``memory.argument_bytes``, each device's bytes of the step's arguments
 (parameters, optimizer state, batch, cache) by ``sharding.shard_shape``
 under the cell's rules.  The prefill, decode and train cells (not
-``long_500k``, not under ``--seq-parallel``) of a stack of attention, MLA
-and Mamba layers (smollm-360m, gemma2-2b, gemma3-12b, internlm2-1.8b,
-granite-moe-3b, deepseek-v2-lite, zamba2-7b) also carry ``collectives`` in
-the reference's format (``{"bytes": {type: B}, "counts": {type: n}}``):
-the partitioned step of mesh position (0, ..., 0) runs on meta tensors
-under a ``collectives.ShapeMesh`` (a ``ShapeGroup`` for each set of mesh
-axes a collective spans: ``model``, and ``data`` for a train step's
-data-parallel reductions and FSDP's gathers), whose ledger counts each
-collective's per-device result bytes, a train step's backward
-collectives included, and its executions in ``counts`` (the reference
-counts HLO sites).  The other cells carry ``collectives_note`` instead
-(``unpartitioned``): xlstm-1.3b's, musicgen-medium's and paligemma-3b's
-wait for ROADMAP item 11b part 2a, ``long_500k`` and Megatron-SP for part
-2b.  There is no ``temp_bytes`` or ``cost``: those are XLA's.
+``long_500k``, not under ``--seq-parallel``) of every arch also carry
+``collectives`` in the reference's format (``{"bytes": {type: B},
+"counts": {type: n}}``): the partitioned step of mesh position (0, ...,
+0) runs on meta tensors under a ``collectives.ShapeMesh`` (a
+``ShapeGroup`` for each set of mesh axes a collective spans: ``model``,
+and ``data`` for a train step's data-parallel reductions and FSDP's
+gathers), whose ledger counts each collective's per-device result bytes,
+a train step's backward collectives included, and its executions in
+``counts`` (the reference counts HLO sites).  The token loops of the
+recurrent layers (``kernels/ref.step_loop``) run there as under
+``step_cost``: trip 0, then one trip whose collectives, and its
+backward's, count for the other S - 1 (the groups' ``Trips``).  The
+other cells carry ``collectives_note`` instead (``unpartitioned``):
+``long_500k`` and Megatron-SP wait for ROADMAP item 11b part 2b.  There
+is no ``temp_bytes`` or ``cost``: those are XLA's.
 
 Exit code 0 when every cell passes.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -40,31 +42,23 @@ import torch
 
 from repro_torch import sharding as shd
 from repro_torch.collectives import ShapeGroup, ShapeMesh
-from repro_torch.configs.base import (LSTM, MLSTM, SHAPES, SLSTM, cells,
-                                      get_config)
+from repro_torch.configs.base import SHAPES, cells, get_config
 from repro_torch.core.offload import SentinelConfig
+from repro_torch.kernels import ref
 from repro_torch.launch import specs
 from repro_torch.launch.costing import step_cost
 from repro_torch.launch.mesh import make_production_mesh, make_rules
 
-PART_2A = ("the partitioned program of this cell waits for ROADMAP item "
-           "11b part 2a (the mLSTM, sLSTM and LSTM layers, then the "
-           "modality stubs)")
 PART_2B = ("the partitioned program of this cell waits for ROADMAP item "
            "11b part 2b (long_500k's decode and Megatron-SP)")
 
 
 def unpartitioned(cfg, shape_name: str, rules) -> Optional[str]:
     """None where the port runs this cell's partitioned program (a
-    prefill, decode or train cell of a stack of attention, MLA and Mamba
-    layers without a modality stub, under rules without Megatron-SP),
-    else the note that says which item it waits for."""
+    prefill, decode or train cell under rules without Megatron-SP), else
+    the note that says which item it waits for."""
     if shape_name == "long_500k" or shd.is_seq_parallel(rules):
         return PART_2B
-    if any(cfg.layer_kind(l) in (MLSTM, SLSTM, LSTM)
-           for l in range(cfg.num_layers)) \
-            or cfg.num_codebooks or cfg.num_prefix_tokens:
-        return PART_2A
     return None
 
 
@@ -84,7 +78,9 @@ def rank_collectives(fn, args, in_sh, rules) -> dict:
     blocks on meta, under a rank context whose ``ShapeGroup`` spans the
     ``model`` axis.  A train step (``args`` (state, batch)) runs forward
     and backward on its rows of the batch (``sharding.batch_split``),
-    under a ``ShapeMesh`` whose groups span any set of mesh axes."""
+    under a ``ShapeMesh`` whose groups span any set of mesh axes.  The
+    groups' ``Trips`` is ``kernels/ref.step_loop``'s counter meanwhile,
+    so a token loop's trip counts its collectives S - 1 times."""
     mesh = rules.mesh
     coords = {a: 0 for a in mesh.axis_names}
     if isinstance(args[0], dict) and "params" in args[0]:
@@ -103,15 +99,26 @@ def rank_collectives(fn, args, in_sh, rules) -> dict:
         groups = ShapeMesh(mesh)
         ctx = shd.mesh_rank(groups, rules, coords, batch_axes=axes,
                             params=params)
-        with shd.rank_context(ctx):
+        with shd.rank_context(ctx), _loops_counted(groups.trips):
             fn(rank_state, {k: v[:rows] for k, v in batch.items()})
         return groups.ledger
     params = shd.shard_params(args[0], rules, coords)
     rest = [_blocks(a, sh) for a, sh in zip(args[1:], in_sh[1:])]
     group = ShapeGroup(mesh.shape["model"])
-    with shd.rank_context(shd.RankContext(group, 0, rules, coords)):
+    with shd.rank_context(shd.RankContext(group, 0, rules, coords)), \
+            _loops_counted(group.trips):
         fn(params, *rest)
     return group.ledger
+
+
+@contextlib.contextmanager
+def _loops_counted(trips):
+    """``trips`` as ``kernels/ref.step_loop``'s counter for the body."""
+    ref.counting(trips)
+    try:
+        yield
+    finally:
+        ref.counting(None)
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,

@@ -26,8 +26,9 @@ Under grad, whatever is replicated and enters the rank's share of the
 heads passes ``sharding.to_split`` (its gradient all-reduced over
 ``model``): the input of a split projection, k and v where wk and wv stay
 whole, and the QK-norm weights of a split q or k.  MLA's rank program is
-its class's (``MLA``); the pool layouts under a rank context wait for
-ROADMAP item 11b part 2a.
+its class's (``MLA``).  The pool layouts refuse a rank context
+(``sharding.refuse_partitioned``): the reference runs them on one device
+only.
 """
 from __future__ import annotations
 

@@ -95,15 +95,11 @@ def _layer_cache_axes(kind: str) -> dict:
         return {"h": ("batch", "ssm_heads", None, None),
                 "conv": ("batch", None, "ssm_heads")}
     if kind == MLSTM:
-        return {"C": ("batch", "heads", None, None),
-                "n": ("batch", "heads", None), "m": ("batch", "heads"),
-                "conv": ("batch", None, "mlp")}
+        return dict(xlstm_mod.MLSTM_AXES)
     if kind == SLSTM:
-        state = ("batch", "heads", None)
-        return {"c": state, "n": state, "m": state, "h": state,
-                "conv": ("batch", None, "mlp")}
+        return dict(xlstm_mod.SLSTM_AXES)
     if kind == LSTM:
-        return {"h": ("batch", "embed"), "c": ("batch", "embed")}
+        return dict(xlstm_mod.LSTM_AXES)
     raise ValueError(kind)
 
 

@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.sharding import constrain, rank_block, to_split
+from repro_torch.sharding import (all_reduce_over, constrain, rank_block,
+                                  to_split)
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
@@ -30,13 +31,22 @@ def frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def rmsnorm(x, w, eps: float = 1e-6, plus_one: bool = True):
+def rmsnorm(x, w, eps: float = 1e-6, plus_one: bool = True,
+            width: int = None):
     """RMS norm.  ``plus_one`` (the layer norms): the weight is stored as
     its offset from one; otherwise (the Mamba gate's norm) it scales
-    directly, as the reference's ``plus_one=False``."""
+    directly, as the reference's ``plus_one=False``.  ``width``: the
+    norm's whole width, of which ``x`` and ``w`` may be the rank's block
+    on the model axis (a d_inner the model axis splits); then each rank's
+    sum of squares is all-reduced over ``model`` and its gradient summed
+    back."""
     dt = x.dtype
     x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
+    if width is None or x.shape[-1] == width:
+        var = x.square().mean(dim=-1, keepdim=True)
+    else:
+        var = all_reduce_over(x.square().sum(dim=-1, keepdim=True),
+                              ("model",), grad="sum") / width
     y = x * torch.rsqrt(var + eps)
     w = w.float()
     return (y * (1.0 + w) if plus_one else y * w).to(dt)

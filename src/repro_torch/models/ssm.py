@@ -30,8 +30,8 @@ from torch import nn
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import frozen, rmsnorm
-from repro_torch.sharding import (all_reduce_over, constrain, current_rank,
-                                  local_shape, rank_block, to_split)
+from repro_torch.sharding import (constrain, current_rank, local_shape,
+                                  rank_block, to_split)
 
 H_AXES = ("batch", "ssm_heads", None, None)      # the cache's state
 CONV_AXES = ("batch", None, "ssm_heads")        # the cache's conv tail
@@ -192,14 +192,9 @@ class MambaBlock(nn.Module):
             y, h = kernel_ops.ssd(xh, dt, A, Bm, Cm, chunk=cfg.ssm.chunk,
                                   h0=None if cache is None else cache["h"])
         y = y + self.D[None, None, :, None].to(y.dtype) * xh
-        g = y.reshape(B, S, Hl * P) * F.silu(zxd[..., c0:c1])
-        # the gated norm over the whole d_inner: each rank's sum of squares,
-        # summed (and their gradients summed back)
-        gf = g.float()
-        sq = all_reduce_over(gf.square().sum(dim=-1, keepdim=True),
-                             ("model",), grad="sum")
-        y = (gf * torch.rsqrt(sq / d_inner + cfg.norm_eps)
-             * self.norm.float()).to(g.dtype)
+        # the gated norm over the whole d_inner
+        y = rmsnorm(y.reshape(B, S, Hl * P) * F.silu(zxd[..., c0:c1]),
+                    self.norm, cfg.norm_eps, plus_one=False, width=d_inner)
         out = constrain(y @ self.w_out, ("batch", "seq", "embed"),
                         partial=True)
         return out, {"h": h, "conv": new_tail}

@@ -345,12 +345,17 @@ def current_rank() -> Optional[RankContext]:
 
 
 def refuse_partitioned(what: str):
-    """Raise under a rank context: ``what`` has no partitioned program
-    yet (the mLSTM, sLSTM and LSTM layers, the page pools)."""
+    """Raise under a rank context: ``what`` has no partitioned program,
+    as the reference's has none (the page pools: the reference runs
+    ``_pool_prefill_core`` and ``_pool_decode_core`` on one device only;
+    its TP prefill runs the dense prefill, and each decode shard holds
+    whole slots)."""
     if current_rank() is not None:
         raise NotImplementedError(
-            f"{what} under a rank context: its partitioned program waits "
-            f"for ROADMAP item 11b part 2a")
+            f"{what} under a rank context: the reference runs it on one "
+            f"device only (its tensor-parallel prefill runs the dense "
+            f"prefill, and each decode shard holds whole slots), so it "
+            f"has no partitioned program")
 
 
 def is_seq_parallel(rules: AxisRules) -> bool:
@@ -470,6 +475,27 @@ def all_reduce_over(x, axes, *, op: str = "sum", grad: str = "identity"):
     on = None if ctx is None else ctx.on(axes)
     return x if on is None else \
         collectives.all_reduce(x, *on, op=op, grad=grad)
+
+
+def all_gather_over(x, axes, dim: int, *, grad: str = "sum"):
+    """``x``'s blocks over the mesh axes ``axes`` of the current rank
+    concatenated on ``dim`` (``collectives.all_gather``, its backward by
+    ``grad``); ``x`` itself with no rank context or where their product
+    is 1."""
+    ctx = current_rank()
+    on = None if ctx is None else ctx.on(axes)
+    return x if on is None else \
+        collectives.all_gather(x, *on, dim, grad=grad)
+
+
+def reduce_scatter_over(x, axes, dim: int):
+    """The current rank's block on ``dim`` of ``x`` summed over the mesh
+    axes ``axes`` (``collectives.reduce_scatter``: a partial sum cut onto
+    the rank's share); ``x`` itself with no rank context or where their
+    product is 1."""
+    ctx = current_rank()
+    on = None if ctx is None else ctx.on(axes)
+    return x if on is None else collectives.reduce_scatter(x, *on, dim)
 
 
 def _leaf_spec(ctx, w) -> Optional[tuple]:

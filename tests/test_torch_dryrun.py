@@ -314,7 +314,8 @@ def test_xlstm_cells_beside_the_reference(shape_name):
         0.05 * want["flops"]
     assert abs(got["bytes_per_chip"] - want["bytes"]) <= \
         0.35 * want["bytes"]
-    assert "item 11b part 2a" in rec["collectives_note"]
+    assert "collectives_note" not in rec
+    assert rec["collectives"]["counts"]["all-reduce"] > 0
 
 
 def test_seq_parallel_cells_carry_the_note():

@@ -311,22 +311,19 @@ def test_tp_prefill_raises_when_a_rank_fails(monkeypatch):
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-7b",
                                   "xlstm-1.3b"])
 def test_unpartitioned_layers_refuse_a_rank_context(arch):
-    """Layers without a partitioned program raise under a rank context
-    rather than run unpartitioned: xLSTM's, naming item 11b part 2a; and
-    under Megatron-SP rules (``seq_res`` on ``model``) every family,
-    MLA's and Mamba's among them, naming item 11b part 2b (ROADMAP F3).
-    MLA and Mamba themselves run partitioned since item 11b part 2a
-    (``tests/test_torch_tp_families.py``)."""
+    """Under Megatron-SP rules (``seq_res`` on ``model``) a rank context
+    raises rather than run plain tensor parallelism under Megatron-SP's
+    name, for every family, MLA's, Mamba's and the xLSTM's among them,
+    naming item 11b part 2b (ROADMAP F3).  MLA and Mamba themselves run
+    partitioned since item 11b part 2a (``tests/test_torch_tp_families.py``),
+    the xLSTM layers since its items 3-4
+    (``tests/test_torch_tp_recurrent.py``)."""
     cfg = get_config(arch).reduced()
     mesh = shd.Mesh((1, 2), ("data", "model"))
-    if arch == "xlstm-1.3b":
-        rules, part = make_rules(mesh, kind="prefill"), "item 11b part 2a"
-    else:
-        rules = shd.tp_dp_rules(mesh, seq_parallel=True)
-        part = "item 11b part 2b"
+    rules = shd.tp_dp_rules(mesh, seq_parallel=True)
     fn, args, in_sh = specs.build_prefill_cell(
         cfg, ShapeConfig("tiny", 8, 1, "prefill"), rules)
-    with pytest.raises(NotImplementedError, match=part):
+    with pytest.raises(NotImplementedError, match="item 11b part 2b"):
         dryrun.rank_collectives(fn, args, in_sh, rules)
 
 
@@ -366,8 +363,8 @@ def test_dryrun_record_carries_collectives_on_serve_cells(tmp_path):
     """The CLI on the production 16 x 16 mesh (reduced configs): a
     partitioned serve or train cell's record carries ``collectives`` in
     the reference's format, a serve cell of an MLA stack among them since
-    item 11b part 2a; ``long_500k`` carries the note naming item 11b part
-    2b, and a serve cell of an xLSTM stack the note naming part 2a."""
+    item 11b part 2a, and of an xLSTM stack since its items 3-4;
+    ``long_500k`` carries the note naming item 11b part 2b."""
     got = {}
     for arch, shape in (("smollm-360m", "prefill_32k"),
                         ("granite-moe-3b-a800m", "decode_32k"),
@@ -381,13 +378,13 @@ def test_dryrun_record_carries_collectives_on_serve_cells(tmp_path):
     for key in (("smollm-360m", "prefill_32k"),
                 ("granite-moe-3b-a800m", "decode_32k"),
                 ("smollm-360m", "train_4k"),
-                ("deepseek-v2-lite-16b", "decode_32k")):
+                ("deepseek-v2-lite-16b", "decode_32k"),
+                ("xlstm-1.3b", "decode_32k")):
         coll = got[key]["collectives"]
         assert set(coll) == {"bytes", "counts"}
         assert set(coll["bytes"]) == set(collectives.COLLECTIVES)
         assert coll["bytes"]["all-reduce"] > 0
         assert "collectives_note" not in got[key]
-    for key, part in ((("zamba2-7b", "long_500k"), "item 11b part 2b"),
-                      (("xlstm-1.3b", "decode_32k"), "item 11b part 2a")):
-        assert "collectives" not in got[key]
-        assert part in got[key]["collectives_note"]
+    key = ("zamba2-7b", "long_500k")
+    assert "collectives" not in got[key]
+    assert "item 11b part 2b" in got[key]["collectives_note"]

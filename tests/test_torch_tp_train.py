@@ -30,7 +30,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import offload
 from repro_torch.core.offload import SentinelConfig
 from repro_torch.launch import dryrun, specs
-from repro_torch.models import model, transformer
+from repro_torch.models import kvcache, model, transformer
 from repro_torch.optim import adamw
 from repro_torch.train import loop
 
@@ -333,10 +333,12 @@ def test_a_failed_rank_raises(monkeypatch):
 def test_refusals():
     """A MoE dispatch group spanning two data ranks' rows, and FSDP on a
     batch the data axis does not split, raise rather than compute a
-    different step; xLSTM layers name item 11b part 2a, and Megatron-SP
-    rules (``seq_parallel=True``, ROADMAP F3) item 11b part 2b.  MLA and
-    Mamba run partitioned since part 2a
-    (``tests/test_torch_tp_families.py``)."""
+    different step; the page pools under a rank context say that the
+    reference runs them on one device only, and Megatron-SP rules
+    (``seq_parallel=True``, ROADMAP F3) name item 11b part 2b.  MLA and
+    Mamba run partitioned since part 2a (``tests/test_torch_tp_families.py``),
+    the xLSTM layers since its items 3-4
+    (``tests/test_torch_tp_recurrent.py``)."""
     cfg = get_config("granite-moe-3b-a800m").reduced()     # groups of 512
     params = model.init_params(cfg, seed=0, device="cpu")
     with pytest.raises(ValueError, match="dispatch groups"):
@@ -347,11 +349,24 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="batch splits over no"):
         _partitioned(cfg, params, _batch(cfg, b=1), (2, 2),
                      SentinelConfig(mode="full"), fsdp=True)
-    cfg = get_config("xlstm-1.3b").reduced()
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              use_paged_decode=True)
     params = model.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11b part 2a"):
-        _partitioned(cfg, params, _batch(cfg), (1, 2),
-                     SentinelConfig(mode="full"))
+    pools = kvcache.PagedKVPools(cfg, 1, 16, 4, torch.float32, CPU)
+    rules = shd.serve_rules(shd.Mesh((2,), ("model",)))
+    ctx = shd.RankContext(collectives.ShapeGroup(2), 0, rules, {"model": 0})
+    rank = shd.shard_params(params, rules, {"model": 0})
+    table, tier = pools.arrays()
+    view = {"page_table": table[:1], "page_tier": tier[:1],
+            "page_tokens": 4, "active": torch.ones(1, dtype=torch.bool),
+            "garbage_page": pools.garbage}
+    with shd.rank_context(ctx), \
+            pytest.raises(NotImplementedError, match="on one device only"):
+        model.forward(rank, cfg, {"tokens": torch.zeros(1, 1,
+                                                        dtype=torch.long)},
+                      caches=pools.tree, cache_index=torch.zeros(
+                          1, dtype=torch.long), decode=True,
+                      paged_view=view)
     cfg = _config("smollm-360m")
     params = model.init_params(cfg, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11b part 2b"):
