@@ -124,8 +124,8 @@ Phases, each printing its own lines:
          moved off the card; step time, tokens/s, peak memory and
          device-busy share of each mode, offload's time and memory over
          full's;
-     5d. zamba2-7b at full width on 21 of its 81 layers (its Mamba
-         prologue and ZAMBA_TRAIN_PERIODS, 4 of 16 periods; cut for the
+     5d. zamba2-7b at full width on 11 of its 81 layers (its Mamba
+         prologue and ZAMBA_TRAIN_PERIODS, 2 of 16 periods; cut for the
          script's time limit), bf16, B 1 x S 4096, offload at the
          planned MI with the AdamW moments in pinned host memory, 2 steps
          on a repeated batch: the loss finite and falling, K4 once a
@@ -133,33 +133,32 @@ Phases, each printing its own lines:
          recompute; step time, adamw.update's time, peak memory, pinned
          host bytes;
   6. the attention families (ROADMAP item 9), each loaded alone and freed
-     before the next, bf16 from seed 0 at full width and depth, 8 slots,
+     before the next, bf16 from seed 0 at full width, 8 slots,
      page 16, 32 decode tokens a request:
      6a. the five reduced fp32 configs on the card against the CPU (the
          pools with a prefill chunk; deepseek-v2-lite on the pools with
          chunk 0 and on concat): every forward's logits within atol 1e-4,
          tokens and integer counters identical;
      6b. gemma3-12b on the pools (2048-token slots, chunk 256, hot windows
-         256-480), at half depth (24 of 48 layers; cut for the script's
-         time limit since phases 9 and 10 came), 12 prompts of 300-1800
-         tokens, four over 1024 and four sharing a 256-token prefix:
-         tiered == all-hot tokens, K1 == decode steps x 24 with its LOCAL
+         256-480), at a quarter of its depth (12 of 48 layers,
+         DEPTH_PARTS; cut for the script's time limit), 12 prompts of
+         300-1800 tokens, four over 1024 and four sharing a 256-token
+         prefix: tiered == all-hot tokens, K1 == decode steps x 12 with its LOCAL
          window and without, counters == predict_pool_counters;
-     6c. gemma2-2b on the pools (8192-token slots), at half depth (12 of
-         26 layers, the same cut), 8 prompts of 500-6000 tokens, two over
-         4096: the same gates, K1 == steps x 12 with softcap 50 in every
+     6c. gemma2-2b on the pools (8192-token slots), on 6 of its 26
+         layers (the same cut), 8 prompts of 500-6000 tokens, two over
+         4096: the same gates, K1 == steps x 6 with softcap 50 in every
          launch, every logit within +-30; then the serving CLI at full
          width and depth (--arch gemma2-2b -n 16), exit 0;
      6d. internlm2-1.8b and granite-moe-3b (40 experts, top 8) on the
-         pools (1024-token slots) over phase 3's requests, at half depth
-         (12 and 16 layers; cut for the script's time limit): the same
-         gates;
+         pools (1024-token slots) over phase 3's requests, on a quarter
+         of their layers (6 and 8; the same cut): the same gates;
      6e. deepseek-v2-lite (MLA, 64 experts top 6 and 2 shared, a dense
          first layer) on all-HBM and concat (a global 256-token hot
          window: the latent's cold prefix in pinned host memory), 12
-         prompts of 100-500 tokens, at half depth (14 of 27 layers, the
-         same cut as 6b): identical tokens, no kernel launch, the latent
-         14 x 576 x 2 bytes a token;
+         prompts of 100-500 tokens, on 7 of its 27 layers (the same cut
+         as 6b): identical tokens, no kernel launch, the latent 7 x 576 x
+         2 bytes a token;
      each run's prefill ms per admission (a chunk on the pools), decode
      tokens/s, pure-decode step, peak device memory and a profile of
      decode steps;
@@ -193,8 +192,8 @@ Phases, each printing its own lines:
          on all-HBM, concat and paged-merged (a prompt shorter than the
          prefix among five: ROADMAP R9), tokens and counters == the CPU's,
          tiered == all-HBM, no pools;
-     8b. at full width and half depth (24 of 48 and 9 of 18 layers; cut
-         for the script's time limit since phases 9 and 10 came), bf16,
+     8b. at full width on a quarter of their depth (12 of 48 and 4 of 18
+         layers, DEPTH_PARTS; cut for the script's time limit), bf16,
          seed 0: musicgen-medium's generate at B 8 on 256 frames of 4
          codes, 32 tokens, and the serving CLI at full depth;
          paligemma-3b's generate at B 4 on 256 patch
@@ -203,8 +202,8 @@ Phases, each printing its own lines:
          paged-merged with use_paged_decode set: identical tokens, no
          pools and no K1 launch (K1 has no prefix mask); prefill ms,
          decode step, peak memory and a profile of decode steps;
-     8c. one B 1 training step a mode at full width and half depth (24
-         of 48 and 9 of 18 layers, for the script's clock): musicgen at 1024
+     8c. one B 1 training step a mode at full width on 8b's depth (for
+         the script's clock): musicgen at 1024
          frames of 4 codes, paligemma at 256 patches + 768 text tokens,
          full against offload at the MI planned on H100_COST from the
          step's meta-device profile, the moments in pinned host memory:
@@ -216,15 +215,15 @@ Phases, each printing its own lines:
          against the CPU: the loss (with every MoE layer's aux) and every
          gradient in the four modes at MI 1 and 2, each mode == full,
          offload's bytes == estimate_offload_traffic;
-     9b. granite-moe-3b at full width on GRANITE_TRAIN_LAYERS, 16 of its
+     9b. granite-moe-3b at full width on GRANITE_TRAIN_LAYERS, 8 of its
          32 layers (for the script's clock), bf16 from seed 0, B 1 x S
          1024, two steps in each of the four modes at the MI planned on
          H100_COST, the moments in pinned host memory: losses finite and falling,
          every mode == full, offload's carries == the estimate;
-     9c. deepseek-v2-lite at full width on its dense first layer and 8 of
-         its 26 MoE layers (5.18 B parameters: all 27 layers' moments,
-         about 126 GB, pass the machine's 96 GiB of host memory), the same
-         steps and gates;
+     9c. deepseek-v2-lite at full width on its dense first layer and 4 of
+         its 26 MoE layers (all 27 layers' moments, about 126 GB, pass the
+         machine's 96 GiB of host memory; 4, not 8, for the script's
+         clock), the same steps and gates;
   10. the disaggregated engine on the attention families (ROADMAP item
      13):
      10a. each family reduced in fp32, one shard (all five) and two
@@ -232,8 +231,8 @@ Phases, each printing its own lines:
          re-homed mid-run) on the card and on the CPU: tokens and ledger
          == the CPU's, tokens == a colocated all-hot run's, K1 == shard
          forwards x attention layers; deepseek refused at two shards;
-     10b. each family at full width on half its layers (the cut for the
-         script's time limit), bf16 from seed 0, 12 prompts of 300-512
+     10b. each family at full width on a quarter of its layers
+         (DEPTH_PARTS, the cut for the script's time limit), bf16 from seed 0, 12 prompts of 300-512
          tokens on 8 slots of 1024, whole-prompt admission: the colocated
          pools engine (admitting densely), one shard (tokens ==
          colocated, ledger == predict_pool_counters(dense_admit=True), K1
@@ -343,6 +342,30 @@ Phases, each printing its own lines:
          not take, through TensorParallelPrefill on [cuda:0] * 2 against
          one device's prefill (the ledger == the dry run's, the TP logits'
          and caches' distance from fp32 within 1.5 times bf16's).
+  15. long_500k's sequence-sharded decode and Megatron-SP (ROADMAP item
+     11b part 2b), on (2, 2) of [cuda:0] * 4; K4 runs on zamba2-7b's SP
+     training alone, on each rank's heads over the gathered sequence:
+     15a. smollm-360m, zamba2-7b (one period) and xlstm-1.3b (14a's
+         cut) reduced in fp32, the Megatron-SP step against [cpu] * 4 and the card's one
+         device in each mode once (12a's gates), K4 == ranks x (Mamba
+         layers + recomputes); gemma2-2b, gemma3-12b, zamba2-7b and
+         xlstm-1.3b reduced, 4 decode steps with the attention caches'
+         rows split over the data axis, from an index in each data block,
+         against one device;
+     15b. smollm-360m on 4 layers and zamba2-7b on its prologue and one
+         period, full width, bf16, B 2 x S 1024, two steps in full and in
+         offload at MI 1 with FSDP under Megatron-SP against plain TP on
+         the same mesh: 12b's loss and gradient-norm limits, each leaf's
+         gradient within 0.1 of plain TP's or within 1.5 times its
+         distance from the fp32 step, the ledger == the dry run's, each
+         rank's carries half of plain TP's;
+     15c. long_500k at full width, B 1 x S 524,288, bf16: gemma2-2b on 2
+         layers and zamba2-7b on its prologue and one period, the cache
+         filled from seed 0 below index 524,280, 8 decode steps
+         sequence-sharded against one device: the logits' distance from
+         an fp32 one-device decode within 1.5 times bf16's, every rank's
+         cache block equal to the one device's rows, the ledger == 8 x
+         the dry run's decode cell.
 
 Every kernel time is the median over launches that each follow an L2
 flush and a device-side spin, so the events time the card's work and not
@@ -1722,8 +1745,8 @@ def check_families(card):
     card against the CPU; 6b gemma3-12b, 6c gemma2-2b (and the serving CLI
     on it), 6d internlm2-1.8b and granite-moe-3b on the pools, 6e
     deepseek-v2-lite on all-HBM and concat, each at full width and depth
-    (6b, 6c and 6d at half depth, for the script's clock since phases 9
-    and 10 came; the CLI at full depth).  Returns K1's launches by
+    (6b-6e on a quarter of their period layers, DEPTH_PARTS, for the
+    script's clock; the CLI at full depth).  Returns K1's launches by
     path."""
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
@@ -1737,7 +1760,7 @@ def check_families(card):
     launches, seen, _, _ = serve_family(
         "gemma3-12b", card, lengths=g3, seed=22, max_seq=GEMMA3_MAX_SEQ,
         windows=[256 + 32 * s for s in range(SLOTS)],
-        layers=_half_depth(get_config("gemma3-12b")).num_layers)
+        layers=_half_depth(get_config("gemma3-12b"), DEPTH_PARTS).num_layers)
     if set(seen) != {(0, 0.0), (1024, 0.0)}:
         raise AssertionError(f"gemma3-12b: K1 took {seen}")
     k1["gemma3-12b serving, pools (phase 6b)"] = launches
@@ -1748,7 +1771,7 @@ def check_families(card):
     launches, seen, biggest, _ = serve_family(
         "gemma2-2b", card, lengths=g2, seed=23, max_seq=GEMMA2_MAX_SEQ,
         windows=[512 + 64 * s for s in range(SLOTS)],
-        layers=_half_depth(get_config("gemma2-2b")).num_layers,
+        layers=_half_depth(get_config("gemma2-2b"), DEPTH_PARTS).num_layers,
         cli=lambda: cli.update(line=run_serving_cli("gemma2-2b", 16)))
     if set(seen) != {(0, 50.0), (4096, 50.0)}:
         raise AssertionError(f"gemma2-2b: K1 took {seen}, not softcap 50 "
@@ -1763,18 +1786,19 @@ def check_families(card):
           f"start-up) [{card}]", flush=True)
     k1["gemma2-2b serving, pools (phase 6c)"] = launches
     # 6d: phase 3's 12 requests (100-700 tokens, four sharing 256), at
-    # half depth, for the script's time limit once phase 8 came
+    # a quarter of their depth, for the script's time limit
     lens = [len(t) for t, _ in requests(49152)]
     for arch in ("internlm2-1.8b", "granite-moe-3b-a800m"):
         launches, seen, _, _ = serve_family(
             arch, card, lengths=lens, seed=24, max_seq=MAX_SEQ,
             windows=[128 + 16 * s for s in range(SLOTS)],
-            layers=get_config(arch).num_layers // 2)
+            layers=get_config(arch).num_layers // DEPTH_PARTS)
         k1[f"{arch} serving, pools (phase 6d)"] = launches
     # 6e: 12 prompts of 100-500 tokens (one dense admission prefill each,
     # within the MoE group rule), the latent tiered to pinned host memory,
-    # at half depth since phases 9 and 10 came
-    n_ds = _half_depth(get_config("deepseek-v2-lite-16b")).num_layers
+    # on a quarter of its depth, for the script's time limit
+    n_ds = _half_depth(get_config("deepseek-v2-lite-16b"),
+                       DEPTH_PARTS).num_layers
     launches, _, _, row_bytes = serve_family(
         "deepseek-v2-lite-16b", card,
         lengths=[int(n) for n in rng.integers(100, 501, 12)], seed=25,
@@ -1888,7 +1912,8 @@ XLSTM_TRAIN = (1, 1024)
 # periods) at full width, cut for the script's time limit (at full depth
 # it took 120.4 s of an 813 s run, at 24 layers 68.3-75.5 s of runs of
 # 1047.1-1188.8 s, on H100 80GB HBM3 hosts at 700 W); its CLIs run the
-# full depth
+# full depth.  Not fewer: on one period (8 layers) offload keeps the one
+# block's carry and its peak is not below full's
 XLSTM_LAYERS = 16
 XLSTM_PROFILE_S = 128                 # the sequence its plan profiles
 LSTM_TRAIN = (20, 35)                 # B x BPTT, Zaremba et al.'s medium
@@ -2689,7 +2714,7 @@ def run_musicgen_full(card, note, dev="cuda"):
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models.model import init_params
     t0 = time.perf_counter()
-    cfg = _half_depth(get_config("musicgen-medium"))
+    cfg = _half_depth(get_config("musicgen-medium"), DEPTH_PARTS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2733,7 +2758,7 @@ def run_paligemma_full(card, note, dev="cuda"):
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     t0 = time.perf_counter()
-    cfg = _half_depth(get_config("paligemma-3b"))
+    cfg = _half_depth(get_config("paligemma-3b"), DEPTH_PARTS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2813,7 +2838,7 @@ def run_paligemma_full(card, note, dev="cuda"):
 
 
 def train_modality(card, note):
-    """Phase 8c: one training step a mode at full width and half depth
+    """Phase 8c: one training step a mode at full width and 8b's depth
     (``_half_depth``, for the script's clock; phase 8b's depth), B 1,
     bf16 from seed 0, the AdamW moments in pinned host memory: musicgen
     at S 1024 frames of 4 codes, paligemma at 256 patches + S 768 text
@@ -2825,7 +2850,7 @@ def train_modality(card, note):
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
     for arch in MODALITY:
-        cfg = _half_depth(get_config(arch))
+        cfg = _half_depth(get_config(arch), DEPTH_PARTS)
         S = MODALITY_TRAIN_S[arch]
         prof, _, scfg = plan_step(cfg, 1, S, card, offload_opt_state=True)
         res = train_recurrent(cfg, card, note, B=1, S=S, steps=1, scfg=scfg,
@@ -2866,14 +2891,15 @@ def check_modality(card):
 MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
 MOE_TRAIN = (1, 1024)                 # B x S of phases 9b and 9c
 MOE_TRAIN_STEPS = 2
-# 9c's cut: deepseek-v2-lite's dense first layer and 8 of its 26 MoE
-# layers (5.18 B parameters, 41.4 GB of f32 moments): all 27 layers'
-# moments, about 126 GB, pass the machine's 96 GiB of host memory
-DEEPSEEK_TRAIN_LAYERS = 1 + 8
-# 9b's cut, for the script's clock: granite-moe-3b on 16 of its 32 layers
-# (whole, it took 36.7 s of a 1188.8 s run on an H100 80GB HBM3 at
-# 700 W)
-GRANITE_TRAIN_LAYERS = 16
+# 9c's cut: deepseek-v2-lite's dense first layer and 4 of its 26 MoE
+# layers: all 27 layers' moments, about 126 GB, pass the machine's 96 GiB
+# of host memory (on 8 MoE layers: 5.18 B parameters, 41.4 GB of f32
+# moments; 4 since phase 15 came, for the script's clock)
+DEEPSEEK_TRAIN_LAYERS = 1 + 4
+# 9b's cut, for the script's clock: granite-moe-3b on 8 of its 32 layers
+# (whole, it took 36.7 s of a 1188.8 s run, on 16 layers 18.2 s of a
+# 928.3 s run, on H100 80GB HBM3 hosts at 700 W)
+GRANITE_TRAIN_LAYERS = 8
 
 
 def check_moe_train_small(note):
@@ -3010,11 +3036,17 @@ def _other_kernels_idle(what):
         raise AssertionError(f"{what}: K2, K3 or K4 launched")
 
 
-def _half_depth(cfg):
-    """``cfg`` on its prologue and half its period layers, a whole number
-    of periods."""
+# the share of the period layers that phases 6b-6e, 8b, 8c and 10b run
+# (``_half_depth``), for the script's clock: a half until phase 15 came,
+# whose whole run then took 1426.8 s on an H100 80GB HBM3 host at 700 W
+DEPTH_PARTS = 4
+
+
+def _half_depth(cfg, parts=2):
+    """``cfg`` on its prologue and ``1 / parts`` of its period layers, a
+    whole number of periods (at least one)."""
     n = cfg.num_layers - len(cfg.prologue)
-    periods = max(1, n // 2 // cfg.period_len)
+    periods = max(1, n // parts // cfg.period_len)
     return dataclasses.replace(
         cfg, num_layers=len(cfg.prologue) + periods * cfg.period_len)
 
@@ -3120,7 +3152,7 @@ def disagg_family(arch, card):
     from repro_torch.serve.engine import predict_pool_counters
     t0 = time.perf_counter()
     cfg = _half_depth(dataclasses.replace(get_config(arch),
-                                          use_paged_decode=True))
+                                          use_paged_decode=True), DEPTH_PARTS)
     params = init_params(cfg, seed=0)
     lengths = np.random.default_rng(26).integers(300, 513, 12)
     reqs = family_requests(cfg.vocab_size, lengths, seed=27)
@@ -3679,7 +3711,7 @@ def _replicas_agree(step, states, what):
 
 
 def _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what, *,
-                   cpu_tol=None, rel=0.0):
+                   cpu_tol=None, rel=0.0, seq_parallel=False):
     """One step of the partitioned train step on ``shape`` of [cuda:0]
     and of [cpu] at every position, and the card's one-device step, from
     ``params`` and ``batch``: their loss, gradient norm and every
@@ -3688,10 +3720,10 @@ def _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what, *,
     absolute part widened to ``rel`` x the largest |value| compared where
     that is larger (XLSTM_REL for the ill-conditioned reduced xLSTM), the
     ledgers equal, every replicated leaf equal across its
-    ranks.  Returns {"one", "cpu": the worst distance from each, "pairs":
-    the replica pairs compared, "k4": K4's launches in the card's
-    partitioned step, counted from 0 before it, "launches": every
-    kernel's}."""
+    ranks; ``seq_parallel``: under Megatron-SP rules.  Returns {"one",
+    "cpu": the worst distance from each, "pairs": the replica pairs
+    compared, "k4": K4's launches in the card's partitioned step, counted
+    from 0 before it, "launches": every kernel's}."""
     import torch
     from repro_torch import sharding as shd
     from repro_torch.models.model import init_params
@@ -3704,7 +3736,9 @@ def _tp_small_case(cfg, params, batch, shape, scfg, fsdp, what, *,
         reset_counts()
         mesh = shd.Mesh(shape, ("data", "model"), devices=[dev] * n)
         step = loop.make_train_step(cfg, scfg, ocfg,
-                                    shd.tp_dp_rules(mesh, fsdp=fsdp))
+                                    shd.tp_dp_rules(
+                                        mesh, fsdp=fsdp,
+                                        seq_parallel=seq_parallel))
         try:
             states = step.init_states(copy.deepcopy(params).to(dev))
             states, m = step(states, {k: v.to(dev) for k, v in batch.items()})
@@ -4898,6 +4932,608 @@ def check_tp_recurrent(card):
         gc.collect()
         torch.cuda.empty_cache()
     print(f"phase 14 took {time.perf_counter() - t0:.1f} s; launches on its "
+          f"paths: {paths}", flush=True)
+    return paths
+
+
+# --------------------------- long_500k and Megatron-SP (phase 15) ----
+
+# 15a: the Megatron-SP step of each reduced config in fp32 on (2, 2) of
+# [cuda:0] * 4 in TP_RECURRENT_SMALL_CASES' (mode, FSDP) cases (the
+# xLSTM at TP_RECURRENT_SMALL's layers, tokens and mLSTM chunks)
+SP_SMALL = ("smollm-360m", "zamba2-7b", "xlstm-1.3b")
+# 15a's reduced zamba2 on its prologue and one period, for the script's
+# clock
+SP_SMALL_LAYERS = {"zamba2-7b": 6}
+# 15a: the sequence-sharded decode of each reduced config: a prefill of
+# B 2 x S LONG_SMALL_S on one device, then LONG_SMALL_STEPS decode steps
+# of slot 0 from index 3 (the first data block) and slot 1 from 20 (the
+# last) on (2, 2) under serve_rules(seq_shard=True) against one device
+LONG_SMALL = ("gemma2-2b", "gemma3-12b", "zamba2-7b", "xlstm-1.3b")
+LONG_SMALL_S = 32
+LONG_SMALL_STEPS = 4
+LONG_SMALL_START = (3, 20)
+# 15b: Megatron-SP training at full width and reduced depth, bf16, B x S
+# (smollm-360m on 4 of its 32 layers; zamba2-7b on its prologue and one
+# period, whose shared attention block is K2's shape)
+SP_FULL = {"smollm-360m": 4, "zamba2-7b": 6}
+SP_TRAIN = (2, 1024)
+# 15c: long_500k at full width, B 1 x S 524,288, bf16: gemma2-2b on its
+# first two layers (one LOCAL, one ATTN) and zamba2-7b on its prologue and
+# one period (one shared attention layer); the cache filled from seed 0
+# below LONG_START, then LONG_STEPS decode steps on (2, 2)
+LONG_FULL = {"gemma2-2b": 2, "zamba2-7b": 6}
+LONG_S = 524_288
+LONG_START = 524_280
+LONG_STEPS = 8
+
+
+def check_sp_small():
+    """Phase 15a, training: each SP_SMALL config reduced in fp32, one step
+    of the Megatron-SP partitioned train step (``tp_dp_rules(fsdp=...,
+    seq_parallel=True)``) on (2, 2) of [cuda:0] * 4 and of [cpu] * 4 and
+    the card's one-device step from the same parameters and batch (B 4 x
+    S 16; the xLSTM's S TP_RECURRENT_SMALL's), in TP_RECURRENT_SMALL_CASES'
+    modes at MI 1: 12a's gates (``_tp_small_case``; zamba2's card against
+    the CPU at phase 5b's gradient limits, since K4 runs on the card; the
+    xLSTM's widened to XLSTM_REL of the largest |value|), and K4's
+    launches in each partitioned card step == ranks x (Mamba layers +
+    recomputes) on zamba2, 0 elsewhere.  Returns the launches by
+    config."""
+    from repro_torch.core.offload import SentinelConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    out, worst, pairs, secs = {}, {}, 0, {}
+    D, M = TP_TRAIN_MESH
+    for name in SP_SMALL:
+        ts = time.perf_counter()
+        if name.startswith("xlstm"):
+            cfg = _tp_recurrent_cfg(name)
+            layers, S, chunk = TP_RECURRENT_SMALL[name]
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        else:
+            cfg, S, chunk = _tp_train_cfg(name), 16, 0
+            cfg = dataclasses.replace(cfg, num_layers=SP_SMALL_LAYERS.get(
+                name, cfg.num_layers))
+        ops.mlstm_chunk_mode(chunk)
+        params = init_params(cfg, seed=0, device="cpu")
+        batch = _modality_batch(cfg, 4, S, 15)
+        rel = XLSTM_REL if name.startswith("xlstm") else 0.0
+        launches = dict.fromkeys(KERNELS, 0)
+        try:
+            for mode, fsdp in TP_RECURRENT_SMALL_CASES:
+                scfg = SentinelConfig(mode=mode, mi_periods=1,
+                                      offload_opt_state=mode == "offload")
+                what = f"15a {name} reduced SP {TP_TRAIN_MESH} {mode} " \
+                       f"fsdp={fsdp}"
+                r = _tp_small_case(cfg, params, batch, TP_TRAIN_MESH, scfg,
+                                   fsdp, what, rel=rel, seq_parallel=True,
+                                   cpu_tol=SMALL_GRAD_TOL if _n_mamba(cfg)
+                                   else SMALL_LOSS_TOL)
+                want = D * M * _blocked_mambas(cfg, scfg)
+                if r["k4"] != want or any(
+                        v for k, v in r["launches"].items() if k != "ssd"):
+                    raise AssertionError(f"{what}: launches "
+                                         f"{r['launches']}, K4 {want} "
+                                         f"expected")
+                for k in ("one", "cpu"):
+                    worst[name, k] = max(worst.get((name, k), 0.0), r[k])
+                pairs += r["pairs"]
+                for k, v in r["launches"].items():
+                    launches[k] += v
+        finally:
+            ops.mlstm_chunk_mode(0)
+        out[name] = launches
+        del params
+        release_pinned()
+        secs[name] = time.perf_counter() - ts
+    print(f"phase 15a: Megatron-SP steps of {', '.join(SP_SMALL)} reduced "
+          f"(fp32, the xLSTM's (layers, S, mLSTM chunk) "
+          f"{TP_RECURRENT_SMALL['xlstm-1.3b']}) on {TP_TRAIN_MESH} of "
+          f"[cuda:0] * 4 in (mode, FSDP) {TP_RECURRENT_SMALL_CASES}: loss, "
+          f"gradient norm and every reassembled parameter within 12a's "
+          f"limits of the card's one-device step and of [cpu] * 4's; "
+          f"max_abs_err from one device / the CPU: " + ", ".join(
+              f"{n} {worst[n, 'one']:.3g} / {worst[n, 'cpu']:.3g}"
+              for n in SP_SMALL) +
+          f"; ledgers == the CPU's; {pairs} replica pairs equal bit for "
+          f"bit; launches {out}; seconds " + ", ".join(
+              f"{n} {t:.1f}" for n, t in secs.items()) +
+          f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def _seq_sharded_decode(cfg, params, caches, tokens, index, steps, dev):
+    """``steps`` decode steps on (2, 2) of [dev] * 4 under
+    ``serve_rules(seq_shard=True)``: each rank its blocks of ``params``
+    and of every leaf of ``caches`` (``sharding_for`` of
+    ``cache_logical_axes``: the attention caches' rows over ``data``,
+    their heads over ``model``), the batch whole; step t feeds
+    ``tokens[:, t:t + 1]`` at per-slot ``index + t``.  Returns (each
+    step's logits, the model ranks' vocab blocks joined; each rank's cache
+    blocks; the specs; the mesh; the ledger)."""
+    import torch
+    from repro_torch import collectives
+    from repro_torch import sharding as shd
+    from repro_torch.models import kvcache, model
+    D, M = TP_TRAIN_MESH
+    mesh = shd.Mesh(TP_TRAIN_MESH, ("data", "model"), devices=[dev] * (D * M))
+    rules = shd.serve_rules(mesh, seq_shard=True)
+    axes = kvcache.cache_logical_axes(cfg)
+    specs = [{k: shd.sharding_for(tuple(v.shape), axes[l][k], rules).spec
+              for k, v in layer.items()} for l, layer in enumerate(caches)]
+    groups = collectives.MeshGroup(mesh)
+    pos = groups.positions
+    ranks = [shd.shard_params(params, rules, p) for p in pos]
+    blocks = [[{k: shd._block_of(v, specs[l][k], p, mesh).clone()
+                for k, v in layer.items()} for l, layer in enumerate(caches)]
+              for p in pos]
+    logits = []
+    try:
+        for t in range(steps):
+            def rank(i, t=t):
+                with shd.rank_context(shd.mesh_rank(groups, rules, pos[i])):
+                    return model.decode_step(ranks[i], cfg,
+                                             tokens[:, t:t + 1], blocks[i],
+                                             index + t)[0]
+            outs = groups.run(rank)
+            logits.append(torch.cat(outs[:M], dim=-1))
+        led = copy.deepcopy(groups.ledger)
+    finally:
+        groups.close()
+    return logits, blocks, specs, mesh, led
+
+
+def _join_blocks(caches, blocks, specs, mesh, positions):
+    """The whole cache from the ranks' ``blocks``, laid out like
+    ``caches``."""
+    import torch
+    from repro_torch import sharding as shd
+    out = []
+    for l, layer in enumerate(caches):
+        out.append({})
+        for k, v in layer.items():
+            t = torch.empty_like(v)
+            for i, p in enumerate(positions):
+                shd._block_of(t, specs[l][k], p, mesh).copy_(blocks[i][l][k])
+            out[-1][k] = t
+    return out
+
+
+def _positions(shape):
+    import itertools
+    return [{"data": d, "model": m} for d, m in itertools.product(
+        range(shape[0]), range(shape[1]))]
+
+
+def check_long_small():
+    """Phase 15a, decode: each LONG_SMALL config reduced in fp32 from seed
+    0 on the card: a prefill of B 2 x S LONG_SMALL_S on one device, then
+    LONG_SMALL_STEPS decode steps, slot 0 from index 3 (the first data
+    block) and slot 1 from 20 (the last), on (2, 2) of [cuda:0] * 4 under
+    serve_rules(seq_shard=True) (``_seq_sharded_decode``) against the
+    card's one device: every step's logits and the final cache (the
+    ranks' blocks joined) within SMALL_LOGITS_TOL; no kernel launches (a
+    rank's decode is dense; the Mamba decode steps ``ssd_decode``).
+    Returns the launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    t0 = time.perf_counter()
+    worst = {}
+    launches = dict.fromkeys(KERNELS, 0)
+    for arch in LONG_SMALL:
+        cfg = get_config(arch).reduced()
+        params = model.init_params(cfg, seed=0, device="cuda")
+        rng = np.random.default_rng(16)
+        prompt = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (2, LONG_SMALL_S))).cuda()
+        toks = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (2, LONG_SMALL_STEPS))).cuda()
+        _, caches = model.prefill(params, cfg, {"tokens": prompt},
+                                  max_seq=LONG_SMALL_S)
+        index = torch.tensor(LONG_SMALL_START, device="cuda")
+        # the decode's launches alone (zamba2's prefill runs K4)
+        torch.cuda.synchronize()
+        reset_counts()
+        got, blocks, specs, mesh, _ = _seq_sharded_decode(
+            cfg, params, caches, toks, index, LONG_SMALL_STEPS,
+            torch.device("cuda", 0))
+        one = [{k: v.clone() for k, v in layer.items()} for layer in caches]
+        err = 0.0
+        for t in range(LONG_SMALL_STEPS):
+            want, one = model.decode_step(params, cfg, toks[:, t:t + 1], one,
+                                          index + t)
+            torch.testing.assert_close(got[t], want, **SMALL_LOGITS_TOL)
+            err = max(err, float((got[t] - want).abs().max()))
+        for k, v in _recurrent_launches(f"phase 15a {arch} "
+                                        f"seq-sharded decode").items():
+            launches[k] += v
+        whole = _join_blocks(caches, blocks, specs, mesh,
+                             _positions(TP_TRAIN_MESH))
+        for l, (a, b) in enumerate(zip(whole, one)):
+            for k in a:
+                torch.testing.assert_close(a[k], b[k], **SMALL_LOGITS_TOL,
+                                           msg=f"15a {arch} layer {l} {k}")
+                err = max(err, float((a[k] - b[k]).abs().max()))
+        worst[arch] = err
+        del params, caches, blocks, one, whole
+    print(f"phase 15a: sequence-sharded decode of {', '.join(LONG_SMALL)} "
+          f"reduced (fp32, B 2 x S {LONG_SMALL_S}, {LONG_SMALL_STEPS} steps "
+          f"from indices {LONG_SMALL_START}) on {TP_TRAIN_MESH} of "
+          f"[cuda:0] * 4 against one device: logits and caches within atol "
+          f"{SMALL_LOGITS_TOL['atol']:g}; max_abs_err " + ", ".join(
+              f"{a} {e:.3g}" for a, e in worst.items()) +
+          f"; launches {launches}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
+def train_sp_full(arch, card):
+    """Phase 15b, one model at SP_FULL's depth, full width, bf16 from seed
+    0, SP_TRAIN tokens from make_batch, TP_TRAIN_STEPS steps in full and in
+    offload at MI 1 on (2, 2) of [cuda:0] * 4 with FSDP, under Megatron-SP
+    rules and under plain TP rules (the comparison).  Gates: each step's
+    loss and gradient norm within TP_TRAIN_LOSS_RTOL and
+    TP_TRAIN_GNORM_RTOL of plain TP's; each leaf's first-step gradient
+    within TP_TRAIN_LEAF_RTOL of plain TP's, or no farther from the
+    one-device fp32 step's than TP_BF16_RATIO times plain TP's (13b's
+    rule); offload within MODE_LOSS_RTOL and MODE_GNORM_RTOL of full; each
+    step's ledger == the dry run's ledger of the same step; every
+    replicated leaf equal across its ranks; in offload each rank's carry
+    bytes (``offload.rank_traffic``) half of plain TP's (the model axis
+    cuts the rows); K4 == steps x ranks x (Mamba layers + recomputes).
+    Returns every kernel's launches in the SP steps."""
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.collectives import new_ledger
+    from repro_torch.configs import get_config
+    from repro_torch.core import offload
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), num_layers=SP_FULL[arch])
+    B, S = SP_TRAIN
+    D, M = TP_TRAIN_MESH
+    dcfg = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=S,
+                      global_batch=B)
+    batches = [{k: v.to("cuda") for k, v in make_batch(dcfg, s).items()}
+               for s in range(TP_TRAIN_STEPS)]
+    ocfg = adamw.OptConfig(total_steps=TP_TRAIN_STEPS, warmup_steps=1)
+    params = init_params(cfg, seed=0)
+    mesh = shd.Mesh(TP_TRAIN_MESH, ("data", "model"),
+                    devices=[torch.device("cuda", 0)] * (D * M))
+    like = init_params(cfg, device="meta")
+    g32 = {}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = init_params(cfg32, requires_grad=True)
+    p32.load_state_dict({k: v.float() for k, v in params.state_dict()
+                         .items()})
+    st32 = {"params": p32, "opt": adamw.init(p32, ocfg),
+            "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    with _first_grads(g32):
+        loop.make_train_step(cfg32, offload.SentinelConfig(mode="full"),
+                             ocfg)(st32, batches[0])
+    g32 = g32[()]
+    del p32, st32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def run(mode, sp):
+        scfg = offload.SentinelConfig(mode=mode, mi_periods=1)
+        rules = shd.tp_dp_rules(mesh, fsdp=True, seq_parallel=sp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        step = loop.make_train_step(cfg, scfg, ocfg, rules)
+        state = step.init_states(params)
+        out = dict(losses=[], gnorms=[], times=[], ledgers=[], carries=[],
+                   grads={}, want=_dryrun_train_ledger(cfg, rules, scfg,
+                                                       ocfg, B, S))
+        reset_counts()
+        try:
+            for s in range(TP_TRAIN_STEPS):
+                offload.reset_traffic()
+                before = copy.deepcopy(step.ledger)
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                if s == 0:
+                    with _first_grads(out["grads"]):
+                        state, m = step(state, batches[s])
+                else:
+                    state, m = step(state, batches[s])
+                torch.cuda.synchronize()
+                out["times"].append(time.perf_counter() - ts)
+                out["losses"].append(float(m["loss"]))
+                out["gnorms"].append(float(m["grad_norm"]))
+                out["carries"].append({p: t["d2h"] for p, t in
+                                       offload.rank_traffic.items()})
+                led = new_ledger()
+                for part in ("bytes", "counts"):
+                    for k, v in step.ledger[part].items():
+                        led[part][k] = v - before[part][k]
+                out["ledgers"].append({k: {t: v for t, v in led[k].items()
+                                           if v} for k in ("bytes", "counts")})
+                if len({(float(r["loss"]), float(r["grad_norm"]))
+                        for r in m["ranks"]}) != 1:
+                    raise AssertionError(f"15b {arch} {mode} sp={sp}: the "
+                                         f"ranks disagree")
+            torch.cuda.synchronize()
+            out["launches"] = _launch_counts()
+            want = TP_TRAIN_STEPS * D * M * _blocked_mambas(cfg, scfg)
+            if out["launches"]["ssd"] != want or any(
+                    v for k, v in out["launches"].items() if k != "ssd"):
+                raise AssertionError(f"15b {arch} {mode} sp={sp}: launches "
+                                     f"{out['launches']}, K4 {want} "
+                                     f"expected")
+            out["pairs"] = _replicas_agree(step, state,
+                                           f"15b {arch} {mode} sp={sp}")
+            out["grads"] = dict(shd.gather_params(
+                [_Leaves(out["grads"][tuple(pos.values())])
+                 for pos in step.positions], step.positions, step.rules,
+                like).named_parameters())
+        finally:
+            step.close()
+        del state
+        release_pinned()
+        return out
+
+    res = {}
+    for mode in ("full", "offload"):
+        res[mode, False] = run(mode, False)
+        res[mode, True] = run(mode, True)
+    del params
+    lines = []
+    for mode in ("full", "offload"):
+        tp, sp = res[mode, False], res[mode, True]
+        for s in range(TP_TRAIN_STEPS):
+            a, b = sp["losses"][s], tp["losses"][s]
+            g, h = sp["gnorms"][s], tp["gnorms"][s]
+            if not (np.isfinite(a) and abs(a - b) <= TP_TRAIN_LOSS_RTOL * b
+                    and np.isfinite(g)
+                    and abs(g - h) <= TP_TRAIN_GNORM_RTOL * h):
+                raise AssertionError(f"15b {arch} {mode} step {s}: SP loss "
+                                     f"{a}, gradient norm {g}; plain TP's "
+                                     f"{b}, {h}")
+            for r in (tp, sp):
+                if r["ledgers"][s] != r["want"]:
+                    raise AssertionError(f"15b {arch} {mode} step {s}: "
+                                         f"ledger {r['ledgers'][s]} != the "
+                                         f"dry run's {r['want']}")
+            if mode == "offload":
+                for pos, n in sp["carries"][s].items():
+                    if not (n > 0 and 2 * n == tp["carries"][s][pos]):
+                        raise AssertionError(
+                            f"15b {arch} step {s}: rank {pos}'s carries "
+                            f"{n} B under SP, {tp['carries'][s][pos]} B "
+                            f"under plain TP (half expected)")
+        leaf = {k: _rel(g, tp["grads"][k]) for k, g in sp["grads"].items()}
+        past = {}
+        for k, d in leaf.items():
+            if d > TP_TRAIN_LEAF_RTOL:
+                past[k] = (_rel(sp["grads"][k], g32[k]),
+                           _rel(tp["grads"][k], g32[k]))
+                if not past[k][0] <= TP_BF16_RATIO * past[k][1]:
+                    raise AssertionError(
+                        f"15b {arch} {mode}: {k}'s first-step gradient is "
+                        f"{d} of plain TP's away from it, and {past[k][0]} "
+                        f"of the fp32 step's against plain TP's "
+                        f"{past[k][1]} (limit {TP_BF16_RATIO} times)")
+        far = max(leaf, key=leaf.get)
+        carried = sp["carries"][0].get((0, 0), 0), \
+            tp["carries"][0].get((0, 0), 0)
+        lines.append(
+            f"{mode}: losses plain TP "
+            f"{', '.join(f'{x:.6f}' for x in tp['losses'])}, SP "
+            f"{', '.join(f'{x:.6f}' for x in sp['losses'])}; gradient norms "
+            f"{', '.join(f'{x:.6g}' for x in tp['gnorms'])} / "
+            f"{', '.join(f'{x:.6g}' for x in sp['gnorms'])}; step ms plain "
+            f"TP {', '.join(f'{1e3 * t:.1f}' for t in tp['times'])}, SP "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in sp['times'])}; SP ledger "
+            f"a step {sp['want']['bytes']} B, counts "
+            f"{sp['want']['counts']} (plain TP {tp['want']['bytes']} B); "
+            f"first-step gradients |g_SP - g_TP| / |g_TP| by leaf: median "
+            f"{float(np.median(list(leaf.values()))):.4g}, worst "
+            f"{leaf[far]:.4g} ({far}) of {len(leaf)}; past "
+            f"{TP_TRAIN_LEAF_RTOL:g}: " + (", ".join(
+                f"{k} (from fp32 {a:.4g}, plain TP {b:.4g})"
+                for k, (a, b) in past.items()) or "none") +
+            (f"; rank (0, 0)'s carries {carried[0]} B a step, plain TP's "
+             f"{carried[1]} B" if mode == "offload" else "") +
+            f"; {sp['pairs']} replica pairs equal bit for bit; K4 "
+            f"{sp['launches']['ssd']}")
+    full, off = res["full", True], res["offload", True]
+    for s in range(TP_TRAIN_STEPS):
+        a, b = off["losses"][s], full["losses"][s]
+        g, h = off["gnorms"][s], full["gnorms"][s]
+        if not (abs(a - b) <= MODE_LOSS_RTOL * b
+                and abs(g - h) <= MODE_GNORM_RTOL * h):
+            raise AssertionError(f"15b {arch} step {s}: SP offload {a}, {g};"
+                                 f" SP full {b}, {h}")
+    print(f"phase 15b, {arch} Megatron-SP at full width on {cfg.num_layers} "
+          f"layers (bf16, B {B} x S {S}) on {TP_TRAIN_MESH} (data, model) of "
+          f"[cuda:0] * 4 with FSDP, MI 1, against plain TP on the same "
+          f"mesh [{card}]: " + "; ".join(lines) +
+          f"; SP offload == SP full; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {k: full["launches"][k] + off["launches"][k]
+            for k in full["launches"]}
+
+
+def _long_cache(cfg, dev, seed):
+    """A B 1 x LONG_S cache of ``cfg`` on ``dev`` in its dtype: every
+    attention layer's rows below LONG_START and every recurrent state
+    filled N(0, 1) from ``seed``, the rest zero."""
+    import torch
+    from repro_torch.models import kvcache, model
+    caches = kvcache.init_cache(cfg, 1, LONG_S, model.param_dtype(cfg), dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for layer in caches:
+        for k, v in layer.items():
+            rows = v[:, :LONG_START] if k in kvcache.SEQ_KEYS else v
+            rows.copy_(torch.randn(rows.shape, generator=gen, device=dev,
+                                   dtype=torch.float32))
+    return caches
+
+
+def run_long_full(arch, card):
+    """Phase 15c, ``long_500k`` at full width and LONG_FULL's depth, B 1 x
+    S LONG_S, bf16 from seed 0: the cache from ``_long_cache`` (seed 0),
+    LONG_STEPS decode steps from index LONG_START (the last data block) of
+    tokens from seed 17: on one device in fp32 (the cache cast), then on
+    (2, 2) of [cuda:0] * 4 under serve_rules(seq_shard=True), each rank its
+    blocks cut from the one device's cache, then on one device in bf16.
+    Gates: each step's logits no farther from fp32's than TP_BF16_RATIO
+    times one device's bf16 logits (the mean over the steps); every rank's
+    cache block bit-equal to the one device's rows outside the rows the
+    steps wrote, and those rows no farther from fp32's than TP_BF16_RATIO
+    times one device's; the ledger == LONG_STEPS x the dry run's decode
+    cell on the same rules and shape; no kernel launch.  Returns the
+    launches."""
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, specs as cell_specs
+    from repro_torch.models import model
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_config(arch), num_layers=LONG_FULL[arch])
+    params = model.init_params(cfg, seed=0)
+    toks = torch.as_tensor(np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (1, LONG_STEPS))).cuda()
+    index = torch.full((1,), LONG_START, device="cuda")
+    caches = _long_cache(cfg, dev, 0)
+    kv_bytes = sum(v.numel() * v.element_size() for layer in caches
+                   for k, v in layer.items() if k in ("k", "v"))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = copy.deepcopy(params).float()
+    c32 = [{k: v.float() for k, v in layer.items()} for layer in caches]
+    l32, ms = [], {}
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    for t in range(LONG_STEPS):
+        l32.append(model.decode_step(params32, cfg32, toks[:, t:t + 1], c32,
+                                     index + t)[0].float())
+    torch.cuda.synchronize()
+    ms["fp32 one device"] = 1e3 * (time.perf_counter() - ts) / LONG_STEPS
+    rows32 = [{k: v[:, LONG_START:].clone() for k, v in layer.items()
+               if k in ("k", "v")} for layer in c32]
+    del c32, params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    ts = time.perf_counter()
+    got, blocks, bspecs, mesh, led = _seq_sharded_decode(
+        cfg, params, caches, toks, index, LONG_STEPS, dev)
+    torch.cuda.synchronize()
+    ms["(2, 2) sequence-sharded"] = 1e3 * (time.perf_counter() - ts) / \
+        LONG_STEPS
+    launches = _recurrent_launches(f"phase 15c {arch}")
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    one = []
+    for t in range(LONG_STEPS):
+        one.append(model.decode_step(params, cfg, toks[:, t:t + 1], caches,
+                                     index + t)[0].float())
+    torch.cuda.synchronize()
+    ms["bf16 one device"] = 1e3 * (time.perf_counter() - ts) / LONG_STEPS
+    d_one = [float((a - b).abs().max()) for a, b in zip(one, l32)]
+    d_tp = [float((a.float() - b).abs().max()) for a, b in zip(got, l32)]
+    ratio = float(np.mean(d_tp)) / float(np.mean(d_one))
+    if not (all(np.isfinite(d_tp)) and ratio <= TP_BF16_RATIO):
+        raise AssertionError(f"15c {arch}: sequence-sharded logits {d_tp} "
+                             f"from fp32, one device's bf16 {d_one} (limit "
+                             f"{TP_BF16_RATIO} times the mean)")
+    # every rank's block against the one device's rows: bit-equal outside
+    # the written rows, the written rows held as the logits are
+    D, M = TP_TRAIN_MESH
+    half = LONG_S // D
+    worst = 0.0
+    for i, pos in enumerate(_positions(TP_TRAIN_MESH)):
+        for l, layer in enumerate(blocks[i]):
+            for k in ("k", "v"):
+                if k not in layer:
+                    continue
+                mine = layer[k]
+                rows = shd._block_of(caches[l][k], bspecs[l][k], pos, mesh)
+                lo = LONG_START - pos["data"] * half
+                keep = min(max(lo, 0), half)
+                if not torch.equal(mine[:, :keep], rows[:, :keep]):
+                    raise AssertionError(f"15c {arch}: rank {pos}'s layer {l}"
+                                         f" {k} differs from one device's "
+                                         f"rows below the written ones")
+                if keep == half:
+                    continue
+                cols = mine.shape[-1]
+                ref = rows32[l][k][..., pos["model"] * cols:
+                                   (pos["model"] + 1) * cols]
+                d_t = float((mine[:, keep:].float() - ref).abs().max())
+                d_o = float((rows[:, keep:].float() - ref).abs().max())
+                worst = max(worst, d_t / max(d_o, 1e-30))
+                if not d_t <= TP_BF16_RATIO * d_o:
+                    raise AssertionError(f"15c {arch}: rank {pos}'s written "
+                                         f"{k} rows of layer {l} {d_t} from "
+                                         f"fp32, one device's {d_o}")
+    rules = shd.serve_rules(shd.Mesh(TP_TRAIN_MESH, ("data", "model")),
+                            seq_shard=True)
+    fn, args, in_sh = cell_specs.build_decode_cell(
+        cfg, ShapeConfig("15c", LONG_S, 1, "decode"), rules)
+    cell = dryrun.rank_collectives(fn, args, in_sh, rules)
+    want = {part: {k: LONG_STEPS * v for k, v in cell[part].items() if v}
+            for part in ("bytes", "counts")}
+    got_led = {part: {k: v for k, v in led[part].items() if v}
+               for part in ("bytes", "counts")}
+    if got_led != want:
+        raise AssertionError(f"15c {arch}: ledger {got_led} != {LONG_STEPS} "
+                             f"x the dry run's decode cell {want}")
+    peak = torch.cuda.max_memory_allocated()
+    del params, caches, blocks, got, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 15c, {arch} long_500k at full width on {cfg.num_layers} "
+          f"layers (bf16, B 1 x S {LONG_S}, {kv_bytes / 2 ** 30:.2f} GiB of "
+          f"KV on one device), {LONG_STEPS} decode steps from {LONG_START} "
+          f"on {TP_TRAIN_MESH} (data, model) of [cuda:0] * 4 [{card}]: "
+          f"logits' max_abs from fp32 one device bf16 "
+          f"{', '.join(f'{x:.4g}' for x in d_one)}, sequence-sharded "
+          f"{', '.join(f'{x:.4g}' for x in d_tp)} (mean ratio {ratio:.3f}, "
+          f"limit {TP_BF16_RATIO}); written rows' ratio at most "
+          f"{worst:.3f}; every rank's other rows == one device's; ledger "
+          f"{got_led['bytes']} B == {LONG_STEPS} x the dry run's; ms a step "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()) +
+          f"; peak {peak / 1e9:.2f} GB; launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def check_long_sp(card):
+    """Phase 15: ``long_500k``'s sequence-sharded decode and Megatron-SP
+    (ROADMAP item 11b part 2b): 15a reduced, 15b SP training at full
+    width, 15c long_500k at full width.  Returns each kernel's launches by
+    path (K4 on zamba2-7b's SP training, on each rank's heads over the
+    gathered sequence; none elsewhere)."""
+    import torch
+    t0 = time.perf_counter()
+    release_pinned()
+    torch.cuda.empty_cache()
+    paths = {}
+    for name, launches in check_sp_small().items():
+        paths[f"{name} reduced Megatron-SP training (phase 15a)"] = launches
+    paths["gemma2-2b, gemma3-12b, zamba2-7b and xlstm-1.3b reduced "
+          "sequence-sharded decode (phase 15a)"] = check_long_small()
+    for arch in SP_FULL:
+        paths[f"{arch} Megatron-SP training, full and offload (phase "
+              f"15b)"] = train_sp_full(arch, card)
+    for arch in LONG_FULL:
+        paths[f"{arch} long_500k sequence-sharded decode (phase 15c)"] = \
+            run_long_full(arch, card)
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s; launches on its "
           f"paths: {paths}", flush=True)
     return paths
 
@@ -6344,10 +6980,11 @@ def k3_record(serving, long_run):
 
 SMOLLM_TRAIN = (8, 1024)             # B x S of phase 5c
 ZAMBA_TRAIN = (1, 4096)              # B x S of phase 5d
-# phase 5d's periods of zamba2-7b's 16 (with its prologue, 21 layers), for
+# phase 5d's periods of zamba2-7b's 16 (with its prologue, 11 layers), for
 # the script's clock: on 8 (41 layers) it took 82.3-94.0 s of runs of
-# 1047.1-1188.8 s (H100 80GB HBM3 hosts at 700 W)
-ZAMBA_TRAIN_PERIODS = 4
+# 1047.1-1188.8 s, on 4 (21 layers) 40.3 s of a 928.3 s run (H100 80GB
+# HBM3 hosts at 700 W)
+ZAMBA_TRAIN_PERIODS = 2
 TRAIN_STEPS = 6                      # steps a mode in phase 5c
 MODES = ("full", "remat", "save_hbm", "offload")
 # phase 5b: float32 on the card (no TF32) against the CPU, as phase 4's
@@ -6801,7 +7438,7 @@ def train_smollm(card):
 
 def train_zamba(card):
     """Phase 5d: zamba2-7b at full width on its Mamba prologue layer and
-    ZAMBA_TRAIN_PERIODS of its 16 periods (21 layers, for the script's
+    ZAMBA_TRAIN_PERIODS of its 16 periods (11 layers, for the script's
     clock), bf16, B 1 x S 4096, mode offload
     at the planned MI with the AdamW moments in pinned host memory, 2
     steps on one repeated batch.  Fails unless the loss is finite and
@@ -6996,6 +7633,8 @@ def main() -> int:
     # phase 14's (the recurrences and the modality stubs partitioned) run
     # none of the four kernels
     paths.update(check_tp_recurrent(card))
+    # phase 15's run K4 on zamba2-7b's Megatron-SP training alone
+    paths.update(check_long_sp(card))
     for what, tally in paths.items():
         for rec, name in ((k1, "paged_decode"), (k2, "flash_attention"),
                           (k3, "decode_attention"), (k4, "ssd")):

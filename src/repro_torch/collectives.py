@@ -51,7 +51,8 @@ an all-reduce backward; an all-gather's backward is a reduce-scatter (the
 gradient reaching it is a partial sum on each rank), or with
 ``grad="split"`` the rank's block of it (Megatron's gather into a
 replicated region: every rank's gradient there is already the whole
-sum), and a reduce-scatter's an all-gather.  Their backwards run the collectives of
+sum), and a reduce-scatter's an all-gather; ``split`` (the rank's block
+of a tensor every rank holds whole) has an all-gather as its backward.  Their backwards run the collectives of
 the group the forward ran on, so each rank's backward runs on its own
 thread (``torch.autograd.set_multithreading_enabled(False)``).
 
@@ -432,6 +433,19 @@ class _AllGather(torch.autograd.Function):
         return g, None, None, None, None
 
 
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank, dim):
+        ctx.group, ctx.rank, ctx.dim = group, rank, dim
+        n = x.shape[dim] // group.size
+        return x.narrow(dim, rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.group.all_gather(ctx.rank, g.contiguous(), ctx.dim),
+                None, None, None)
+
+
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, rank, dim):
@@ -486,6 +500,18 @@ def all_gather(x, group, rank: int, dim: int, *, grad: str = "sum"):
     if not _graph(x):
         return group.all_gather(rank, x, dim)
     return _AllGather.apply(x, group, rank, dim, grad == "split")
+
+
+def split(x, group, rank: int, dim: int):
+    """The rank's block on ``dim`` of ``x``, which every rank holds whole
+    and computed alike; backward, the ranks' blocks of the gradient
+    all-gathered, so every rank holds the whole gradient of ``x``
+    (Megatron-SP's cut into the sequence-parallel region; no collective
+    forward)."""
+    if not _graph(x):
+        n = x.shape[dim] // group.size
+        return x.narrow(dim, rank * n, n)
+    return _Split.apply(x, group, rank, dim)
 
 
 def reduce_scatter(x, group, rank: int, dim: int):

@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -22,6 +23,9 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}          # name -> ctypes.CDLL, once per process
+# the ranks of a partitioned program are threads that may first launch a
+# kernel at once: one of them builds and loads it, the others wait
+_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -73,9 +77,11 @@ def build_all(names) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build_all([name])
-        lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
+    """The loaded library for ``csrc/<name>.cu``, building it if needed
+    (once per process, whichever thread asks first)."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build_all([name])
+            lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
     return lib

@@ -8,22 +8,21 @@ rule flags, ``cost_analytic`` per chip (``launch/costing.py``: the aten
 ops the step runs, its backward and recomputes included) and
 ``memory.argument_bytes``, each device's bytes of the step's arguments
 (parameters, optimizer state, batch, cache) by ``sharding.shard_shape``
-under the cell's rules.  The prefill, decode and train cells (not
-``long_500k``, not under ``--seq-parallel``) of every arch also carry
-``collectives`` in the reference's format (``{"bytes": {type: B},
-"counts": {type: n}}``): the partitioned step of mesh position (0, ...,
-0) runs on meta tensors under a ``collectives.ShapeMesh`` (a
-``ShapeGroup`` for each set of mesh axes a collective spans: ``model``,
-and ``data`` for a train step's data-parallel reductions and FSDP's
-gathers), whose ledger counts each collective's per-device result bytes,
-a train step's backward collectives included, and its executions in
-``counts`` (the reference counts HLO sites).  The token loops of the
-recurrent layers (``kernels/ref.step_loop``) run there as under
-``step_cost``: trip 0, then one trip whose collectives, and its
-backward's, count for the other S - 1 (the groups' ``Trips``).  The
-other cells carry ``collectives_note`` instead (``unpartitioned``):
-``long_500k`` and Megatron-SP wait for ROADMAP item 11b part 2b.  There
-is no ``temp_bytes`` or ``cost``: those are XLA's.
+under the cell's rules.  Every cell also carries ``collectives`` in the
+reference's format (``{"bytes": {type: B}, "counts": {type: n}}``): the
+partitioned step of mesh position (0, ..., 0) runs on meta tensors
+under a ``collectives.ShapeMesh`` (a ``ShapeGroup`` for each set of mesh
+axes a collective spans: ``model``; ``data`` for a train step's
+data-parallel reductions and FSDP's gathers, and for ``long_500k``'s
+merge of the attention softmax over its sequence split on the data
+axes), whose ledger counts each collective's per-device result bytes,
+a train step's backward collectives included (Megatron-SP's under
+``--seq-parallel``), and its executions in ``counts`` (the reference
+counts HLO sites).  The token loops of the recurrent layers
+(``kernels/ref.step_loop``) run there as under ``step_cost``: trip 0,
+then one trip whose collectives, and its backward's, count for the
+other S - 1 (the groups' ``Trips``).  There is no ``temp_bytes`` or
+``cost``: those are XLA's.
 
 Exit code 0 when every cell passes.
 """
@@ -36,31 +35,17 @@ import json
 import math
 import time
 import traceback
-from typing import Optional
 
 import torch
 
 from repro_torch import sharding as shd
-from repro_torch.collectives import ShapeGroup, ShapeMesh
+from repro_torch.collectives import ShapeMesh
 from repro_torch.configs.base import SHAPES, cells, get_config
 from repro_torch.core.offload import SentinelConfig
 from repro_torch.kernels import ref
 from repro_torch.launch import specs
 from repro_torch.launch.costing import step_cost
 from repro_torch.launch.mesh import make_production_mesh, make_rules
-
-PART_2B = ("the partitioned program of this cell waits for ROADMAP item "
-           "11b part 2b (long_500k's decode and Megatron-SP)")
-
-
-def unpartitioned(cfg, shape_name: str, rules) -> Optional[str]:
-    """None where the port runs this cell's partitioned program (a
-    prefill, decode or train cell under rules without Megatron-SP), else
-    the note that says which item it waits for."""
-    if shape_name == "long_500k" or shd.is_seq_parallel(rules):
-        return PART_2B
-    return None
-
 
 def _blocks(tree, shardings):
     """Meta tensors of each leaf's per-device block (``shard_shape``)."""
@@ -75,12 +60,13 @@ def _blocks(tree, shardings):
 def rank_collectives(fn, args, in_sh, rules) -> dict:
     """The collectives ledger of the step ``fn`` run as mesh position (0,
     ..., 0): its parameter blocks (``sharding.shard_params``) and argument
-    blocks on meta, under a rank context whose ``ShapeGroup`` spans the
-    ``model`` axis.  A train step (``args`` (state, batch)) runs forward
-    and backward on its rows of the batch (``sharding.batch_split``),
-    under a ``ShapeMesh`` whose groups span any set of mesh axes.  The
-    groups' ``Trips`` is ``kernels/ref.step_loop``'s counter meanwhile,
-    so a token loop's trip counts its collectives S - 1 times."""
+    blocks on meta, under a rank context whose ``ShapeMesh`` gives a
+    group over any set of mesh axes (a serve cell's collectives span
+    ``model``, and the data axes for ``long_500k``'s sequence split).  A
+    train step (``args`` (state, batch)) runs forward and backward on its
+    rows of the batch (``sharding.batch_split``).  The groups' ``Trips``
+    is ``kernels/ref.step_loop``'s counter meanwhile, so a token loop's
+    trip counts its collectives S - 1 times."""
     mesh = rules.mesh
     coords = {a: 0 for a in mesh.axis_names}
     if isinstance(args[0], dict) and "params" in args[0]:
@@ -104,11 +90,11 @@ def rank_collectives(fn, args, in_sh, rules) -> dict:
         return groups.ledger
     params = shd.shard_params(args[0], rules, coords)
     rest = [_blocks(a, sh) for a, sh in zip(args[1:], in_sh[1:])]
-    group = ShapeGroup(mesh.shape["model"])
-    with shd.rank_context(shd.RankContext(group, 0, rules, coords)), \
-            _loops_counted(group.trips):
+    groups = ShapeMesh(mesh)
+    with shd.rank_context(shd.mesh_rank(groups, rules, coords)), \
+            _loops_counted(groups.trips):
         fn(params, *rest)
-    return group.ledger
+    return groups.ledger
 
 
 @contextlib.contextmanager
@@ -163,11 +149,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "matmul_flops_per_chip": cost["matmul_flops"] / rec["chips"],
         "bytes_per_chip": cost["bytes"] / rec["chips"],
     }
-    note = unpartitioned(cfg, shape_name, rules)
-    if note is None:
-        rec["collectives"] = rank_collectives(fn, args, in_sh, rules)
-    else:
-        rec["collectives_note"] = note
+    rec["collectives"] = rank_collectives(fn, args, in_sh, rules)
     rec["run_s"] = round(time.time() - t0, 1)
     rec["ok"] = True
     return rec

@@ -21,7 +21,14 @@ query heads against the KV heads they read; where it cuts a head (or
 leaves the rank's queries without their KV heads whole) the projections
 are gathered, attention runs whole, and the rank takes its block of the
 output back before its row block of wo, as XLA partitions the
-reference's program.  The output of wo is a partial sum, all-reduced.
+reference's program.  The output of wo is a partial sum, all-reduced, or
+under Megatron-SP reduce-scattered onto the rank's block of the rows
+(``sharding.to_residual``).  Under ``serve_rules(seq_shard=True)``
+(``long_500k``) a rank's dense cache holds its block of the rows over
+the data axes, and a decode runs flash-decoding's way
+(``_seq_split_decode``): the new row written where its block holds it,
+the block scored at its true positions, the ranks' partial softmaxes
+merged exactly over the data axes.
 Under grad, whatever is replicated and enters the rank's share of the
 heads passes ``sharding.to_split`` (its gradient all-reduced over
 ``model``): the input of a split projection, k and v where wk and wv stay
@@ -39,8 +46,9 @@ from repro_torch.configs.base import ATTN, LOCAL
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.paged_decode import gather_pools, pool_layout
 from repro_torch.models.layers import apply_rope, frozen, rmsnorm, softcap
-from repro_torch.sharding import (constrain, current_rank, rank_block,
-                                  refuse_partitioned, to_split)
+from repro_torch.sharding import (all_reduce_over, constrain, current_rank,
+                                  kv_seq_block, rank_block,
+                                  refuse_partitioned, to_residual, to_split)
 
 NEG_INF = -2.0 ** 20
 
@@ -70,9 +78,11 @@ def write_rows(buf, rows, cache_index):
 
     A per-slot offset at or past Smax is dropped, as JAX's scatter drops
     it: a finished slot keeps its stale length, which may equal Smax, and
-    the lockstep decode still writes its row.  The index is clamped and
-    the row rewritten with its own value there, on the device, with no
-    read back to the host.  A scalar offset keeps the slice write: Sq rows
+    the lockstep decode still writes its row.  So is a negative one (a
+    rank's block of a sequence-split cache that does not hold the slot's
+    row; it must not wrap).  The index is clamped and the row rewritten
+    with its own value there, on the device, with no read back to the
+    host.  A scalar offset keeps the slice write: Sq rows
     must fit at ``off`` (torch raises where they do not).  The engines
     never reach that: a one-shot admission writes its prompt at 0 into a
     cache of max_seq rows (a longer prompt raises in both packages, where
@@ -82,8 +92,8 @@ def write_rows(buf, rows, cache_index):
     if torch.is_tensor(ci) and ci.dim() >= 1:
         Smax = buf.shape[1]
         rows_b = torch.arange(buf.shape[0], device=buf.device)
-        idx = ci.long().clamp(max=Smax - 1)
-        keep = (ci < Smax).view(-1, *([1] * (rows.dim() - 2)))
+        idx = ci.long().clamp(0, Smax - 1)
+        keep = ((ci >= 0) & (ci < Smax)).view(-1, *([1] * (rows.dim() - 2)))
         buf[rows_b, idx] = torch.where(keep, rows[:, 0].to(buf.dtype),
                                        buf[rows_b, idx])
     else:
@@ -91,14 +101,46 @@ def write_rows(buf, rows, cache_index):
         buf[:, off:off + rows.shape[1]] = rows
 
 
-def _gqa_core(q, k, v, bias, softcap_val: float):
-    """q: (B,Sq,KV,G,hd); k,v: (B,Skv,KV,hd); bias: (B|1, Sq, Skv)."""
+def _scores(q, k, bias, softcap_val: float):
+    """The f32 scores (B,KV,G,Sq,Skv) of q (B,Sq,KV,G,hd) against k
+    (B,Skv,KV,hd): scaled, softcapped, biased by ``bias`` (B|1, Sq,
+    Skv)."""
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
-    scores = softcap(scores, softcap_val)
-    scores = scores + bias[:, None, None, :, :]
-    probs = torch.softmax(scores, dim=-1)
+    return softcap(scores, softcap_val) + bias[:, None, None, :, :]
+
+
+def _gqa_core(q, k, v, bias, softcap_val: float):
+    """q: (B,Sq,KV,G,hd); k,v: (B,Skv,KV,hd); bias: (B|1, Sq, Skv)."""
+    probs = torch.softmax(_scores(q, k, bias, softcap_val), dim=-1)
     return torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
+
+
+def _gqa_partial(q, k, v, bias, softcap_val: float):
+    """``_gqa_core``'s softmax over the keys given, unnormalised: (the row
+    max m (B,KV,G,Sq), the sum of exponentials l (B,KV,G,Sq), and the
+    output o (B,Sq,KV,G,hd) of exp(score - m), f32), flash-decoding's
+    partial of one block of the keys."""
+    scores = _scores(q, k, bias, softcap_val)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v).float()
+    return m, p.sum(dim=-1), o
+
+
+def _merge_partials(m, l, o, axes, dtype):
+    """The softmax over every block of the keys from each rank's partial
+    (``_gqa_partial``) over the mesh ``axes`` the keys are split on: the
+    row max all-reduced (max), then each rank's l and o weighted by
+    exp(m - max) and summed in one all-reduce (rank order).  A block that
+    sees no key (its max at NEG_INF's bias: a LOCAL layer's window in
+    another block, or keys past the query) weighs exactly 0."""
+    mx = all_reduce_over(m, axes, op="max")
+    w = torch.where(m > NEG_INF / 2, torch.exp(m - mx), 0.0)
+    w_o = w.permute(0, 3, 1, 2)[..., None]             # (B, Sq, KV, G, 1)
+    part = torch.cat([o * w_o, l.permute(0, 3, 1, 2)[..., None] * w_o], -1)
+    tot = all_reduce_over(part, axes)
+    return (tot[..., :-1] / tot[..., -1:]).to(dtype)
 
 
 class _RankHeads:
@@ -235,8 +277,8 @@ class Attention(nn.Module):
         out = constrain(out, ("batch", "seq", "heads"),
                         held=("batch", "seq", None)
                         if tp is not None and tp.gather_q else None)
-        return constrain(out @ self.wo, ("batch", "seq", "embed"),
-                         partial=tp is not None and tp.q_split)
+        return to_residual(out @ self.wo,
+                           partial=tp is not None and tp.q_split)
 
 
 def _dense_core(cfg, q, k, v, cache, cache_index, paged_view, window,
@@ -265,6 +307,10 @@ def _dense_core(cfg, q, k, v, cache, cache_index, paged_view, window,
     if gathered:
         kf, vf = (constrain(t, ("batch", "seq", "kv_heads"),
                             held=("batch", "seq", None)) for t in (kf, vf))
+    split = kv_seq_block(k_all.shape[1])
+    if split is not None:
+        return _seq_split_decode(cfg, q, kf, vf, k_all, v_all, cache_index,
+                                 split, window, positions, tp)
     write_rows(k_all, kf, cache_index)
     write_rows(v_all, vf, cache_index)
     if (paged_view is not None and cfg.use_paged_decode and Sq == 1
@@ -295,6 +341,53 @@ def _dense_core(cfg, q, k, v, cache, cache_index, paged_view, window,
     if tp is not None:
         k_use, v_use = tp.kv_heads(k_use), tp.kv_heads(v_use)
     return _gqa_core(q, k_use, v_use, bias, cfg.attn_softcap)
+
+
+def _seq_split_decode(cfg, q, kf, vf, k_all, v_all, cache_index, split,
+                      window, positions, tp):
+    """One decode token a slot over a cache whose rows the rules split over
+    the data axes (``long_500k``: ``serve_rules(seq_shard=True)``; the
+    rank holds rows [r * S_l, (r + 1) * S_l) of every slot, ``split`` =
+    (the axes, r * S_l)), flash-decoding's way: the new row is written on
+    the rank whose block holds the slot's index, at the local offset
+    (``write_rows`` drops an offset outside the block, on the device); the
+    rank scores its block at the keys' true positions under the layer's
+    causal, window and softcap rules, and the ranks' partial softmaxes are
+    merged exactly (``_merge_partials``).  The heads are the rank's, as
+    in ``_dense_core``; ``kf``/``vf`` the new rows of the heads its cache
+    holds.  The index is a scalar or a (B,) tensor, on any device (meta
+    included), never read on the host."""
+    B, Sq, KV, G, hd = q.shape
+    if Sq != 1:
+        raise NotImplementedError(
+            f"{Sq} rows into a cache whose sequence the rules split over "
+            f"{split[0]}: only a decode (one row a slot) runs there, as the "
+            f"reference's long_500k cell")
+    ci = cache_index
+    if not torch.is_tensor(ci):
+        ci = torch.full((B,), int(ci), device=q.device)
+    elif ci.dim() == 0:
+        ci = ci.expand(B)
+    axes, start = split
+    write_rows(k_all, kf, ci - start)
+    write_rows(v_all, vf, ci - start)
+    S_l = k_all.shape[1]
+    k_use, v_use = k_all, v_all
+    if tp is not None and tp.gather_kv:
+        k_use, v_use = (constrain(t, ("batch", "kv_seq", None),
+                                  held=("batch", "kv_seq", "kv_heads"))
+                        for t in (k_all, v_all))
+    k_use = k_use.reshape(B, S_l, -1, hd)
+    v_use = v_use.reshape(B, S_l, -1, hd)
+    if tp is not None:
+        k_use, v_use = tp.kv_heads(k_use), tp.kv_heads(v_use)
+    kv_pos = start + torch.arange(S_l, device=q.device)
+    bias = attn_bias(positions, kv_pos, window=window,
+                     prefix_len=_prefix_len(cfg))
+    if bias.dim() == 2:
+        bias = bias[None]
+    m, l, o = _gqa_partial(q, k_use, v_use, bias, cfg.attn_softcap)
+    return _merge_partials(m, l, o, axes, v_use.dtype)
 
 
 def _prefix_len(cfg) -> int:
@@ -449,7 +542,10 @@ class MLA(nn.Module):
     ``("batch", "kv_seq", None)`` constraint; the rope key is whole.  Under
     grad the replicated tensors entering the rank's share of the heads
     pass ``sharding.to_split``: ``x`` before ``wq``, the latent before
-    ``w_uk`` and ``w_uv``, and the rope key (``_rank_latent``)."""
+    ``w_uk`` and ``w_uv``, and the rope key (``_rank_latent``).  MLA is
+    not subquadratic, so no ``long_500k`` cell reaches its latent cache:
+    a cache whose rows the rules split over the data axes
+    (``seq_shard``) raises, and no program is built for it."""
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
@@ -484,6 +580,11 @@ class MLA(nn.Module):
                            cfg.rope_theta)[:, :, 0, :]         # (B, Sq, dr)
         if cache is not None:
             ckv_all, kr_all = cache["ckv"], cache["krope"]
+            if kv_seq_block(ckv_all.shape[1]) is not None:
+                raise NotImplementedError(
+                    "MLA over a cache whose sequence the rules split "
+                    "(seq_shard): MLA is not subquadratic, so no long_500k "
+                    "cell reaches its latent cache")
             blocked = ckv_all.shape[-1] < ckv.shape[-1]
             # the rank's block of the latent's columns, as its cache holds
             # them
@@ -522,8 +623,7 @@ class MLA(nn.Module):
             # every head ran: the rank's block for its rows of wo
             out = constrain(out, ("batch", "seq", "heads"),
                             held=("batch", "seq", None))
-        return constrain(out @ self.wo, ("batch", "seq", "embed"),
-                         partial=tp is not None)
+        return to_residual(out @ self.wo, partial=tp is not None)
 
 
 def _rank_latent(cfg, mla):

@@ -6,9 +6,11 @@ Weights keep the reference's (d_in, d_out) orientation, so a projection is
 
 Under a rank context (``sharding.rank_context``) the MLP and the
 embeddings run on the rank's parameter blocks: the MLP column-parallel in
-and row-parallel out (its output a partial sum, all-reduced), the
-embedding vocab-parallel (a masked lookup, all-reduced), the unembedding
-leaving the logits vocab-local, as the reference's ``constrain`` sites
+and row-parallel out (its output a partial sum, all-reduced, or under
+Megatron-SP reduce-scattered onto the rank's block of the sequence), the
+embedding vocab-parallel (a masked lookup, all-reduced or
+reduce-scattered likewise), the unembedding leaving the logits
+vocab-local, as the reference's ``constrain`` sites
 lay them out.  Under grad the replicated input of a split product passes
 ``sharding.to_split`` (its gradient all-reduced over ``model``).
 """
@@ -21,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.sharding import (all_reduce_over, constrain, rank_block,
-                                  to_split)
+                                  seq_whole, to_residual, to_split)
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
@@ -50,6 +52,19 @@ def rmsnorm(x, w, eps: float = 1e-6, plus_one: bool = True,
     y = x * torch.rsqrt(var + eps)
     w = w.float()
     return (y * (1.0 + w) if plus_one else y * w).to(dt)
+
+
+def pre_norm(x, w, eps: float, rows: int):
+    """A pre-norm on the residual stream, its output over the whole
+    sequence of ``rows`` rows (the reference's full-sequence constrain at
+    each norm).  Under Megatron-SP the rank holds a block of the rows
+    (``x.shape[1] < rows``): it normalises its block, its weight through
+    ``to_split`` (applied to the rank's tokens alone, its gradient is a
+    partial sum over ``model``), and gathers the rows
+    (``sharding.seq_whole``)."""
+    if x.shape[1] == rows:
+        return rmsnorm(x, w, eps)
+    return seq_whole(rmsnorm(x, to_split(w), eps), rows)
 
 
 def softcap(x, cap: float):
@@ -99,13 +114,12 @@ class MLP(nn.Module):
         if split:
             x = to_split(x)
         h = act_fn(act)(x @ self.wg) * (x @ self.wi)
-        return constrain(h @ self.wo, ("batch", "seq", "embed"),
-                         partial=split)
+        return to_residual(h @ self.wo, partial=split)
 
 
 # ------------------------------------------------------------- embedding ----
 
-def embed(table, cfg, tokens):
+def embed(table, cfg, tokens, *, whole: bool = False):
     """tokens: (B, S) integer ids -> (B, S, d), or (B, S, K) codes of K
     codebooks (musicgen: ``table`` (K, V, d)), whose K rows are summed in
     codebook order, as the reference's Python ``sum``.  With
@@ -114,7 +128,11 @@ def embed(table, cfg, tokens):
     x.dtype)``.  A rank holding a block of the vocab looks up the ids in
     its block, zeros elsewhere, and the ranks' rows are summed (one id's
     row is nonzero on one rank only, so the sum is exact, and each rank's
-    block of the table takes the gradient of its own rows only)."""
+    block of the table takes the gradient of its own rows only).  The
+    rows come in the residual stream's layout (``sharding.to_residual``:
+    under Megatron-SP the rank's block of the sequence, reduce-scattered),
+    or with ``whole`` over the whole sequence (a prefix is joined before
+    it is cut)."""
     V = table.shape[-2]
     split = V < cfg.padded_vocab
     v0 = rank_block("vocab") * V
@@ -136,7 +154,9 @@ def embed(table, cfg, tokens):
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
-    return constrain(x, ("batch", "seq_res", "embed"), partial=split)
+    if whole:
+        return constrain(x, ("batch", "seq", "embed"), partial=split)
+    return to_residual(x, partial=split)
 
 
 def unembed(table, cfg, x):

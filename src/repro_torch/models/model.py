@@ -11,6 +11,11 @@ SigLIP patch embeddings, projected by ``vision_proj`` and put before the
 text under a bidirectional prefix mask, and its loss counts the text rows
 only.
 
+Under Megatron-SP the embedding's rows come in the residual stream's
+layout (the rank's block of the sequence), cut after paligemma's prefix
+is joined; the final norm's output is gathered whole before the
+unembedding.
+
 ``forward`` updates the caches it is given in place (dense KV rows, the
 recurrent layers' state entries, pool pages) and returns the logits; ``prefill`` and
 ``decode_step`` return ``(logits, caches)``, as the reference's do.  They
@@ -26,11 +31,11 @@ from torch import nn
 from repro_torch.configs.base import SHARED_ATTN
 from repro_torch.device import resolve
 from repro_torch.models import kvcache, transformer
-from repro_torch.models.layers import (embed, frozen, init_weights, rmsnorm,
-                                       unembed)
+from repro_torch.models.layers import (embed, frozen, init_weights,
+                                       pre_norm, unembed)
 from repro_torch.models.layers import param_axes as module_axes
 from repro_torch.sharding import (all_reduce_over, current_rank,
-                                  fsdp_call, rank_block)
+                                  fsdp_call, rank_block, to_residual)
 
 
 def param_dtype(cfg):
@@ -86,15 +91,18 @@ class Model(nn.Module):
         ``remat_policy``, ``unroll_periods``, ``mi_periods`` and
         ``tag_block_out``; ``aux``: a list the MoE layers append their
         auxiliary losses to."""
-        x = embed(self.table, cfg, tokens)
+        x = embed(self.table, cfg, tokens, whole=prefix is not None)
         if prefix is not None:
-            x = torch.cat([prefix.to(x.dtype) @ self.vision_proj, x], dim=1)
+            # the prefix joins the text before the sequence is cut (the
+            # residual layout, Megatron-SP's block of the rows)
+            x = to_residual(torch.cat(
+                [prefix.to(x.dtype) @ self.vision_proj, x], dim=1))
         x = transformer.stack_forward([*self.prologue, *self.layers], cfg,
                                       x, positions,
                                       caches=caches, cache_index=cache_index,
                                       decode=decode, paged_view=paged_view,
                                       aux=aux, **sentinel)
-        x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+        x = pre_norm(x, self.final_norm, cfg.norm_eps, positions.shape[-1])
         # a rank's logits stay vocab-local, as the reference's constrain
         # (its model.py:94) leaves them
         return unembed(self.table if self.head is None else self.head, cfg,

@@ -13,7 +13,8 @@ as one dense MLP on every token.
 Under a rank context (``sharding.rank_context``) a rank holding a block of
 the experts routes every token as one device does (the router is whole),
 fills and runs its own experts' buffers only, and its combine is a partial
-sum, all-reduced.  Where the experts do not divide over the ranks the
+sum, all-reduced (reduce-scattered onto the rank's block of the
+sequence under Megatron-SP, as the shared MLP's).  Where the experts do not divide over the ranks the
 expert hidden dim takes the axis (``sharding_for``, as the reference's
 train cell lays the banks out): each rank fills every expert's buffer,
 runs its block of the hidden dim, and the combine of its ``wo`` rows is
@@ -32,8 +33,8 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import MLP, act_fn, frozen
-from repro_torch.sharding import (all_reduce_over, constrain, current_rank,
-                                  rank_block, to_split)
+from repro_torch.sharding import (all_reduce_over, current_rank,
+                                  rank_block, to_residual, to_split)
 
 
 class MoE(nn.Module):
@@ -143,7 +144,7 @@ def moe_mlp(params, cfg, x, act: str):
         w.float()[..., None]
     out = picked.reshape(G, gsz, K, d).sum(dim=2).to(x.dtype) \
         .reshape(B, S, d)
-    out = constrain(out, ("batch", "seq", "embed"), partial=split)
+    out = to_residual(out, partial=split)
     if params.shared is not None:
         out = out + params.shared(x, act)
 

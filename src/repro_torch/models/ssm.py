@@ -19,7 +19,8 @@ channels and the SSD scan (``ops.ssd``, K4 on a card) on its heads, whose
 ``A_log``, ``dt_bias``, ``D``, ``norm`` and ``w_out`` rows are its blocks.
 The gated RMS norm spans the whole d_inner: its sum of squares is
 all-reduced (summed over the ranks backward too).  The output of ``w_out``
-is a partial sum, all-reduced.  The state it returns is its heads' ``h``
+is a partial sum, all-reduced (reduce-scattered onto the rank's block of
+the sequence under Megatron-SP).  The state it returns is its heads' ``h``
 and its block of the conv cache.
 """
 from __future__ import annotations
@@ -31,7 +32,7 @@ from torch import nn
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import frozen, rmsnorm
 from repro_torch.sharding import (constrain, current_rank, local_shape,
-                                  rank_block, to_split)
+                                  rank_block, to_residual, to_split)
 
 H_AXES = ("batch", "ssm_heads", None, None)      # the cache's state
 CONV_AXES = ("batch", None, "ssm_heads")        # the cache's conv tail
@@ -195,6 +196,5 @@ class MambaBlock(nn.Module):
         # the gated norm over the whole d_inner
         y = rmsnorm(y.reshape(B, S, Hl * P) * F.silu(zxd[..., c0:c1]),
                     self.norm, cfg.norm_eps, plus_one=False, width=d_inner)
-        out = constrain(y @ self.w_out, ("batch", "seq", "embed"),
-                        partial=True)
+        out = to_residual(y @ self.w_out, partial=True)
         return out, {"h": h, "conv": new_tail}

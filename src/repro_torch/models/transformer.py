@@ -14,7 +14,21 @@ Sentinel's blocks each block appends one float32 sum of its layers'
 losses, a second output of the block with its own gradient.
 
 A train step runs the period layers as Sentinel's blocks of ``mi_periods``
-periods (``stack_forward``, ``core/offload.py``)."""
+periods (``stack_forward``, ``core/offload.py``).
+
+Megatron-SP (``sharding.tp_dp_rules(seq_parallel=True)``, where the
+model axis divides the sequence): a rank's residual stream x is its
+block of the rows, which a layer sees as x holding fewer rows than the
+positions (the whole sequence).  The reference's sites
+(``repro/models/transformer.py:106-138``) are kept: each pre-norm's
+output gathered over the whole sequence (``layers.pre_norm``), each
+sublayer's output brought back to the rank's block
+(``sharding.to_residual``: the reduce-scatter of a partial sum), so a
+Sentinel block's carry is the rank's block of the rows too.  The
+gradient invariant of the rank programs is kept: every rank holds the
+whole gradient of a tensor it computes whole, so a gather's backward
+takes the rank's block, a cut's all-gathers, and a norm weight applied
+to the rank's rows alone passes ``sharding.to_split``."""
 from __future__ import annotations
 
 import torch
@@ -27,10 +41,11 @@ from repro_torch.core.offload import CarryStore
 from repro_torch.models import xlstm
 from repro_torch.models.attention import MLA as MLAttention
 from repro_torch.models.attention import Attention
-from repro_torch.models.layers import MLP, frozen, rmsnorm
+from repro_torch.models.layers import MLP, frozen, pre_norm
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import MambaBlock
-from repro_torch.sharding import current_rank, fsdp_call, rank_context
+from repro_torch.sharding import (current_rank, fsdp_call, rank_context,
+                                  seq_whole, to_residual)
 
 
 class Block(nn.Module):
@@ -59,10 +74,12 @@ class Block(nn.Module):
 
     def forward(self, cfg, x, positions, *, cache=None, cache_index=None,
                 decode=False, paged_view=None, aux=None):
-        # the reference's constrain sites at the norms and the residual
-        # (its transformer.py:106-138) move no data under a rank context:
-        # serve_rules keep the sequence and d_model whole
-        h = rmsnorm(x, self.ln1, cfg.norm_eps)
+        # the reference's sites (its transformer.py:106-138): each pre-norm
+        # over the whole sequence, each sublayer's output in the residual
+        # layout (``sharding.to_residual``); under Megatron-SP the rank's
+        # x is its block of the rows
+        rows = positions.shape[-1]
+        h = pre_norm(x, self.ln1, cfg.norm_eps, rows)
         if self.kind == MLA:
             a = self.mla(cfg, h, positions, cache=cache,
                          cache_index=cache_index)
@@ -70,7 +87,7 @@ class Block(nn.Module):
             a = self.attn(cfg, h, positions, kind=self.kind, cache=cache,
                           cache_index=cache_index, paged_view=paged_view)
         x = x + a
-        h = rmsnorm(x, self.ln2, cfg.norm_eps)
+        h = pre_norm(x, self.ln2, cfg.norm_eps, rows)
         if self.moe is None:
             return x + self.mlp(h, cfg.act)
         f, layer_aux = self.moe(cfg, h, cfg.act)
@@ -103,13 +120,23 @@ class StateLayer(nn.Module):
         """With a cache: a prefill runs from its state, a decode steps it;
         either way the new state replaces the dict's entries (the rows of
         every slot, active or not, as the reference's lockstep decode
-        does)."""
+        does).  Under Megatron-SP (x the rank's block of the rows) the
+        pre-norm's output is gathered over the whole sequence and the
+        block's output comes back to the rank's block: reduce-scattered
+        by a block whose output is a partial sum (Mamba's, the mLSTM's),
+        cut from one every rank computed whole (the sLSTM's).  The LSTM
+        has no norm and no residual site: it gathers its input, and its
+        output stays whole."""
         block = getattr(self, self.kind)
+        rows = positions.shape[-1]
         if self.kind == LSTM:
-            y, state = block(cfg, x, cache=cache, decode=decode)
+            y, state = block(cfg, seq_whole(x, rows), cache=cache,
+                             decode=decode)
         else:
-            y, state = block(cfg, rmsnorm(x, self.ln1, cfg.norm_eps),
+            y, state = block(cfg, pre_norm(x, self.ln1, cfg.norm_eps, rows),
                              cache=cache, decode=decode)
+            if y.shape[1] != x.shape[1]:
+                y = to_residual(y)
             y = x + y
         if cache is not None:
             cache.update(state)

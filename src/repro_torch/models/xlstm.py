@@ -27,7 +27,8 @@ Under a rank context each block runs on the rank's parameter blocks
     rank takes its block of h (through ``to_split``, so the recurrence's
     gradient is the whole one on every rank).  The norm's sum of squares
     is all-reduced (summed backward too), and ``w_down``'s output is a
-    partial sum, all-reduced.  State: the rank's heads (or every head),
+    partial sum, all-reduced (reduce-scattered onto the rank's block of
+    the sequence under Megatron-SP).  State: the rank's heads (or every head),
     its conv channels.
   * sLSTM: ``w_ifzo``'s columns, laid out (H, 4, D), split.  The conv's
     weights are gathered and it runs whole; where the model axis divides
@@ -56,8 +57,8 @@ from repro_torch.kernels.ref import step_loop
 from repro_torch.models.layers import frozen, rmsnorm
 from repro_torch.models.ssm import _causal_conv
 from repro_torch.sharding import (all_gather_over, all_reduce_over,
-                                  constrain, local_shape, rank_block,
-                                  reduce_scatter_over, to_split)
+                                  local_shape, rank_block,
+                                  reduce_scatter_over, to_residual, to_split)
 
 CONV_K = 4
 PROJ = 2          # mLSTM up-projection factor
@@ -153,8 +154,7 @@ class MLSTMBlock(nn.Module):
             h = to_split(h).narrow(-1, rank_block("mlp") * Dl, Dl)
         h = rmsnorm(h, self.norm, cfg.norm_eps, plus_one=False,
                     width=d_inner)
-        out = constrain((h * F.silu(z)) @ self.w_down,
-                        ("batch", "seq", "embed"), partial=split)
+        out = to_residual((h * F.silu(z)) @ self.w_down, partial=split)
         return out, {"C": C, "n": n_, "m": m, "conv": tail}
 
 

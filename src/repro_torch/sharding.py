@@ -23,12 +23,23 @@ experts at 16 ranks leave ``model`` to the expert hidden dim).
 ``constrain`` is the reference's
 ``with_sharding_constraint``: the identity with no rank context, and
 under one it makes a tensor hold the layout its logical axes name -- a
-partial sum is all-reduced, a dim held split that the target keeps whole
-is all-gathered, a dim held whole that the target splits is cut to the
+partial sum is all-reduced, or reduce-scattered where the target splits
+a dim it holds whole, a dim held split that the target keeps whole is
+all-gathered, a dim held whole that the target splits is cut to the
 rank's block.  Only the ``model`` axis moves activations: the rank's
 other dims (the batch over ``data``, or over ``data`` and ``model`` under
-``dp_only``) are already its own.  Under grad the collectives are the
-differentiable ones of ``collectives``; ``to_split`` is Megatron's ``f``
+``dp_only``) are already its own.  Under Megatron-SP rules
+(``tp_dp_rules(seq_parallel=True)``) the residual stream's sequence
+(``seq_res``) is on ``model``: each sublayer's output comes back to the
+rank's block of the rows (``to_residual``) and each pre-norm's output is
+gathered whole (``seq_whole``), where the sequence divides; elsewhere
+``rules.spec`` keeps it whole and the step is plain TP.  Under
+``serve_rules(seq_shard=True)`` (``long_500k``) the attention caches'
+``kv_seq`` is on the data axes: a rank's cache holds its block of the
+rows (``local_shape``, ``kv_seq_block``), and the decode merges the
+ranks' partial softmaxes over those axes (``models/attention.py``).
+Under grad the collectives are the differentiable ones of
+``collectives``; ``to_split`` is Megatron's ``f``
 at the input of a split product, ``fsdp_call`` gathers a layer's FSDP
 leaves over the data axes for its call, and ``gather_params`` puts the
 ranks' blocks back together.
@@ -287,9 +298,6 @@ class RankContext:
     batch_axes: tuple = ()
     specs: Optional[Mapping[int, tuple]] = None
 
-    def __post_init__(self):
-        refuse_seq_parallel(self.rules)
-
     @property
     def size(self) -> int:
         return self.rules.mesh.shape["model"]
@@ -358,24 +366,6 @@ def refuse_partitioned(what: str):
             f"has no partitioned program")
 
 
-def is_seq_parallel(rules: AxisRules) -> bool:
-    """Whether ``rules`` put the residual stream's sequence (``seq_res``)
-    on the ``model`` axis: Megatron-SP."""
-    rule = rules.rules.get("seq_res")
-    return any(c is not None and "model" in _axes_of(c)
-               for c in (rule if isinstance(rule, list) else [rule]))
-
-
-def refuse_seq_parallel(rules: AxisRules):
-    """Raise for rules that put ``seq_res`` on ``model``: the port's
-    models hold no Megatron-SP sites yet, so a rank program under them
-    would run plain tensor parallelism under Megatron-SP's name."""
-    if is_seq_parallel(rules):
-        raise NotImplementedError(
-            "seq_res on the model axis (Megatron-SP) under a rank "
-            "context: its sites wait for ROADMAP item 11b part 2b")
-
-
 def _index(entry, coords: Mapping[str, int], mesh: Mesh) -> int:
     """A position's block index along ``entry``'s mesh axes (row-major)."""
     idx = 0
@@ -416,41 +406,121 @@ def rank_block(logical: str) -> int:
 def local_shape(shape: Sequence[int], logical: Sequence[Optional[str]]):
     """The rank's block of a tensor the rank makes itself (a cache):
     ``shape``'s dims that the rules split over the ``model`` axis divided by
-    its size; ``shape`` itself with no rank context."""
+    its size, and a ``kv_seq`` dim that they split (over the data axes,
+    ``serve_rules(seq_shard=True)``) divided by their product; ``shape``
+    itself with no rank context.  A ``kv_seq`` dim the rules split but its
+    axes do not divide raises: no rank would know its rows."""
     ctx = current_rank()
     if ctx is None:
         return tuple(shape)
-    split = _on_group(ctx.rules.spec(logical, shape))
-    return tuple(n // ctx.size if s else n for n, s in zip(shape, split))
+    mesh = ctx.rules.mesh
+    spec = ctx.rules.spec(logical, shape)
+    out = []
+    seq = ctx.rules.spec(("kv_seq",))[0]
+    for n, ax, e in zip(shape, logical, spec):
+        if ax == "kv_seq" and seq is not None:
+            axes = _axes_of(seq)
+            if e is None:
+                raise ValueError(f"{n} cache rows do not divide over "
+                                 f"{axes}")
+            n //= math.prod(mesh.shape[a] for a in axes)
+        elif e is not None and _axes_of(e) == ("model",):
+            n //= ctx.size
+        out.append(n)
+    return tuple(out) + tuple(shape[len(out):])
+
+
+def kv_seq_block(rows: int) -> Optional[tuple]:
+    """Where the current rank's rules split ``kv_seq`` (the long-context
+    decode's ``serve_rules(seq_shard=True)``): (the mesh axes of the
+    split, the offset in the whole cache of the first row of the rank's
+    block of ``rows`` rows).  None with no rank context or where the
+    cache is whole."""
+    ctx = current_rank()
+    if ctx is None:
+        return None
+    entry = ctx.rules.spec(("kv_seq",))[0]
+    mesh = ctx.rules.mesh
+    if entry is None or \
+            math.prod(mesh.shape[a] for a in _axes_of(entry)) == 1:
+        return None
+    return _axes_of(entry), _index(entry, ctx.coords, mesh) * rows
 
 
 def constrain(x, logical: Sequence[Optional[str]], *, partial: bool = False,
-              held: Optional[Sequence[Optional[str]]] = None):
-    """The reference's ``constrain``: ``x`` itself with no rank context.
-    Under one, ``x`` (this rank's tensor, laid out as the logical axes
-    ``held`` name, default ``logical``) is made to hold ``logical``'s
-    layout: all-reduced first when it is a ``partial`` sum (a product
-    whose contracted dim the rank holds a block of), then all-gathered on
-    each dim it holds split that ``logical`` keeps whole, and cut to the
-    rank's block on each dim it holds whole that ``logical`` splits."""
+              held: Optional[Sequence[Optional[str]]] = None,
+              grad: str = "sum"):
+    """The reference's ``constrain``: ``x`` itself with no rank context or
+    on a model axis of 1.  Under one, ``x`` (this rank's tensor, laid out
+    as the logical axes ``held`` name, default ``logical``) is made to hold
+    ``logical``'s layout.  A ``partial`` sum (a product whose contracted
+    dim the rank holds a block of) is reduce-scattered onto the rank's
+    block of the first dim it holds whole that ``logical`` splits
+    (Megatron-SP's residual), else all-reduced; then each dim it holds
+    split that ``logical`` keeps whole is all-gathered, and each dim it
+    holds whole that ``logical`` splits is cut to the rank's block.
+    ``grad``: what the gradient of a gathered or cut tensor is on each
+    rank.  "sum": a partial sum, so a gather's backward is a
+    reduce-scatter and a cut's pads the other blocks with zeros; "split":
+    the whole gradient, as where every rank computes the same tensor, so
+    a gather's backward takes the rank's block and a cut's all-gathers
+    the blocks (``collectives.split``)."""
     ctx = current_rank()
-    if ctx is None:
+    if ctx is None or ctx.size == 1:
         return x
-    if partial:
-        x = collectives.all_reduce(x, ctx.group, ctx.rank)
     if held is None or tuple(held) == tuple(logical):
+        if partial:
+            x = collectives.all_reduce(x, ctx.group, ctx.rank)
         return x
     n = ctx.size
     full = [d * n if s else d
             for d, s in zip(x.shape, _on_group(ctx.rules.spec(held)))]
     cur = _on_group(ctx.rules.spec(held, full))
     tgt = _on_group(ctx.rules.spec(logical, full))
+    if partial:
+        cut = [i for i, (c, t) in enumerate(zip(cur, tgt)) if t and not c]
+        if cut:
+            x = collectives.reduce_scatter(x, ctx.group, ctx.rank, cut[0])
+            cur[cut[0]] = True
+        else:
+            x = collectives.all_reduce(x, ctx.group, ctx.rank)
     for i, (c, t) in enumerate(zip(cur, tgt)):
         if c and not t:
-            x = collectives.all_gather(x, ctx.group, ctx.rank, i)
+            x = collectives.all_gather(x, ctx.group, ctx.rank, i, grad=grad)
         elif t and not c:
-            x = x.narrow(i, ctx.rank * (full[i] // n), full[i] // n)
+            if grad == "split":
+                x = collectives.split(x, ctx.group, ctx.rank, i)
+            else:
+                x = x.narrow(i, ctx.rank * (full[i] // n), full[i] // n)
     return x
+
+
+# the residual stream's layout (the reference's ``seq_res`` sites): its
+# sequence on the model axis under Megatron-SP rules, whole otherwise
+RESIDUAL = ("batch", "seq_res", "embed")
+WHOLE = ("batch", "seq", "embed")
+
+
+def to_residual(y, *, partial: bool = False):
+    """A sublayer's output ``y`` (B, S, d), held whole on the sequence (a
+    partial sum over ``model`` where ``partial``), in the residual stream's
+    layout: under Megatron-SP rules (``seq_res`` on ``model``, S divisible
+    by it) the rank's block of the sequence, reduce-scattered from a
+    partial sum, or cut from a ``y`` every rank computed whole (its
+    backward an all-gather); otherwise all-reduced where ``partial``."""
+    return constrain(y, RESIDUAL, partial=partial, held=WHOLE, grad="split")
+
+
+def seq_whole(h, rows: int):
+    """``h`` (B, S_h, ...), the rank's block of a sequence of ``rows`` rows
+    (Megatron-SP's residual stream) where S_h < rows, gathered whole over
+    ``model``; its backward takes the rank's block of the gradient, since
+    what the whole sequence feeds runs on every rank and passes
+    ``to_split`` where it enters the rank's share of a product.  ``h``
+    itself where it holds every row."""
+    if h.shape[1] == rows:
+        return h
+    return all_gather_over(h, ("model",), 1, grad="split")
 
 
 def to_split(x):

@@ -320,15 +320,21 @@ def test_xlstm_cells_beside_the_reference(shape_name):
 
 def test_seq_parallel_cells_carry_the_note():
     """A train cell under ``--seq-parallel`` (Megatron-SP rules; the serve
-    cells' rules ignore the flag, in both packages) has no rank program
-    (ROADMAP F3): the record keeps ``"seq_parallel": true`` and carries
-    the note naming item 11b part 2b, not plain TP's collectives."""
+    cells' rules ignore the flag, in both packages), which carried a note
+    naming item 11b part 2b until that item landed (ROADMAP F3), runs its
+    rank program: the record keeps ``"seq_parallel": true`` and carries
+    ``collectives`` with Megatron-SP's reduce-scatters at the residual and
+    gathers at the norms, and no note."""
     rec = dryrun.run_cell("smollm-360m", "train_4k",
                           cfg=get_config("smollm-360m").reduced(),
                           seq_parallel=True)
+    plain = dryrun.run_cell("smollm-360m", "train_4k",
+                            cfg=get_config("smollm-360m").reduced())
     assert rec["ok"] and rec["seq_parallel"] is True
-    assert "collectives" not in rec
-    assert "item 11b part 2b" in rec["collectives_note"]
+    assert "collectives_note" not in rec
+    sp, tp = rec["collectives"]["counts"], plain["collectives"]["counts"]
+    assert sp["reduce-scatter"] > tp["reduce-scatter"]
+    assert sp["all-gather"] > tp["all-gather"]
 
 
 def test_mla_and_mamba_train_cells_carry_collectives():

@@ -603,20 +603,29 @@ REFERENCE = textwrap.dedent("""
 """)
 
 
-def run_reference(out, cases):
-    """The REFERENCE script's record of ``cases`` ((name, the train
-    cell's mesh, its (B, S), the TP prefill's device counts)), its files
-    in ``out``."""
+def start_reference(out, cases):
+    """The REFERENCE script started on ``cases`` ((name, the train cell's
+    mesh, its (B, S), the TP prefill's device counts)), its files in
+    ``out``: the running process (``finish_reference``)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
     env["JAX_PLATFORMS"] = "cpu"
     env.pop("REPRO_MLSTM_CHUNK", None)
-    res = subprocess.run([sys.executable, "-c", REFERENCE, str(out),
-                          json.dumps(cases)],
-                         capture_output=True, text=True, env=env,
-                         timeout=900)
-    assert res.returncode == 0, res.stderr[-3000:]
-    return json.loads(res.stdout.strip().splitlines()[-1])
+    return subprocess.Popen([sys.executable, "-c", REFERENCE, str(out),
+                             json.dumps(cases)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def finish_reference(proc):
+    """The record a ``start_reference`` process prints."""
+    stdout, stderr = proc.communicate(timeout=900)
+    assert proc.returncode == 0, stderr[-3000:]
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def run_reference(out, cases):
+    """The REFERENCE script's record of ``cases``, its files in ``out``."""
+    return finish_reference(start_reference(out, cases))
 
 
 # (name, the train cell's (data, model) mesh, its B x S, TP prefill sizes)
@@ -625,10 +634,23 @@ REF_CASES = (("xlstm-1.3b", (2, 2), (8, 32), (2, 4)),
              (TWO_HEADS, (1, 4), (4, 32), (4,)))
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
+@pytest.fixture(scope="module", autouse=True)
+def reference_run(tmp_path_factory):
+    """The REFERENCE script on REF_CASES, started when the module starts
+    so that it runs beside the port's tests; ``reference`` waits for
+    it."""
     out = tmp_path_factory.mktemp("ref_recurrent")
-    return run_reference(out, REF_CASES), out
+    proc = start_reference(out, REF_CASES)
+    yield proc, out
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def reference(reference_run):
+    proc, out = reference_run
+    return finish_reference(proc), out
 
 
 def nonzero(ledger_bytes):

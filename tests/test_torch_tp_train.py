@@ -334,8 +334,11 @@ def test_refusals():
     """A MoE dispatch group spanning two data ranks' rows, and FSDP on a
     batch the data axis does not split, raise rather than compute a
     different step; the page pools under a rank context say that the
-    reference runs them on one device only, and Megatron-SP rules
-    (``seq_parallel=True``, ROADMAP F3) name item 11b part 2b.  MLA and
+    reference runs them on one device only.  Megatron-SP rules
+    (``seq_parallel=True``), which a rank context refused until item 11b
+    part 2b (ROADMAP F3), are taken: the step under them equals the
+    one-device step, and a rank context over them is made
+    (``tests/test_torch_tp_seqpar.py`` holds the rest).  MLA and
     Mamba run partitioned since part 2a (``tests/test_torch_tp_families.py``),
     the xLSTM layers since its items 3-4
     (``tests/test_torch_tp_recurrent.py``)."""
@@ -367,16 +370,14 @@ def test_refusals():
                       caches=pools.tree, cache_index=torch.zeros(
                           1, dtype=torch.long), decode=True,
                       paged_view=view)
-    cfg = _config("smollm-360m")
-    params = model.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11b part 2b"):
-        _partitioned(cfg, params, _batch(cfg), (2, 2),
-                     SentinelConfig(mode="full"), seq_parallel=True)
+    _check_equal(_config("smollm-360m"), (2, 2),
+                 SentinelConfig(mode="full"), seq_parallel=True)
     rules = shd.tp_dp_rules(shd.Mesh((2, 2), ("data", "model")),
                             seq_parallel=True)
-    with pytest.raises(NotImplementedError, match="item 11b part 2b"):
-        shd.mesh_rank(collectives.ShapeMesh(rules.mesh), rules,
-                      {"data": 0, "model": 0})
+    ctx = shd.mesh_rank(collectives.ShapeMesh(rules.mesh), rules,
+                        {"data": 0, "model": 0})
+    assert ctx.rules.spec(shd.RESIDUAL, (2, 16, 64)) == ("data", "model",
+                                                          None)
 
 
 def test_offload_carries_per_rank_equal_the_estimate():

@@ -52,17 +52,22 @@ def _numpy(tree):
     return jax.tree.map(np.array, tree)
 
 
-@pytest.fixture(scope="module", params=["smollm-360m", "zamba2-7b"])
-def arch(request):
-    """The reduced config in both packages, the reference's parameters
-    and a batch of 2 x 16 tokens."""
-    cfg_j = ref_config(request.param).reduced()
+def arch_case(name):
+    """The reduced config of ``name`` in both packages, the reference's
+    parameters and a batch of 2 x 16 tokens."""
+    cfg_j = ref_config(name).reduced()
     params_j, _ = split_params(ref_model.init_params(jax.random.PRNGKey(0),
                                                      cfg_j))
     toks = np.random.default_rng(0).integers(0, cfg_j.vocab_size, (2, 17))
     batch = {"tokens": toks[:, :-1].astype(np.int32),
              "labels": toks[:, 1:].astype(np.int32)}
-    return cfg_j, params_j, get_config(request.param).reduced(), batch
+    return cfg_j, params_j, get_config(name).reduced(), batch
+
+
+# zamba2-7b's cases are in tests/test_torch_train_hybrid.py
+@pytest.fixture(scope="module", params=["smollm-360m"])
+def arch(request):
+    return arch_case(request.param)
 
 
 @pytest.mark.parametrize("mi", [1, 2])
