@@ -44,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.profiler import TraceProfile
 from repro_torch.sharding import current_rank, map_axes
 from repro_torch.runtime import PlacementPlan, mi_to_periods
@@ -222,7 +223,12 @@ class CarryStore:
     its copy out completed (the fetch waits on that event), and the
     compute stream waits on the fetch's event before the recompute reads
     it.  ``get(b)`` starts block b - 1's fetch before it returns block b's
-    carry, so the copy runs under block b's recompute."""
+    carry, so the copy runs under block b's recompute.
+
+    With ``telemetry`` on, the host's launch of each copy is a span
+    (``offload.put``, ``offload.fetch``), and the compute stream's wait on
+    a fetch is timed by CUDA events on either side of it
+    (``offload.carry_wait_ms``, over ``offload.carry_waits`` waits)."""
 
     def __init__(self, where: str):
         if where not in ("device", "host"):
@@ -240,14 +246,16 @@ class CarryStore:
             self._saved[b] = (x, None, x.device)
             return
         _count("d2h", x.numel() * x.element_size())
-        buf = _pinned(torch.empty(x.shape, dtype=x.dtype, pin_memory=True))
-        side = side_stream(x.device)
-        side.wait_stream(torch.cuda.current_stream(x.device))
-        with torch.cuda.stream(side):
-            buf.copy_(x, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
-        x.record_stream(side)
+        with telemetry.span("offload.put"):
+            buf = _pinned(torch.empty(x.shape, dtype=x.dtype,
+                                      pin_memory=True))
+            side = side_stream(x.device)
+            side.wait_stream(torch.cuda.current_stream(x.device))
+            with torch.cuda.stream(side):
+                buf.copy_(x, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(side)
+            x.record_stream(side)
         self._saved[b] = (buf, done, x.device)
 
     def get(self, b: int) -> torch.Tensor:
@@ -261,7 +269,16 @@ class CarryStore:
         x, done = self._fetched.pop(b)
         if done is not None:
             main = torch.cuda.current_stream(x.device)
-            main.wait_event(done)
+            if telemetry.enabled():
+                before = torch.cuda.Event(enable_timing=True)
+                after = torch.cuda.Event(enable_timing=True)
+                before.record(main)
+                main.wait_event(done)
+                after.record(main)
+                telemetry.elapsed_ms("offload.carry_wait_ms", before, after)
+                telemetry.count("offload.carry_waits")
+            else:
+                main.wait_event(done)
             x.record_stream(main)
         return x
 
@@ -273,7 +290,7 @@ class CarryStore:
             return
         _count("h2d", buf.numel() * buf.element_size())
         side = side_stream(device)
-        with torch.cuda.stream(side):
+        with telemetry.span("offload.fetch"), torch.cuda.stream(side):
             side.wait_event(d2h)
             x = torch.empty(buf.shape, dtype=buf.dtype, device=device)
             x.copy_(buf, non_blocking=True)

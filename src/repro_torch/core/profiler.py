@@ -18,6 +18,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from repro_torch import telemetry
+
 PAGE = 4096
 
 # elementwise / layout primitives the compiler fuses into their consumer
@@ -297,38 +299,39 @@ def trace_profile(fn: Callable, params: torch.nn.Module, batch: dict, *,
     not a CUDA tensor), so the SSD scan's own tensors are objects here,
     where the reference's jaxpr holds the kernel's call."""
     global _TRACER
-    P = num_periods
-    prof = TraceProfile(num_periods=P, num_steps=timeline_steps(P))
-    tracer = _Tracer(prof)
-    weights = list(params.parameters()) + [
-        t for t in tree_leaves(batch) if isinstance(t, torch.Tensor)]
-    for t in weights:
-        if _key(t) not in tracer.objects:
-            tracer.birth(t, "weight")
-    wrt = [w for w in params.parameters() if w.requires_grad]
-    if _TRACER is not None:
-        raise RuntimeError("trace_profile does not nest")
-    _TRACER = tracer
-    try:
-        with tracer:
-            grads = torch.autograd.grad(fn(params, batch), wrt)
-            tracer.step = timeline_steps(P) - 1
-            for g in grads:
-                tracer.read(g)
-    finally:
-        _TRACER = None
-    prof.objects = list(tracer.objects.values())
+    with telemetry.span("plan.profile"):
+        P = num_periods
+        prof = TraceProfile(num_periods=P, num_steps=timeline_steps(P))
+        tracer = _Tracer(prof)
+        weights = list(params.parameters()) + [
+            t for t in tree_leaves(batch) if isinstance(t, torch.Tensor)]
+        for t in weights:
+            if _key(t) not in tracer.objects:
+                tracer.birth(t, "weight")
+        wrt = [w for w in params.parameters() if w.requires_grad]
+        if _TRACER is not None:
+            raise RuntimeError("trace_profile does not nest")
+        _TRACER = tracer
+        try:
+            with tracer:
+                grads = torch.autograd.grad(fn(params, batch), wrt)
+                tracer.step = timeline_steps(P) - 1
+                for g in grads:
+                    tracer.read(g)
+        finally:
+            _TRACER = None
+        prof.objects = list(tracer.objects.values())
 
-    # per-layer long/short production aggregates
-    for o in prof.objects:
-        if o.kind != "activation":
-            continue
-        ls = prof.layers.setdefault(max(o.birth, 0),
-                                    LayerStats(max(o.birth, 0)))
-        if o.lifetime <= 1:
-            ls.produced_short += o.size
-        else:
-            ls.produced_long += o.size
-            d = max(o.death, 0)
-            prof.layers.setdefault(d, LayerStats(d)).reads_long += o.size
-    return prof
+        # per-layer long/short production aggregates
+        for o in prof.objects:
+            if o.kind != "activation":
+                continue
+            ls = prof.layers.setdefault(max(o.birth, 0),
+                                        LayerStats(max(o.birth, 0)))
+            if o.lifetime <= 1:
+                ls.produced_short += o.size
+            else:
+                ls.produced_long += o.size
+                d = max(o.death, 0)
+                prof.layers.setdefault(d, LayerStats(d)).reads_long += o.size
+        return prof

@@ -31,6 +31,7 @@ still reads.
 """
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
@@ -751,8 +752,10 @@ class PagedKVPools:
     (= n_hot) absorbs the lockstep writes of inactive slots.
 
     ``stats`` counts ``repacks`` (never in this design), ``table_uploads``
-    (layout deltas), ``page_copies`` (demote / CoW data movement) and
-    ``admit_page_writes`` (prefill landing in the pools).
+    (layout deltas), ``page_copies`` (demote / CoW data movement),
+    ``admit_page_writes`` (prefill landing in the pools) and
+    ``cold_page_reads`` (the cold pages decode's K1 calls read,
+    ``count_decode_reads``).
     """
 
     def __init__(self, cfg, slots: int, max_seq: int, page_tokens: int,
@@ -770,6 +773,9 @@ class PagedKVPools:
         # layer -> its pool, for the attention layers only
         self.pool_of = {l: i for i, l in enumerate(
             l for l, k in enumerate(kinds) if k in ATTN_KINDS)}
+        # K1's window (0: none) -> the attention layers that read with it
+        self._windows = Counter(cfg.sliding_window if kinds[l] == LOCAL
+                                else 0 for l in self.pool_of)
         L, D = len(self.pool_of), cfg.num_kv_heads * cfg.head_dim
         hot = (L, self.table.n_hot + 1, page_tokens, D)
         cold = (L, self.table.n_cold, page_tokens, D)
@@ -790,7 +796,7 @@ class PagedKVPools:
         # host-side read of the cold pools waits on it (sync_cold)
         self._cold_written = None
         self.stats = {"repacks": 0, "table_uploads": 0, "page_copies": 0,
-                      "admit_page_writes": 0}
+                      "admit_page_writes": 0, "cold_page_reads": 0}
 
     def _copy_into_cold(self, dst_pool, dst: int, src_pool, src: int):
         """dst_pool[:, dst] = src_pool[:, src], one contiguous page per
@@ -838,6 +844,26 @@ class PagedKVPools:
         return {"page_table": table_arr, "page_tier": tier_arr,
                 "page_tokens": self.page_tokens, "active": active_mask,
                 "garbage_page": self.garbage}
+
+    def count_decode_reads(self, lengths, slots=None) -> None:
+        """Add the cold pages one decode step's K1 calls read to
+        ``stats["cold_page_reads"]``: for each slot of ``slots`` (default
+        every slot) with K1 length ``lengths[i]``, the entries of its table
+        row that K1 reads from the cold pool, from the layer's window's
+        first page to the page holding its last token, summed over the
+        attention layers.  K1 reads every entry whose tier is not 0 there:
+        the cold pages, and unmapped entries, which it clips into the cold
+        pool.  It is handed every slot's length, a finished slot's stale
+        one included."""
+        pg, tier = self.page_tokens, self.table.tier
+        slots = range(self.num_slots) if slots is None else slots
+        for window, layers in self._windows.items():
+            n = 0
+            for s, length in zip(slots, lengths):
+                lo = max(0, (length - window) // pg) if window else 0
+                row = tier[s][lo:-(-length // pg)]
+                n += len(row) - row.count(0)
+            self.stats["cold_page_reads"] += layers * n
 
     # ----------------------------------------------------------- mutations --
     def ensure_write_page(self, slot: int, pos: int) -> None:

@@ -42,6 +42,7 @@ import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
+from repro_torch import telemetry
 from repro_torch.core.hardware import HWSpec
 from repro_torch.runtime.costmodel import CostModel, CostReport
 from repro_torch.runtime.objects import (MemoryTier, TrainingWorkload,
@@ -869,13 +870,14 @@ def plan(workload, cost_model=None, fast_bytes: float = None, *,
     """
     cm = _resolve_cost_model(cost_model, "plan")
     wl = as_workload(workload)
-    if wl.kind == "training":
-        return plan_training(wl, cm, fast_bytes,
-                             policy=policy or "sentinel_mi",
-                             max_mi=max_mi, sim_all=sim_all,
-                             objective=objective, tier_graph=tier_graph)
-    return plan_serving(wl, cm, fast_bytes, policy=policy,
-                        lookaheads=lookaheads, objective=objective,
-                        tier_graph=tier_graph,
-                        prefill_chunk_tokens=prefill_chunk_tokens,
-                        decode_devices=decode_devices, disagg=disagg)
+    with telemetry.span("plan.place"):
+        if wl.kind == "training":
+            return plan_training(wl, cm, fast_bytes,
+                                 policy=policy or "sentinel_mi",
+                                 max_mi=max_mi, sim_all=sim_all,
+                                 objective=objective, tier_graph=tier_graph)
+        return plan_serving(wl, cm, fast_bytes, policy=policy,
+                            lookaheads=lookaheads, objective=objective,
+                            tier_graph=tier_graph,
+                            prefill_chunk_tokens=prefill_chunk_tokens,
+                            decode_devices=decode_devices, disagg=disagg)

@@ -64,7 +64,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch import collectives
+from repro_torch import collectives, telemetry
 from repro_torch import sharding as shd
 from repro_torch.device import resolve
 from repro_torch.launch.mesh import disagg_groups
@@ -314,16 +314,20 @@ class DisaggregatedEngine(ContinuousBatcher):
                 if self.active[s]:
                     pool.ensure_write_page(s, self._host_len[s])
             view = pool.paged_view(self._active_mask[idx].to(dev), idx_d)
-            logits = model.forward(
-                self.params_shards[d], self.cfg,
-                {"tokens": self.last_tok[idx][:, None].to(dev)},
-                caches=pool.tree, cache_index=self.lengths[idx].to(dev),
-                decode=True, paged_view=view)
+            pool.count_decode_reads([self._host_len[s] + 1 for s in idxs],
+                                    idxs)
+            with telemetry.span("engine.decode_forward"):
+                logits = model.forward(
+                    self.params_shards[d], self.cfg,
+                    {"tokens": self.last_tok[idx][:, None].to(dev)},
+                    caches=pool.tree, cache_index=self.lengths[idx].to(dev),
+                    decode=True, paged_view=view)
             tok[idx] = torch.argmax(logits[:, -1, :self.cfg.vocab_size],
                                     dim=-1).to(self.device)
-        for s in range(self.B):
-            if self.active[s]:
-                self._demote_to_target(s, self._host_len[s] + 1)
+        with telemetry.span("engine.demote"):
+            for s in range(self.B):
+                if self.active[s]:
+                    self._demote_to_target(s, self._host_len[s] + 1)
         self._note_tenant_pages()
         return tok
 

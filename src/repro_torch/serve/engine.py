@@ -47,6 +47,7 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import hmsim
 from repro_torch.device import resolve
 from repro_torch.models import kvcache, model
@@ -454,7 +455,8 @@ class ContinuousBatcher:
                     min(pages_left, max(1, (budget - spent) // pg))
                 end = min(job.S, job.done + take * pg)
                 spent += end - job.done
-                self._run_chunk(slot, job, end)
+                with telemetry.span("engine.prefill_chunk", key=slot):
+                    self._run_chunk(slot, job, end)
                 if job.done >= job.S:
                     self._finish_job(slot, job)
 
@@ -509,13 +511,16 @@ class ContinuousBatcher:
             if self.active[s]:
                 self.pool.ensure_write_page(s, self._host_len[s])
         paged_view = self.pool.paged_view(self._active_mask)
-        logits = model.forward(
-            self.params, self.cfg, {"tokens": self.last_tok[:, None]},
-            caches=self.pool.tree, cache_index=self.lengths, decode=True,
-            paged_view=paged_view)
-        for s in range(self.B):
-            if self.active[s]:
-                self._demote_to_target(s, self._host_len[s] + 1)
+        self.pool.count_decode_reads([n + 1 for n in self._host_len])
+        with telemetry.span("engine.decode_forward"):
+            logits = model.forward(
+                self.params, self.cfg, {"tokens": self.last_tok[:, None]},
+                caches=self.pool.tree, cache_index=self.lengths, decode=True,
+                paged_view=paged_view)
+        with telemetry.span("engine.demote"):
+            for s in range(self.B):
+                if self.active[s]:
+                    self._demote_to_target(s, self._host_len[s] + 1)
         self._note_tenant_pages()
         return torch.argmax(logits[:, -1, :self.cfg.vocab_size], dim=-1)
 
@@ -531,9 +536,10 @@ class ContinuousBatcher:
             caches = self.tiered.merged()
         else:
             caches = self.caches
-        logits = model.forward(
-            self.params, self.cfg, {"tokens": self.last_tok[:, None]},
-            caches=caches, cache_index=self.lengths, decode=True)
+        with telemetry.span("engine.decode_forward"):
+            logits = model.forward(
+                self.params, self.cfg, {"tokens": self.last_tok[:, None]},
+                caches=caches, cache_index=self.lengths, decode=True)
         if self.paged is not None:
             self.paged.hot = caches
             # each active slot's own boundary: a page leaving the slot's hot
@@ -567,8 +573,13 @@ class ContinuousBatcher:
         """Admission, then one lockstep decode step across all active
         slots; each slot writes its KV at its own length.  Returns False
         when there was nothing to do."""
+        with telemetry.span("engine.step"):
+            return self._step()
+
+    def _step(self):
         self._step_prefill = 0
-        self._admit()
+        with telemetry.span("engine.admit"):
+            self._admit()
         if not any(self.active):
             if self._jobs:
                 # prefill-only step: still a step for the accounting series
@@ -585,7 +596,8 @@ class ContinuousBatcher:
         self.decode_steps += 1
         self.last_tok = tok
         self.lengths = self.lengths + self._active_inc
-        tok_host = tok.tolist()                # the decoded tokens themselves
+        with telemetry.span("engine.readback"):
+            tok_host = tok.tolist()        # the decoded tokens themselves
         was_active = list(self.active)
         for slot in range(self.B):
             if not was_active[slot]:
@@ -1066,14 +1078,15 @@ def serve_trace_for(cfg, requests: Sequence[tuple], *, slots: int,
     else:
         n_params = (12 * cfg.num_layers * cfg.d_model ** 2
                     + cfg.vocab_size * cfg.d_model)
-    return hmsim.build_serve_trace(
-        requests, num_slots=slots, num_layers=layers,
-        kv_token_bytes=kv_tok * cfg.num_layers / layers,
-        block_tokens=block_tokens,
-        recent_window=recent_window, history_period=history_period,
-        flops_per_token=2.0 * n_params,
-        weight_bytes=float(n_params) * dtype_bytes,
-        shared_prefix_tokens=shared_prefix_tokens)
+    with telemetry.span("plan.profile"):
+        return hmsim.build_serve_trace(
+            requests, num_slots=slots, num_layers=layers,
+            kv_token_bytes=kv_tok * cfg.num_layers / layers,
+            block_tokens=block_tokens,
+            recent_window=recent_window, history_period=history_period,
+            flops_per_token=2.0 * n_params,
+            weight_bytes=float(n_params) * dtype_bytes,
+            shared_prefix_tokens=shared_prefix_tokens)
 
 
 def generate(params, cfg, prompts, num_tokens: int,

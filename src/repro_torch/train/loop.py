@@ -34,7 +34,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from repro_torch import collectives
+from repro_torch import collectives, telemetry
 from repro_torch import sharding as shd
 from repro_torch.checkpoint import ckpt
 from repro_torch.core.offload import SentinelConfig, loss_kwargs
@@ -66,9 +66,12 @@ def make_train_step(cfg, scfg: SentinelConfig, opt_cfg: adamw.OptConfig,
     def step(state, batch):
         params = state["params"]
         named = dict(params.named_parameters())
-        loss = model.loss_fn(params, cfg, batch, **kw)
-        grads, loss = _gradients(loss, named)
-        _, opt, om = adamw.update(grads, state["opt"], named, opt_cfg)
+        with telemetry.span("train.forward"):
+            loss = model.loss_fn(params, cfg, batch, **kw)
+        with telemetry.span("train.backward"):
+            grads, loss = _gradients(loss, named)
+        with telemetry.span("train.adamw"):
+            _, opt, om = adamw.update(grads, state["opt"], named, opt_cfg)
         metrics = {"loss": loss, **om}
         return {"params": params, "opt": opt,
                 "step": state["step"] + 1}, metrics
