@@ -132,6 +132,13 @@ Phases, each printing its own lines:
          Mamba layer a forward and once a period's Mamba layer a
          recompute; step time, adamw.update's time, peak memory, pinned
          host bytes;
+     5e. A1, the fused AdamW pass (``check_adamw_fused``): the kernels
+         against their plain version bit for bit on small leaves;
+         smollm-360m's 290 leaves fused against the eager ops, one step at
+         a time from the same state, bit for bit with the clip off and,
+         with it on, the moments within ADAMW_MOMENT_REL and every
+         parameter the step its own moments give; its device ops and
+         launches a step; its ms against 22 B a parameter at HBM's rate;
   6. the attention families (ROADMAP item 9), each loaded alone and freed
      before the next, bf16 from seed 0 at full width, 8 slots,
      page 16, 32 decode tokens a request:
@@ -162,8 +169,8 @@ Phases, each printing its own lines:
      each run's prefill ms per admission (a chunk on the pools), decode
      tokens/s, pure-decode step, peak device memory and a profile of
      decode steps;
-  7. the recurrent families, which run none of the four kernels (every
-     kernel's launches counted 0 on each path):
+  7. the recurrent families, which run none of K1-K4 (their launches
+     counted 0 on each path; A1's recorded):
      7a. xlstm-1.3b and lstm-ptb reduced in fp32 on the card against the
          CPU: the four engine layouts (logits, tokens, integer counters;
          tiered == all-HBM), the loss and gradients of the full mode, and
@@ -182,8 +189,8 @@ Phases, each printing its own lines:
          shape, which must hold); the training CLI; 8 slots of 512 tokens,
          12 prompts of 35-350 tokens, all-HBM then the pools; the serving
          CLI;
-  8. the modality stubs (ROADMAP 9c, 9d), which run none of the four
-     kernels (every kernel's launches counted 0 on each path):
+  8. the modality stubs (ROADMAP 9c, 9d), which run none of K1-K4
+     (their launches counted 0 on each path; A1's recorded):
      8a. musicgen-medium and paligemma-3b reduced in fp32 on the card
          against the CPU: the forward's logits (codebooks; the prefix of
          patch embeddings and the text alone), generate's tokens, the loss
@@ -210,7 +217,7 @@ Phases, each printing its own lines:
          offload's loss and gradient norm == full's, its carries ==
          estimate_offload_traffic; step ms, peak and carry bytes;
   9. MoE under Sentinel's blocked modes (ROADMAP item 12), which runs none
-     of the four kernels (every kernel's launches counted 0 on each path):
+     of K1-K4 (their launches counted 0 on each path; A1's recorded):
      9a. granite-moe-3b and deepseek-v2-lite reduced in fp32 on the card
          against the CPU: the loss (with every MoE layer's aux) and every
          gradient in the four modes at MI 1 and 2, each mode == full,
@@ -371,8 +378,9 @@ Every kernel time is the median over launches that each follow an L2
 flush and a device-side spin, so the events time the card's work and not
 the host's launch overhead.
 
-Then one JSON line with the kernels' record, the card line again, and the
-last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so
+Then one JSON line with the kernels' record (K1-K4 and A1, each with its
+launches on every path, counted from 0 before the path ran), the card
+line again, and the last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the exit code is non-zero; without a card the script exits with 2 and
 prints no result.
 """
@@ -428,11 +436,13 @@ K1_FAMILIES = {
 K1_GEMMA3 = (SLOTS, 2048, 16, 8, 256, PAGE)
 K1_GEMMA3_WINDOW = 1024
 KERNELS = ("paged_decode", "ssd", "decode_attention",
-           "flash_attention")                     # csrc/<name>.cu
+           "flash_attention", "adamw")            # csrc/<name>.cu
+FOUR = KERNELS[:4]                                # K1-K4, not A1
 
 
 def reset_counts():
     """Every kernel wrapper's launch count to 0, just before a path runs."""
+    from repro_torch.kernels import adamw as a1
     from repro_torch.kernels import decode_attention as k3
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import paged_decode as pd
@@ -441,10 +451,13 @@ def reset_counts():
     k4.ssd.launches = 0
     k3.decode_attention.launches = 0
     k2.flash_attention.launches = 0
+    a1.fused_update.launches = 0
 
 
 def _launch_counts() -> dict:
-    """Every kernel wrapper's launches since the last ``reset_counts``."""
+    """Every kernel wrapper's launches since the last ``reset_counts``,
+    keyed by KERNELS."""
+    from repro_torch.kernels import adamw as a1
     from repro_torch.kernels import decode_attention as k3
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import paged_decode as pd
@@ -452,7 +465,13 @@ def _launch_counts() -> dict:
     return {"paged_decode": pd.paged_decode_attention.launches,
             "flash_attention": k2.flash_attention.launches,
             "decode_attention": k3.decode_attention.launches,
-            "ssd": k4.ssd.launches}
+            "ssd": k4.ssd.launches,
+            "adamw": a1.fused_update.launches}
+
+
+def _counts(**kw) -> dict:
+    """A tally of every kernel's launches: ``kw``'s, the others 0."""
+    return dict(dict.fromkeys(KERNELS, 0), **kw)
 
 
 def card_line() -> str:
@@ -2427,8 +2446,7 @@ def _no_kernel_paths(runs):
     torch.cuda.empty_cache()
     paths = {}
     for what, run in runs:
-        tally = dict.fromkeys(("paged_decode", "flash_attention",
-                               "decode_attention", "ssd"), 0)
+        tally = _counts()
 
         def note(part, tally=tally):
             for name, n in _recurrent_launches(part).items():
@@ -4129,11 +4147,12 @@ def check_tp_families_small():
     on, and in full on TP_FAMILIES_OTHER's mesh; the gates of 12a
     (``_tp_small_case``), and K4's launches in each partitioned card step
     == ranks x the Mamba layers' forwards and recomputes
-    (``_blocked_mambas``).  Returns K4's launches in those steps."""
+    (``_blocked_mambas``).  Returns every kernel's launches in those
+    steps."""
     import torch
     from repro_torch.core.offload import SentinelConfig
     from repro_torch.models.model import init_params
-    worst, runs, pairs, launches = {}, 0, 0, 0
+    worst, runs, pairs, launches = {}, 0, 0, _counts()
     for arch in TP_FAMILIES_SMALL:
         cfg = _tp_train_cfg(arch)
         params = init_params(cfg, seed=0, device="cpu")
@@ -4159,7 +4178,8 @@ def check_tp_families_small():
             for k in ("one", "cpu"):
                 worst[arch, k] = max(worst.get((arch, k), 0.0), r[k])
             runs, pairs = runs + 1, pairs + r["pairs"]
-            launches += r["k4"]
+            for k, v in r["launches"].items():
+                launches[k] += v
         del params
         release_pinned()
     print(f"phase 13a: {runs} partitioned steps ({', '.join(TP_FAMILIES_SMALL)}"
@@ -4173,8 +4193,9 @@ def check_tp_families_small():
               f"{a} {worst[a, 'one']:.3g} / {worst[a, 'cpu']:.3g}"
               for a in TP_FAMILIES_SMALL) +
           f"; ledgers == the CPU's; {pairs} replica pairs equal "
-          f"bit for bit; K4 {launches} launches on the ranks' heads == ranks"
-          f" x (Mamba layers + their recomputes) a step", flush=True)
+          f"bit for bit; K4 {launches['ssd']} launches on the ranks' heads =="
+          f" ranks x (Mamba layers + their recomputes) a step; launches "
+          f"{launches}", flush=True)
     return launches
 
 
@@ -4203,7 +4224,7 @@ def _dryrun_train_ledger(cfg, rules, scfg, ocfg, B, S):
 def train_tp_families_full(arch, card):
     """Phase 13b, one model at full width on TP_FAMILIES_LAYERS, bf16 from
     seed 0, TP_FAMILIES_TRAIN tokens from make_batch (``_train_tp_full``).
-    Returns K4's launches in the partitioned steps."""
+    Returns every kernel's launches in the partitioned steps."""
     from repro_torch.data.pipeline import DataConfig, make_batch
     cfg = _tp_family_cfg(arch)
     B, S = TP_FAMILIES_TRAIN
@@ -4211,7 +4232,7 @@ def train_tp_families_full(arch, card):
                       global_batch=B)
     return _train_tp_full(arch, cfg, [make_batch(dcfg, s) for s in
                                       range(TP_TRAIN_STEPS)], card,
-                          "13b")["ssd"]
+                          "13b")
 
 
 def _train_tp_full(arch, cfg, batches, card, phase):
@@ -4460,16 +4481,11 @@ def check_tp_families(card):
     torch.cuda.empty_cache()
     paths = {}
 
-    def tally(k1=0, k4=0):
-        return {"paged_decode": k1, "flash_attention": 0,
-                "decode_attention": 0, "ssd": k4}
-
     paths["deepseek-v2-lite, zamba2-7b and granite (6 experts) reduced "
-          "partitioned training (phase 13a)"] = \
-        tally(k4=check_tp_families_small())
+          "partitioned training (phase 13a)"] = check_tp_families_small()
     for arch in TP_FAMILIES:
         paths[f"{arch} partitioned training, full and offload (phase "
-              f"13b)"] = tally(k4=train_tp_families_full(arch, card))
+              f"13b)"] = train_tp_families_full(arch, card)
     lengths = np.random.default_rng(26).integers(300, 513, 12)
     plan = PlacementPlan(hot_window=192, page_tokens=PAGE,
                          slot_hot_windows=[128 + 16 * s for s in range(SLOTS)])
@@ -4482,7 +4498,7 @@ def check_tp_families(card):
                            expected=_tp_dryrun_bytes, phase="13c",
                            per_admission=False)
         paths[f"{arch} TP prefill, one decode shard (phase 13c)"] = \
-            tally(k1=k1, k4=k4)
+            _counts(paged_decode=k1, ssd=k4)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -4620,7 +4636,7 @@ def check_tp_recurrent_small():
         secs[name] = time.perf_counter() - ts
         del params
         release_pinned()
-    if any(launches.values()):
+    if any(launches[k] for k in FOUR):
         raise AssertionError(f"phase 14a launched a kernel: {launches}")
     names = [n for n, _ in worst if _ == "one"]
     print(f"phase 14a: {runs} partitioned steps ({', '.join(names)} reduced,"
@@ -4663,7 +4679,7 @@ def train_tp_recurrent_full(name, card):
             launches = {k: v + more[k] for k, v in launches.items()}
     finally:
         ops.mlstm_chunk_mode(0)
-    if any(launches.values()):
+    if any(launches[k] for k in FOUR):
         raise AssertionError(f"phase 14b {name} launched a kernel: "
                              f"{launches}")
     return launches
@@ -4912,9 +4928,8 @@ def check_tp_recurrent(card):
                            per_admission=False)
     finally:
         ops.mlstm_chunk_mode(0)
-    paths["xlstm-1.3b TP prefill, one decode shard (phase 14c)"] = {
-        "paged_decode": k1, "flash_attention": 0, "decode_attention": 0,
-        "ssd": k4}
+    paths["xlstm-1.3b TP prefill, one decode shard (phase 14c)"] = \
+        _counts(paged_decode=k1, ssd=k4)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5013,7 +5028,7 @@ def check_sp_small():
                                    else SMALL_LOSS_TOL)
                 want = D * M * _blocked_mambas(cfg, scfg)
                 if r["k4"] != want or any(
-                        v for k, v in r["launches"].items() if k != "ssd"):
+                        r["launches"][k] for k in FOUR if k != "ssd"):
                     raise AssertionError(f"{what}: launches "
                                          f"{r['launches']}, K4 {want} "
                                          f"expected")
@@ -5264,7 +5279,7 @@ def train_sp_full(arch, card):
             out["launches"] = _launch_counts()
             want = TP_TRAIN_STEPS * D * M * _blocked_mambas(cfg, scfg)
             if out["launches"]["ssd"] != want or any(
-                    v for k, v in out["launches"].items() if k != "ssd"):
+                    out["launches"][k] for k in FOUR if k != "ssd"):
                 raise AssertionError(f"15b {arch} {mode} sp={sp}: launches "
                                      f"{out['launches']}, K4 {want} "
                                      f"expected")
@@ -5540,12 +5555,13 @@ def check_long_sp(card):
 
 # ---------------------------------------------------------------- timing ----
 
-def time_ms(fn, reps=20, flush_bytes=64 << 20):
+def time_ms(fn, reps=20, flush_bytes=64 << 20, spin_cycles=SPIN_CYCLES):
     """Median ms of ``fn`` over ``reps`` launches, each after writing a
     buffer larger than L2 so every launch starts from a cold cache.  A
-    device-side spin of about 0.5 ms between the flush and the start event
-    keeps the card busy while the host enqueues ``fn``, so the events time
-    the device's work and not the host's launch overhead."""
+    device-side spin of ``spin_cycles`` (about 0.5 ms by default) between
+    the flush and the start event keeps the card busy while the host
+    enqueues ``fn``, so the events time the device's work and not the
+    host's launch overhead."""
     import torch
     flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
     for _ in range(3):
@@ -5553,7 +5569,7 @@ def time_ms(fn, reps=20, flush_bytes=64 << 20):
     ts = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin_cycles)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -7201,10 +7217,11 @@ def check_train_small():
 def check_adamw_streamed():
     """Phase 5b, the optimizer: adamw.update with its moments in pinned
     host memory (streamed through the card leaf by leaf on the side
-    stream) against the same update with the moments on the card, three
-    steps of the same gradients, with and without the int8 compressor:
-    the same arithmetic on the same device, so parameters and state must
-    be identical, bit for bit."""
+    stream) against the same eager ops with the moments on the card
+    (``adamw.eager_update``: ``update`` takes the fused pass there without
+    the compressor, phase 5e), three steps of the same gradients, with and
+    without the int8 compressor: the same arithmetic on the same device,
+    so parameters and state must be identical, bit for bit."""
     import torch
     from repro_torch.optim import adamw
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -7225,7 +7242,8 @@ def check_adamw_streamed():
             if on_host != state["m"]["ln"].is_pinned():
                 raise AssertionError("adamw: moments not placed as asked")
             for gr in grads:
-                adamw.update(gr, state, params, cfg)
+                (adamw.update if on_host else adamw.eager_update)(
+                    gr, state, params, cfg)
             out[on_host] = (params, state)
         for key in ("m", "v") + (("ef",) if compress else ()):
             for k in shapes:
@@ -7238,6 +7256,302 @@ def check_adamw_streamed():
     print("adamw check: 3 steps with the moments streamed from pinned host "
           "memory == with the moments on the card, bit for bit (params, "
           "m, v, and ef with the int8 compressor)", flush=True)
+
+
+# Phase 5e: the fused AdamW pass.  Its plain version's small leaves: every
+# pair of float32 and bfloat16 parameter and gradient, sizes off the vector
+# width, one element, a leaf of two chunks and one exactly a chunk; the
+# last leaf starts off 16 bytes (the element-by-element path).
+ADAMW_SMALL = [((1,), "bf16", "bf16"), ((3,), "f32", "f32"),
+               ((37,), "bf16", "f32"), ((130,), "f32", "bf16"),
+               ((6, 5), "bf16", "bf16"), ((70_001,), "bf16", "bf16"),
+               ((65_536,), "f32", "f32"), ((1_001,), "bf16", "bf16")]
+ADAMW_STEPS = 3
+# the bench cells' optimizer (bench/traffic/train.*.json); clip 1e3 leaves
+# the clip unengaged, and the pass then owes the eager ops every bit
+ADAMW_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=100_000, b1=0.9,
+                 b2=0.95, eps=1e-8, weight_decay=0.1)
+# With the clip engaged the fused norm sums in another order than the eager
+# one, so the clip's scale may differ in its last places: the norms within
+# ADAMW_NORM_REL of each other, and the moments within ADAMW_MOMENT_REL of
+# a moment's largest |value|.  lr equal bit for bit, and each side's
+# parameters equal bit for bit to the step its own moments give
+# (``_replayed``).
+ADAMW_NORM_REL = 1e-6
+ADAMW_MOMENT_REL = 1e-5
+ADAMW_LAUNCHES = 4           # the most device ops a fused step may issue
+
+
+def _adamw_copy(x):
+    """A copy of ``x`` on its device as far past a 16-byte boundary as
+    ``x`` is."""
+    import torch
+    off = (x.data_ptr() % 16) // x.element_size()
+    buf = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+    return buf[off:].view(x.shape).copy_(x)
+
+
+def _adamw_leaves(shapes, dtypes, seed, unaligned=False):
+    """Parameters (float32 or bf16, about 0.02 an element) on the card, the
+    last one element past a 16-byte boundary if ``unaligned``, and
+    ADAMW_STEPS steps of gradients of about 1e-4 an element."""
+    import torch
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = {}
+    for i, (sh, (pd, _)) in enumerate(zip(shapes, dtypes)):
+        x = (torch.randn(sh, generator=g, device="cuda") * 0.02).to(dt[pd])
+        if unaligned and i == len(shapes) - 1:
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+            x = buf[1:].view(sh).copy_(x)
+        params[f"leaf{i}"] = x
+    grads = [{k: (torch.randn(v.shape, generator=g, device="cuda") *
+                  1e-4).to(dt[gd]) for (k, v), (_, gd) in
+              zip(params.items(), dtypes)} for _ in range(ADAMW_STEPS)]
+    return params, grads
+
+
+def _equal_leaves(a, b) -> int:
+    """How many leaves of two (params, state) pairs are equal bit for bit,
+    the parameter and both moments."""
+    (pa, sa), (pb, sb) = a, b
+    return sum(all(bool((x == y).all()) for x, y in
+                   ((pa[k], pb[k]), (sa["m"][k], sb["m"][k]),
+                    (sa["v"][k], sb["v"][k]))) for k in pa)
+
+
+def _bf16_step(x):
+    """One bf16 step (the distance to the next bf16 value up) at each of
+    ``x``'s nonzero |values| (float32); 0 where x is 0."""
+    import torch
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, torch.zeros_like(x),
+                       torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def _replayed(p0, m, v, count, lr, cfg):
+    """The parameter one AdamW step from ``p0`` gives with ``m`` and ``v``,
+    the moments after that step, at the step count ``count`` and ``lr``:
+    ``eager_update``'s float32 operations, rounded to p0's dtype."""
+    import torch
+    b1c = 1 - cfg.b1 ** count.float()
+    b2c = 1 - cfg.b2 ** count.float()
+    upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + \
+        cfg.weight_decay * p0.float()
+    return (p0.float() - lr * upd).to(p0.dtype)
+
+
+def _step_gaps(a, b, before, cfg) -> dict:
+    """The gaps between two results (params, state, metrics) of one step
+    from the same state, whose parameters were ``before``: ``m`` and ``v``,
+    the largest gap relative to a moment's largest |value|; ``replayed``,
+    the leaves whose parameter equals, bit for bit on both sides, the step
+    its side's own moments, count and lr give (``_replayed``); ``apart``,
+    the most bf16 steps (of the larger |value|) between the two sides'
+    parameters, and ``param_share``, the share of the parameters' elements
+    that differ; ``equal``, the leaves equal bit for bit."""
+    import torch
+    (pa, sa, ma), (pb, sb, mb) = a, b
+    out = {"m": 0.0, "v": 0.0, "replayed": 0, "apart": 0.0,
+           "param_share": 0.0, "equal": _equal_leaves(a[:2], b[:2])}
+    n = 0
+    for k in pa:
+        for key in ("m", "v"):
+            u, w = sa[key][k], sb[key][k]
+            out[key] = max(out[key], float((u - w).abs().max()) /
+                           max(float(w.abs().max()), 1e-30))
+        out["replayed"] += all(
+            bool((_replayed(before[k], st["m"][k], st["v"][k], st["count"],
+                            met["lr"], cfg) == p[k]).all())
+            for p, st, met in ((pa, sa, ma), (pb, sb, mb)))
+        x, y = pa[k].float(), pb[k].float()
+        step = _bf16_step(torch.maximum(x.abs(), y.abs()))
+        out["apart"] = max(out["apart"], float(torch.where(
+            x == y, torch.zeros_like(x), (x - y).abs() / step).max()))
+        out["param_share"] += float((x != y).sum())
+        n += x.numel()
+    out["param_share"] /= n
+    return out
+
+
+def check_adamw_fused(card):
+    """Phase 5e, the fused AdamW pass (``kernels/adamw.py``, the kernels of
+    ``csrc/adamw.cu``).  (a) ADAMW_STEPS steps of the kernels against
+    their plain version (``kernels/ref.adamw_fused_ref``, run on the card:
+    the same chunks, every sum in the same order) on ADAMW_SMALL's leaves:
+    every leaf, the norm and lr equal bit for bit.  (b) smollm-360m's
+    leaves at full width (bf16 parameters and gradients, float32 moments on
+    the card): ADAMW_STEPS steps of ``eager_update``, and before each, one
+    step of ``update`` (the fused pass) from a copy of the same state.
+    With the clip not engaged (clip 1e3) every leaf equal bit for bit;
+    with it engaged (clip 1) the norms within ADAMW_NORM_REL and the
+    moments within ADAMW_MOMENT_REL; at both, lr equal and every
+    parameter, on both sides, the step its side's moments give, bit for
+    bit.
+    (c) The device ops of one step under the profiler (at most
+    ADAMW_LAUNCHES fused) and the wrapper's launches, counted from
+    ``reset_counts``.  (d) The fused step's device time (CUDA events after
+    a spin that covers the host's table packing) against its bound, 22 B a
+    parameter at HBM's rate; the host's ms a step of both paths.  Returns
+    the kernel table's record."""
+    import dataclasses as dc
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as fused
+    from repro_torch.kernels import ref
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    cfg = adamw.OptConfig(**ADAMW_OPT, clip_norm=1e-3)
+    shapes = [sh for sh, _, _ in ADAMW_SMALL]
+    dtypes = [(pd, gd) for _, pd, gd in ADAMW_SMALL]
+    params, grads = _adamw_leaves(shapes, dtypes, 21, unaligned=True)
+    sides = {}
+    for side in ("kernel", "plain"):
+        p = {k: _adamw_copy(v) for k, v in params.items()}
+        st = adamw.init(p, cfg)
+        names, norms = list(p), []
+        for gr in grads:
+            args = ([p[k] for k in names], [gr[k] for k in names],
+                    [st["m"][k] for k in names], [st["v"][k] for k in names],
+                    st["count"], cfg)
+            if side == "kernel":
+                st["count"], n, lr = fused.fused_update(*args)
+            else:
+                st["count"], n, lr = ref.adamw_fused_ref(*args)
+            norms.append((n.item(), lr.item()))
+        sides[side] = (p, st, norms)
+    last = f"leaf{len(shapes) - 1}"
+    if sides["kernel"][0][last].data_ptr() % 16 == 0:
+        raise AssertionError("adamw 5e-a: the unaligned leaf is aligned")
+    equal = _equal_leaves(sides["kernel"][:2], sides["plain"][:2])
+    kn, pn = sides["kernel"][2], sides["plain"][2]
+    if equal != len(shapes) or kn != pn:
+        raise AssertionError(f"adamw 5e-a: {equal} of {len(shapes)} leaves "
+                             f"equal bit for bit; (norm, lr) each step "
+                             f"kernel {kn}, plain {pn}")
+    print(f"adamw check 5e-a: {ADAMW_STEPS} steps of the fused kernels "
+          f"against their plain version on {len(shapes)} leaves (f32/bf16 "
+          f"pairs, 1 to 70,001 elements, one off 16 bytes): every leaf "
+          f"equal bit for bit, and (norm, lr) each step {kn}", flush=True)
+    del sides, params, grads
+
+    full = dc.replace(get_config("smollm-360m"), dtype="bfloat16")
+    like = model.Model(full, device="meta", dtype=torch.bfloat16)
+    shapes = [tuple(p.shape) for _, p in like.named_parameters()]
+    del like
+    n_params = sum(int(np.prod(sh)) for sh in shapes)
+    params, grads = _adamw_leaves(shapes, [("bf16", "bf16")] * len(shapes),
+                                  22)
+    record = {"leaves": len(shapes), "parameters": n_params}
+    for clip in (1.0, 1e3):
+        c = adamw.OptConfig(**ADAMW_OPT, clip_norm=clip)
+        p = {k: _adamw_copy(v) for k, v in params.items()}
+        st = adamw.init(p, c)
+        if not adamw.fused_path(grads[0], st, p, c):
+            raise AssertionError("adamw 5e-b: update would not fuse")
+        worst, metrics = {}, []
+        for s, gr in enumerate(grads):
+            before = {k: v.clone() for k, v in p.items()}
+            pf = {k: _adamw_copy(v) for k, v in p.items()}
+            sf = {"count": st["count"].clone(),
+                  **{key: {k: _adamw_copy(v) for k, v in st[key].items()}
+                     for key in ("m", "v")}}
+            _, sf, mf = adamw.update(gr, sf, pf, c)
+            _, st, me = adamw.eager_update(gr, st, p, c)
+            gaps = _step_gaps((pf, sf, mf), (p, st, me), before, c)
+            got = [(float(m["grad_norm"]), float(m["lr"])) for m in (mf, me)]
+            metrics.append(got)
+            what = f"adamw 5e-b clip {clip:g} step {s}: gaps {gaps}, " \
+                   f"(grad_norm, lr) fused {got[0]}, eager {got[1]}"
+            if got[0][1] != got[1][1] or \
+                    abs(got[0][0] - got[1][0]) > ADAMW_NORM_REL * got[1][0]:
+                raise AssertionError(f"{what}: lr not equal or norms apart")
+            if max(got[0][0], got[1][0]) <= clip and \
+                    gaps["equal"] != len(shapes):
+                raise AssertionError(f"{what}: the clip is not engaged, "
+                                     f"and not every leaf is equal")
+            if not (gaps["replayed"] == len(shapes)
+                    and gaps["m"] <= ADAMW_MOMENT_REL
+                    and gaps["v"] <= ADAMW_MOMENT_REL):
+                raise AssertionError(f"{what}: past the limits")
+            worst = {k: min(worst.get(k, v), v) if k in ("equal", "replayed")
+                     else max(worst.get(k, v), v) for k, v in gaps.items()}
+            del pf, sf, before
+        record[f"gaps_clip_{clip:g}"] = worst
+        print(f"adamw check 5e-b: smollm-360m's {len(shapes)} leaves "
+              f"({n_params:,} parameters, bf16, moments f32 on the card), "
+              f"clip {clip:g}, {ADAMW_STEPS} steps, fused against eager from "
+              f"the same state each step: largest gaps m {worst['m']:.3g}, v "
+              f"{worst['v']:.3g} (limit {ADAMW_MOMENT_REL:g}); every step, "
+              f"{worst['replayed']} of {len(shapes)} leaves' parameters the "
+              f"step their own moments give, bit for bit, on both sides; "
+              f"parameters at most {worst['apart']:.3g} bf16 steps apart, "
+              f"{100 * worst['param_share']:.4f}% of them differing; at "
+              f"least {worst['equal']} of {len(shapes)} leaves equal bit for "
+              f"bit; (grad_norm, lr) fused, eager each step {metrics}",
+              flush=True)
+        del p, st
+    torch.cuda.empty_cache()
+
+    c = adamw.OptConfig(**ADAMW_OPT, clip_norm=1.0)
+    st = adamw.init(params, c)
+    adamw.update(grads[0], st, params, c)
+    ops = {}
+    for side, fn in (("fused", adamw.update), ("eager", adamw.eager_update)):
+        torch.cuda.synchronize()
+        reset_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(grads[1], st, params, c)
+            torch.cuda.synchronize()
+        ops[side] = (sum(e.count for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA),
+                     _launch_counts()["adamw"])
+    if not 0 < ops["fused"][0] <= ADAMW_LAUNCHES or ops["fused"][1] != 2 \
+            or ops["eager"][1]:
+        raise AssertionError(f"adamw 5e-c: one step's device ops and the "
+                             f"wrapper's launches: {ops}")
+    print(f"adamw check 5e-c: one step's device ops (kernels and copies) "
+          f"under the profiler: fused {ops['fused'][0]} (the wrapper's "
+          f"launches {ops['fused'][1]}, plus the table's copy), eager "
+          f"{ops['eager'][0]} (the wrapper's launches {ops['eager'][1]})",
+          flush=True)
+
+    def host_ms(fn, reps):
+        ts = []
+        for i in range(reps):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            fn(grads[i % ADAMW_STEPS], st, params, c)
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - a))
+        return float(np.median(ts))
+
+    ms = time_ms(lambda: adamw.update(grads[2], st, params, c), reps=20,
+                 spin_cycles=20 * SPIN_CYCLES)
+    bound = n_params * fused.bytes_per_param(2, 2) / HBM_BYTES_PER_S * 1e3
+    fused_host, eager_host = host_ms(adamw.update, 10), \
+        host_ms(adamw.eager_update, 5)
+    record.update(ms=ms, bound_ms=bound, plain_ms=eager_host,
+                  fused_host_ms=fused_host, device_ops=ops["fused"][0],
+                  eager_device_ops=ops["eager"][0],
+                  launches_a_step=ops["fused"][1], card=card)
+    print(f"adamw time: the fused step {ms:.4f} ms on the card against its "
+          f"bound {bound:.4f} ms ({n_params * 22 / 1e9:.3f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {100 * bound / ms:.1f}% of "
+          f"it); a step on the host clock, synchronised: fused "
+          f"{fused_host:.3f} ms, eager {eager_host:.3f} ms; {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    if ms > 2 * bound:
+        raise AssertionError(f"adamw: {ms:.4f} ms is past twice its bound "
+                             f"{bound:.4f} ms")
+    del params, grads, st
+    torch.cuda.empty_cache()
+    return record
 
 
 def plan_step(cfg, B, S, card, **kw):
@@ -7603,44 +7917,51 @@ def main() -> int:
     k4.update(check_ssd_autograd(card))
     check_train_small()
     check_adamw_streamed()
+    a1 = check_adamw_fused(card)
+    reset_counts()
     smollm_mi = train_smollm(card)["mi"]
+    a1["launches_by_path"] = {
+        "smollm-360m training, the CLI and four modes (phase 5c)":
+            _launch_counts()["adamw"]}
     k4["launches_by_path"]["zamba2-7b training, offload (phase 5d)"] = \
         train_zamba(card)
+    a1["launches_by_path"]["zamba2-7b training, offload (phase 5d)"] = \
+        _launch_counts()["adamw"]
     print(f"training phases took {time.perf_counter() - t0:.1f} s",
           flush=True)
     release_pinned()
     torch.cuda.empty_cache()
     k1["launches_by_path"].update(check_families(card))
-    # phase 7's and phase 8's paths run none of the four kernels: each
-    # path's count, read after every run of it
+    # phase 7's and phase 8's paths run none of K1-K4: each path's count,
+    # read after every run of it; their training steps run A1 where the
+    # moments live on the card
     paths = check_recurrent(card)
     paths.update(check_modality(card))
-    # phase 9's paths (MoE training) run none of the four kernels either;
-    # phase 10's run K1 alone
+    # phase 9's paths (MoE training) run none of K1-K4 either; phase 10's
+    # run K1 alone
     paths.update(check_moe_train(card))
     for what, n in check_disagg_families(card).items():
-        paths[what] = {"paged_decode": n, "flash_attention": 0,
-                       "decode_attention": 0, "ssd": 0}
+        paths[what] = _counts(paged_decode=n)
     # phase 11's TP admissions run no kernel; decode runs K1 on each shard
     for what, n in check_tp(card).items():
-        paths[what] = {"paged_decode": n, "flash_attention": 0,
-                       "decode_attention": 0, "ssd": 0}
-    # phase 12's partitioned training runs none of the four kernels
+        paths[what] = _counts(paged_decode=n)
+    # phase 12's partitioned training runs none of K1-K4
     paths.update(check_tp_train(card, mi=smollm_mi))
     # phase 13's runs K4 on each rank's SSM heads, and K1 on zamba2's
     # shared-block decode
     paths.update(check_tp_families(card))
     # phase 14's (the recurrences and the modality stubs partitioned) run
-    # none of the four kernels
+    # none of K1-K4
     paths.update(check_tp_recurrent(card))
     # phase 15's run K4 on zamba2-7b's Megatron-SP training alone
     paths.update(check_long_sp(card))
     for what, tally in paths.items():
         for rec, name in ((k1, "paged_decode"), (k2, "flash_attention"),
-                          (k3, "decode_attention"), (k4, "ssd")):
+                          (k3, "decode_attention"), (k4, "ssd"),
+                          (a1, "adamw")):
             rec.setdefault("launches_by_path", {})[what] = tally[name]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, a1]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

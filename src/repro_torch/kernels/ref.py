@@ -13,7 +13,9 @@ of the Mamba2 SSD oracles ``ssd_ref`` (sequential), ``ssd_chunked_ref``
 (the chunked algorithm the SSD kernel computes) and ``ssd_decode_ref`` (one
 decode step, which has no kernel in either package); and of the xLSTM
 oracles ``mlstm_ref`` (sequential), ``mlstm_chunked_ref`` and ``slstm_ref``,
-which are the op itself on every device, in both packages.
+which are the op itself on every device, in both packages.  And the
+algorithm of the fused AdamW pass ``csrc/adamw.cu`` (``adamw_fused_ref``),
+which replaces no Pallas kernel: the JAX package's update is XLA's.
 
 ``step_loop`` runs the token-by-token loops (the sequential mLSTM and the
 sLSTM here, the LSTM in ``models/xlstm.py``): every trip, except under
@@ -29,6 +31,8 @@ import threading
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import adamw as fused
 
 NEG_INF = -2.0 ** 20
 
@@ -703,3 +707,89 @@ def slstm_ref(x_ifzo, *, state=None, r_ifzo=None):
     out = torch.stack(hs, dim=0).permute(2, 0, 1, 3)     # (B, S, H, D)
     return out.to(x_ifzo.dtype), tuple(s.transpose(0, 1)
                                        for s in (c, n, m, h))
+
+
+# ---------------------------------------------------------------- AdamW ----
+
+def _strided(x, threads: int):
+    """Thread t's sum of x[t], x[t + threads], ... in that order, for every
+    t < threads (float32)."""
+    rows = -(-x.numel() // threads)
+    pad = torch.zeros(rows * threads, dtype=torch.float32, device=x.device)
+    pad[:x.numel()] = x
+    acc = torch.zeros(threads, dtype=torch.float32, device=x.device)
+    for r in pad.view(rows, threads):
+        acc = acc + r
+    return acc
+
+
+def _tree(acc):
+    """The kernel's halving tree over the threads' sums."""
+    s = acc.numel()
+    while s > 1:
+        s //= 2
+        acc = acc[:s] + acc[s:2 * s]
+    return acc[0]
+
+
+def _chunk_sumsq(x, threads: int, vector: bool):
+    """One chunk's sum of squares (x float32) in the kernel's order: thread
+    t sums its vectors t, t + threads, ... element by element, then its
+    element of the tail past the last whole vector; then the tree."""
+    sq = x * x
+    nvec = x.numel() // fused.VEC if vector else 0
+    acc = torch.zeros(threads, dtype=torch.float32, device=x.device)
+    if nvec:
+        rows = -(-nvec // threads)
+        body = torch.zeros(rows * threads * fused.VEC, dtype=torch.float32,
+                           device=x.device)
+        body[:nvec * fused.VEC] = sq[:nvec * fused.VEC]
+        for r in body.view(rows, threads, fused.VEC):
+            for k in range(fused.VEC):
+                acc = acc + r[:, k]
+    tail = sq[nvec * fused.VEC:]
+    if tail.numel():
+        acc = acc + _strided(tail, threads)
+    return _tree(acc)
+
+
+def adamw_fused_ref(params, grads, ms, vs, count, cfg, *,
+                    chunk: int = fused.CHUNK, threads: int = fused.THREADS):
+    """The fused AdamW pass (``csrc/adamw.cu``) in plain torch, the same
+    chunks and every sum in the same order: each leaf's gradient cut into
+    chunks of ``chunk`` elements, each chunk's sum of squares, those partials
+    summed by ``threads`` threads strided and a halving tree; then the clip's
+    scale, the schedule and the update in ``optim/adamw.eager_update``'s
+    float32 operations.  ``params``, ``grads``, ``ms``, ``vs``: lists of one
+    leaf's tensors each, the parameters float32 or bfloat16, the moments
+    float32; ``count``: the int32 step count; ``cfg``: an
+    ``optim.adamw.OptConfig`` without the compressor.  Writes the parameters
+    and the moments in place; returns (count + 1, the norm before the clip,
+    lr)."""
+    if chunk % fused.VEC or threads & (threads - 1):
+        raise ValueError(f"chunk {chunk} is not a multiple of {fused.VEC}, "
+                         f"or {threads} threads not a power of two")
+    parts = []
+    for p, g, m, v in zip(params, grads, ms, vs):
+        vector = fused.vector_path(p, g, m, v)
+        x = g.reshape(-1).float()
+        for lo in range(0, x.numel(), chunk):
+            parts.append(_chunk_sumsq(x[lo:lo + chunk], threads, vector))
+    norm = torch.sqrt(_tree(_strided(torch.stack(parts), threads)))
+    (lr0, inv_warm, warmup, inv_prog, pi, b1, b2, omb1, omb2, eps, wd,
+     clip) = fused.constants(cfg)
+    scale = torch.clamp(torch.reciprocal(torch.clamp(norm, min=1e-8)) * clip,
+                        max=1.0)
+    count = count + 1
+    step = count.float()
+    warm = torch.clamp(step * inv_warm, max=1.0)
+    prog = torch.clamp((step - warmup) * inv_prog, 0.0, 1.0)
+    lr = lr0 * warm * 0.5 * (1 + torch.cos(pi * prog))
+    b1c, b2c = 1 - torch.pow(b1, step), 1 - torch.pow(b2, step)
+    for p, g, m, v in zip(params, grads, ms, vs):
+        g = g.float() * scale
+        m.copy_(b1 * m + omb1 * g)
+        v.copy_(b2 * v + omb2 * (g * g))
+        upd = (m / b1c) / (torch.sqrt(v / b2c) + eps) + wd * p.float()
+        p.copy_((p.float() - lr * upd).to(p.dtype))
+    return count, norm, lr

@@ -11,6 +11,14 @@ moments keyed by parameter name and an int32 step count.  ``update``
 writes the parameters and the state in place and returns them, where the
 reference returns new ones.
 
+On a CUDA card with the moments on the card, no compressor and no leaf
+split over mesh axes, ``update`` is one multi-tensor pass of hand-written
+kernels (``kernels/adamw.py``: a copy of the leaf table and two launches a
+step, the clip's norm, the schedule and the bias corrections computed on
+the card); ``fused_path`` says when, from what the inputs show.  Everywhere
+else it is ``eager_update``'s ops, leaf by leaf, which are also the plain
+version the pass is held against.
+
 With ``init(..., offload=True)`` on a CUDA card the moments live in pinned
 host memory (``core.offload.opt_state_placement``) and ``update`` streams
 them through the device leaf by leaf on the card's side stream: leaf i + 1
@@ -32,7 +40,9 @@ from typing import Iterable, Mapping
 import torch
 from torch import nn
 
+from repro_torch import telemetry
 from repro_torch.core.offload import opt_state_placement, side_stream
+from repro_torch.kernels import adamw as fused
 from repro_torch.sharding import all_reduce_over, split_axes
 
 
@@ -115,11 +125,50 @@ def compress_decompress(g, ef, axes=()):
     return deq, t - deq
 
 
+def fused_path(grads: dict, state: dict, params: dict,
+               cfg: OptConfig) -> bool:
+    """Whether ``update`` takes the fused pass: every leaf one the kernels
+    take (``kernels/adamw.supports``), on one CUDA card with the step count
+    and at least one element in all; the moments on that card (not
+    streamed from pinned host memory); no compressor; and no leaf a rank's
+    block over mesh axes (whose norm needs an all-reduce between the two
+    kernels)."""
+    if cfg.compress_grads or not params:
+        return False
+    dev = next(iter(params.values())).device
+    if dev.type != "cuda" or state["count"].device != dev or \
+            not any(p.numel() for p in params.values()):
+        return False
+    return all(p.device == dev and not split_axes(p)
+               and fused.supports(p, grads[n], state["m"][n], state["v"][n])
+               for n, p in params.items())
+
+
 @torch.no_grad()
 def update(grads, state: dict, params, cfg: OptConfig):
     """One AdamW step.  Returns (params, state, metrics), the first two
     updated in place; ``metrics["grad_norm"]`` is the norm before the
-    clip."""
+    clip.  The fused pass where ``fused_path`` says so, else
+    ``eager_update``."""
+    params, grads = _named(params), _named(grads)
+    dense = {n: g.contiguous() for n, g in grads.items()}
+    if not fused_path(dense, state, params, cfg):
+        telemetry.count("adamw.eager_leaves", len(params))
+        return eager_update(grads, state, params, cfg)
+    telemetry.count("adamw.fused_leaves", len(params))
+    names = list(params)
+    count, gnorm, lr = fused.fused_update(
+        [params[n] for n in names], [dense[n] for n in names],
+        [state["m"][n] for n in names], [state["v"][n] for n in names],
+        state["count"], cfg)
+    state["count"] = count
+    return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def eager_update(grads, state: dict, params, cfg: OptConfig):
+    """``update``'s step as eager ops, leaf by leaf (the moments streamed
+    through the card where they live in pinned host memory)."""
     params, grads = _named(params), _named(grads)
     count = state["count"] + 1
     axes = {n: split_axes(p) for n, p in params.items()}

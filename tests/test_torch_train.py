@@ -25,13 +25,14 @@ from repro.models.layers import split_params
 from repro.optim import adamw as ref_adamw
 from repro.runtime import synthetic as ref_synthetic
 from repro.train import loop as ref_loop
-from repro_torch import runtime
+from repro_torch import runtime, telemetry
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_config
 from repro_torch.core import offload
 from repro_torch.core.hardware import PAPER_HM
 from repro_torch.core.profiler import TraceProfile
 from repro_torch.data import pipeline
+from repro_torch.kernels import ref as kref
 from repro_torch.models import model
 from repro_torch.optim import adamw
 from repro_torch.runtime import synthetic
@@ -190,35 +191,221 @@ def _opt_case(seed=0):
     return params, grads
 
 
-@pytest.mark.parametrize("on_host", [False, True])
-@pytest.mark.parametrize("compress", [False, True])
-def test_adamw_update_matches_reference(compress, on_host):
-    """Three steps (the second clipped) from the same parameters: params,
-    moments, error feedback, count, grad norm and lr equal the
-    reference's at float32 rounding (OPT_TOL)."""
-    cfg_kw = dict(lr=1e-2, warmup_steps=2, total_steps=6, clip_norm=2.0,
+# the fused pass's leaves: sizes off its vector width of 4, one element, a
+# matrix, and leaves over several of the test's chunks of 16 elements
+FUSED_SHAPES = {"w": (6, 5), "b": (5,), "one": (1,), "long": (130,),
+                "odd": (37,)}
+FUSED_CHUNK, FUSED_THREADS = 16, 4
+# one bf16 step apart: an element of a bf16 leaf may round the other way
+# where two float32 results differ in their last place
+BF16_TOL = dict(atol=0.0, rtol=2.0 ** -7)
+
+
+def _fused_case(dtype, seed=1):
+    """Parameters and three steps of gradients for the fused pass, float32
+    arrays holding ``dtype``'s values (exact in both packages)."""
+    rng = np.random.default_rng(seed)
+
+    def held(x):
+        return torch.from_numpy(x.astype(np.float32)).to(dtype).float() \
+            .numpy()
+    params = {k: held(rng.standard_normal(sh))
+              for k, sh in FUSED_SHAPES.items()}
+    grads = [{k: held(rng.standard_normal(v.shape) * s)
+              for k, v in params.items()} for s in (0.5, 3.0, 0.1)]
+    return params, grads
+
+
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` starting one element past a 16-byte boundary, which
+    the kernel reads element by element."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+ADAMW_CASES = [pytest.param("eager", torch.float32, 2.0, c, h,
+                            id=f"{c}-{h}")
+               for c in (False, True) for h in (False, True)] + \
+    [pytest.param("fused", dt, clip, False, False,
+                  id=f"fused-{str(dt)[6:]}-{name}")
+     for dt in (torch.float32, torch.bfloat16)
+     for clip, name in ((2.0, "clipped"), (1e3, "unclipped"))]
+
+
+@pytest.mark.parametrize("impl,dtype,clip,compress,on_host", ADAMW_CASES)
+def test_adamw_update_matches_reference(impl, dtype, clip, compress,
+                                        on_host):
+    """Three steps from the same parameters: params, moments, error
+    feedback, count, grad norm and lr equal the reference's at float32
+    rounding (OPT_TOL).  ``eager``: ``update`` on the CPU (the second step
+    clipped).  ``fused``: the fused pass's algorithm in plain torch
+    (``kernels/ref.adamw_fused_ref``, on chunks of 16 elements summed by 4
+    threads, one leaf off 16 bytes) against the reference and against
+    ``update``, in float32 and bfloat16, the clip engaged on the second
+    step or never; a bfloat16 parameter within one bf16 step (BF16_TOL)."""
+    cfg_kw = dict(lr=1e-2, warmup_steps=2, total_steps=6, clip_norm=clip,
                   compress_grads=compress)
     cfg_j, cfg_t = ref_adamw.OptConfig(**cfg_kw), adamw.OptConfig(**cfg_kw)
-    params, grads = _opt_case()
-    pj = {k: jnp.asarray(v) for k, v in params.items()}
+    params, grads = _opt_case() if impl == "eager" else _fused_case(dtype)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    pj = {k: jnp.asarray(v).astype(jdt) for k, v in params.items()}
     sj = ref_adamw.init(pj, cfg_j)
-    pt = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    pt = {k: torch.from_numpy(v.copy()).to(dtype) for k, v in params.items()}
     st_ = adamw.init(pt, cfg_t, offload=on_host)
+    sides = [("update", pt, st_)]
+    if impl == "fused":
+        pf = {k: torch.from_numpy(v.copy()).to(dtype)
+              for k, v in params.items()}
+        pf["odd"] = _unaligned(pf["odd"])
+        sides.append(("fused", pf, adamw.init(pf, cfg_t)))
+    ptol = BF16_TOL if dtype == torch.bfloat16 else OPT_TOL
     for g in grads:
-        pj, sj, mj = ref_adamw.update({k: jnp.asarray(v) for k, v in
-                                       g.items()}, sj, pj, cfg_j)
-        pt, st_, mt = adamw.update({k: torch.from_numpy(v) for k, v in
-                                    g.items()}, st_, pt, cfg_t)
-        for k in params:
-            torch.testing.assert_close(pt[k], torch.from_numpy(
-                np.array(pj[k])), **OPT_TOL)
-            for key in ("m", "v") + (("ef",) if compress else ()):
-                torch.testing.assert_close(st_[key][k], torch.from_numpy(
-                    np.array(sj[key][k])), **OPT_TOL)
-        assert int(st_["count"]) == int(sj["count"])
-        for key in ("grad_norm", "lr"):
-            torch.testing.assert_close(mt[key], torch.tensor(
-                float(mj[key])), **OPT_TOL)
+        gj = {k: jnp.asarray(v).astype(jdt) for k, v in g.items()}
+        pj, sj, mj = ref_adamw.update(gj, sj, pj, cfg_j)
+        gt = {k: torch.from_numpy(v).to(dtype) for k, v in g.items()}
+        out = {}
+        for side, p, s in sides:
+            if side == "update":
+                _, _, out[side] = adamw.update(gt, s, p, cfg_t)
+                continue
+            names = list(p)
+            s["count"], gnorm, lr = kref.adamw_fused_ref(
+                [p[k] for k in names], [gt[k] for k in names],
+                [s["m"][k] for k in names], [s["v"][k] for k in names],
+                s["count"], cfg_t, chunk=FUSED_CHUNK, threads=FUSED_THREADS)
+            out[side] = {"grad_norm": gnorm, "lr": lr}
+        for side, p, s in sides:
+            for k in params:
+                torch.testing.assert_close(
+                    p[k].float(), torch.from_numpy(
+                        np.array(pj[k].astype(jnp.float32))), **ptol)
+                for key in ("m", "v") + (("ef",) if compress else ()):
+                    torch.testing.assert_close(s[key][k], torch.from_numpy(
+                        np.array(sj[key][k])), **OPT_TOL)
+            assert int(s["count"]) == int(sj["count"])
+            for key in ("grad_norm", "lr"):
+                torch.testing.assert_close(out[side][key], torch.tensor(
+                    float(mj[key])), **OPT_TOL)
+        if impl == "fused":
+            (_, pe, se), (_, pf, sf) = sides
+            for k in params:
+                torch.testing.assert_close(pf[k].float(), pe[k].float(),
+                                           **ptol)
+                for key in ("m", "v"):
+                    torch.testing.assert_close(sf[key][k], se[key][k],
+                                               **OPT_TOL)
+            for key in ("grad_norm", "lr"):
+                torch.testing.assert_close(out["fused"][key],
+                                           out["update"][key], **OPT_TOL)
+
+
+class _Leaf:
+    """A stand-in for a tensor on a device this machine need not have: what
+    ``adamw.fused_path`` reads of one."""
+
+    def __init__(self, device, dtype=torch.float32, *, numel=6,
+                 contiguous=True):
+        self.device, self.dtype = torch.device(device), dtype
+        self.shape = torch.Size((numel,))
+        self._numel, self._contiguous = numel, contiguous
+
+    def numel(self):
+        return self._numel
+
+    def is_contiguous(self):
+        return self._contiguous
+
+
+# (what differs from a step on the card with its moments there, whether
+# the fused pass takes it)
+FUSED_PATH_CASES = {
+    "card": ({}, True),
+    "card-fp32": ({"p_dtype": torch.float32, "g_dtype": torch.float32},
+                  True),
+    "cpu": ({"device": "cpu", "m_device": "cpu"}, False),
+    "pinned-moments": ({"m_device": "cpu"}, False),
+    "moments-on-another-card": ({"m_device": "cuda:1"}, False),
+    "compressor": ({"compress": True}, False),
+    "fp16-params": ({"p_dtype": torch.float16}, False),
+    "fp16-grads": ({"g_dtype": torch.float16}, False),
+    "strided-param": ({"contiguous": False}, False),
+    "strided-grad": ({"g_contiguous": False}, False),
+    "moments-of-another-shape": ({"m_numel": 5}, False),
+    "count-on-the-host": ({"count_device": "cpu"}, False),
+    "no-elements": ({"numel": 0, "m_numel": 0}, False),
+}
+
+
+@pytest.mark.parametrize("case", FUSED_PATH_CASES)
+def test_adamw_fused_path_predicate(case):
+    """``update`` takes the fused pass only for parameters on a CUDA card
+    with their moments on that card (not streamed from pinned host memory)
+    and no compressor, each leaf one the kernels take (float32 or bfloat16,
+    one shape, contiguous: ``kernels/adamw.supports``); checked through the
+    predicate with stand-in leaves, since this machine has no card."""
+    kw, want = FUSED_PATH_CASES[case]
+    dev = kw.get("device", "cuda:0")
+    names = ("a", "b")
+    numel = kw.get("numel", 6)
+    params = {n: _Leaf(dev, kw.get("p_dtype", torch.bfloat16), numel=numel,
+                       contiguous=kw.get("contiguous", True)) for n in names}
+    grads = {n: _Leaf(dev, kw.get("g_dtype", torch.bfloat16), numel=numel,
+                      contiguous=kw.get("g_contiguous", True))
+             for n in names}
+    state = {k: {n: _Leaf(kw.get("m_device", dev),
+                          numel=kw.get("m_numel", numel)) for n in names}
+             for k in ("m", "v")}
+    state["count"] = _Leaf(kw.get("count_device", dev), torch.int32, numel=1)
+    cfg = adamw.OptConfig(compress_grads=kw.get("compress", False))
+    assert adamw.fused_path(grads, state, params, cfg) is want
+
+
+def test_adamw_counts_its_path():
+    """The recorder's ``adamw.eager_leaves`` counts the leaves of every
+    eager step (every step on the CPU); ``adamw.fused_leaves`` stays out."""
+    params, grads = _opt_case()
+    pt = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    cfg = adamw.OptConfig()
+    state = adamw.init(pt, cfg)
+    telemetry.enable()
+    try:
+        for g in grads:
+            adamw.update({k: torch.from_numpy(v) for k, v in g.items()},
+                         state, pt, cfg)
+        _, counters = telemetry.drain()
+    finally:
+        telemetry.disable()
+    assert counters == {"adamw.eager_leaves": 3 * len(params)}
+
+
+def test_adamw_fused_table():
+    """The fused pass's table: a zero header, then one row a leaf with an
+    element (an empty leaf has none), its first chunk the chunks before
+    it, and its flags (bf16 parameter, bf16 gradient, read in vectors where
+    all four tensors start on 16 bytes); a leaf ``supports`` refuses
+    raises."""
+    from repro_torch.kernels import adamw as fused
+    leaves = [(torch.zeros(5, 7, dtype=torch.bfloat16),
+               torch.zeros(5, 7, dtype=torch.bfloat16)),
+              (torch.zeros(0), torch.zeros(0)),
+              (_unaligned(torch.zeros(3)), torch.zeros(3)),
+              (torch.zeros(40), torch.zeros(40, dtype=torch.bfloat16))]
+    ps, gs = [p for p, _ in leaves], [g for _, g in leaves]
+    ms = [torch.zeros(p.shape) for p in ps]
+    vs = [torch.zeros(p.shape) for p in ps]
+    rows, n, chunks = fused.pack_table(ps, gs, ms, vs, chunk=16)
+    assert (n, chunks) == (3, 3 + 1 + 3)
+    assert rows.shape == (4, 8) and not rows[0].any()
+    assert [r[4:].tolist() for r in rows[1:]] == [
+        [35, 0, 1 | 2 | 4, 0], [3, 3, 0, 0], [40, 4, 2 | 4, 0]]
+    assert rows[1, :4].tolist() == [t.data_ptr() for t in
+                                    (ps[0], gs[0], ms[0], vs[0])]
+    assert fused.bytes_per_param(2, 2) == 22
+    with pytest.raises(ValueError, match="do not take"):
+        fused.pack_table(ps, gs[:3] + [torch.zeros(41)], ms, vs, chunk=16)
 
 
 def test_adamw_optimizes_quadratic():
